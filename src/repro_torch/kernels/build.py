@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -25,8 +25,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# name -> {"seconds": build time, "log": nvcc/ptxas output}; filled by the
-# build this process ran (empty when the library was already on disk)
+# name -> {"seconds": wall time from the start of its build batch until its
+# nvcc finished, "log": nvcc/ptxas output}; filled by the builds this
+# process ran (empty when the library was already on disk)
 BUILD_INFO: Dict[str, Dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -47,28 +48,47 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
+def build_many(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` process per source, all started together."""
+    out = {n: library_path(n) for n in names}
+    todo = [n for n, p in out.items() if not p.exists()]
+    if not todo:
         return out
+    compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd: List[str] = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    procs = {}
     t0 = time.perf_counter()
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {res.returncode}):\n{res.stderr}")
-        os.replace(tmp, out)          # atomic: concurrent builders agree
+        for n in todo:
+            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+            os.close(fd)
+            cmd: List[str] = [compiler, *NVCC_FLAGS, "-o", tmp,
+                              str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {n}.cu "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, out[n])   # atomic: concurrent builds agree
+            BUILD_INFO[n] = {"seconds": time.perf_counter() - t0,
+                             "log": log}
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                        "log": res.stdout + res.stderr}
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    return build_many([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

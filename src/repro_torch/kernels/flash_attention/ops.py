@@ -1,0 +1,117 @@
+"""Wrapper of kernel K5, the hand-written CUDA flash attention
+(``csrc/flash_attention.cu``).
+
+`flash_attention` takes the model's layout, q (B, T, H, hd) and k/v
+(B, S, KV, hd) with H % KV == 0, and returns (B, T, H, hd). For CUDA tensors
+it launches the kernel (counted in
+``repro_torch.kernels.LAUNCHES["flash_attention"]``) or raises; the kernel
+reads KV head h // (H // KV) by strides, so nothing is transposed, padded or
+broadcast. Only for CPU tensors does it run the plain version
+`flash_attention_plain`, which folds the heads as the reference's ops.py
+does and calls `flash_attention_ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_FNS: Dict[str, object] = {}
+
+
+def _kernel(dtype: torch.dtype):
+    name = _SUFFIX[dtype]
+    if name not in _FNS:
+        from repro_torch.kernels import build
+        fn = getattr(build.load("flash_attention"), f"flash_attention_{name}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """The plain version in the model's layout: (B, T, H, hd) queries,
+    (B, S, KV, hd) keys and values -> (B, T, H, hd)."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+
+    def fold_kv(a):
+        return a.permute(0, 2, 1, 3)[:, :, None].expand(
+            B, KV, G, S, a.shape[-1]).reshape(B * H, S, a.shape[-1])
+
+    o = flash_attention_ref(q.permute(0, 2, 1, 3).reshape(B * H, T, hd),
+                            fold_kv(k), fold_kv(v), causal=causal,
+                            window=window, softcap=softcap)
+    return o.reshape(B, H, T, -1).permute(0, 2, 1, 3)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention takes q (B, T, H, hd) and k, v "
+                         f"(B, S, KV, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or k.shape[2] == 0 \
+            or H % k.shape[2] != 0:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "form grouped-query attention")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SUFFIX:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v lie on different devices")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd)) v per head, with KV head h // (H // KV);
+    query t sees key s when s <= t (causal) and s > t - window (window > 0).
+    Keys beyond S are never seen, causal or not."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
+                         f"{q.device}")
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention's kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    if any(a.stride(-1) != 1 for a in (q, k, v)):
+        raise ValueError("flash_attention's kernel needs unit stride along "
+                         "head_dim")
+    if B * H > 65535 or max(T, S) >= 2 ** 31 or S == 0:
+        raise ValueError(f"flash_attention: shape B={B}, T={T}, S={S}, "
+                         f"H={H} out of the kernel's range")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"q lies on {q.device}, not the current device")
+    o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*(s for a in (q, k, v, o)
+                                      for s in a.stride()[:3]))
+    rc = _kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), B, T, S, H, KV, hd, strides,
+                          int(causal), int(window), float(softcap),
+                          torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["flash_attention"] += 1
+    return o
+
+
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_ref"]

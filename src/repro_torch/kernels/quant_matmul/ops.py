@@ -1,0 +1,82 @@
+"""Wrapper of kernel K2, the hand-written CUDA quantized matmul
+(``csrc/quant_matmul.cu``).
+
+`quant_matmul` launches the kernel for CUDA tensors (counted in
+``repro_torch.kernels.LAUNCHES["quant_matmul"]``) or raises; only for CPU
+tensors does it run the plain version `quant_matmul_ref`. The reference's
+padding to (128, 128, 128) blocks is gone: the kernel masks its ragged edges.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_FNS: Dict[str, object] = {}
+
+
+def _kernel(dtype: torch.dtype):
+    name = _SUFFIX[dtype]
+    if name not in _FNS:
+        from repro_torch.kernels import build
+        fn = getattr(build.load("quant_matmul"), f"quant_matmul_{name}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]
+
+
+def _check(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor) -> None:
+    if x.dim() != 2 or w_q.dim() != 2 or scales.dim() != 1:
+        raise ValueError(f"quant_matmul takes x (M, K), w_q (K, N), scales "
+                         f"(N,); got {tuple(x.shape)}, {tuple(w_q.shape)}, "
+                         f"{tuple(scales.shape)}")
+    if x.shape[1] != w_q.shape[0] or scales.shape[0] != w_q.shape[1]:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_q "
+                         f"{tuple(w_q.shape)}, scales {tuple(scales.shape)}")
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w_q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"w_q must be int8 and scales float32, got "
+                        f"{w_q.dtype}, {scales.dtype}")
+    if not (x.device == w_q.device == scales.device):
+        raise ValueError("x, w_q and scales lie on different devices")
+
+
+def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                 scales: torch.Tensor) -> torch.Tensor:
+    """y = x @ (w_q * scales[None, :]): x (M, K) float32/bf16, w_q (K, N)
+    int8 on a ``bits`` grid, scales (N,) float32 -> (M, N) in x's dtype."""
+    _check(x, w_q, scales)
+    if x.device.type == "cpu":
+        return quant_matmul_ref(x, w_q, scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul runs on CUDA or CPU, not {x.device}")
+    if not (x.is_contiguous() and w_q.is_contiguous()
+            and scales.is_contiguous()):
+        raise ValueError("quant_matmul's kernel takes contiguous tensors")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"x lies on {x.device}, not the current device")
+    M, K = x.shape
+    N = w_q.shape[1]
+    if max(M, K, N) >= 2 ** 31 or M > 8 * 65535:
+        raise ValueError(f"quant_matmul: shape {(M, K, N)} too large")
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    vec = int(N % 4 == 0 and w_q.data_ptr() % 4 == 0)
+    rc = _kernel(x.dtype)(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
+                          y.data_ptr(), M, K, N, vec,
+                          torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["quant_matmul"] += 1
+    return y
+
+
+__all__ = ["quant_matmul", "quant_matmul_ref"]

@@ -1,0 +1,248 @@
+"""Primitive layers of the LM track: dense, norms, embeddings, MLPs, RoPE.
+
+The PyTorch counterpart of `repro.nn.layers`. Parameters are plain nested
+dictionaries with the JAX package's leaf names and layouts (a 3-D dense
+kernel is ``(d, H, hd)``, ``dense_in3`` takes ``(H, hd, d)``), so weights
+carry between the two packages unchanged. Initializers draw from an explicit
+``torch.Generator`` on the generator's device.
+
+A dense kernel may also be a quantized leaf ``{"q": int8, "scale": f32}``
+(`repro_torch.serve.quantized`): `dense_apply` and `dense_in3_apply` then
+run the product through kernel K2 (`kernels.quant_matmul`) on the int8
+weight and its per-output-column scales.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.quant_matmul import quant_matmul
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A config's dtype name (``cfg.dtype``) or a torch dtype -> torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _DTYPES[str(dtype)]
+
+
+def is_qleaf(x) -> bool:
+    return isinstance(x, dict) and set(x) == {"q", "scale"}
+
+
+def dequantize(leaf, dtype) -> torch.Tensor:
+    """``(q.float() * scale).to(dtype)``, as `repro.serve.quantized`."""
+    return (leaf["q"].float() * leaf["scale"]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def trunc_normal(generator: torch.Generator, shape, std: float, dtype,
+                 device=None) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], times ``std``, drawn in float32
+    on the generator's device and cast (the JAX package's ``_trunc_normal``;
+    the two frameworks' random bits differ)."""
+    t = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * std).to(device=device or generator.device,
+                        dtype=torch_dtype(dtype))
+
+
+def dense_init(generator, d_in: int, d_out: int, dtype, *, bias=False,
+               out_shape=None, lead=(), device=None):
+    """Dense kernel; ``out_shape`` reshapes the output dim (e.g. (H, hd)).
+    ``lead`` prepends stacking axes (a segment's ``repeats``)."""
+    shape = (d_in,) + tuple(out_shape) if out_shape else (d_in, d_out)
+    p = {"kernel": trunc_normal(generator, tuple(lead) + shape,
+                                1.0 / math.sqrt(d_in), dtype, device)}
+    if bias:
+        p["bias"] = torch.zeros(tuple(lead) + shape[1:],
+                                dtype=torch_dtype(dtype), device=device)
+    return p
+
+
+def dense_in3_init(generator, h: int, hd: int, d_out: int, dtype, *,
+                   bias=False, lead=(), device=None):
+    p = {"kernel": trunc_normal(generator, tuple(lead) + (h, hd, d_out),
+                                1.0 / math.sqrt(h * hd), dtype, device)}
+    if bias:
+        p["bias"] = torch.zeros(tuple(lead) + (d_out,),
+                                dtype=torch_dtype(dtype), device=device)
+    return p
+
+
+def _quant_product(x: torch.Tensor, leaf, k_dim: int, n_dim: int,
+                   scales: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ dequant(q viewed (K, N), per-column scales) via K2."""
+    lead = x.shape[:-1]
+    y = quant_matmul(x.reshape(-1, k_dim), leaf["q"].reshape(k_dim, n_dim),
+                     scales)
+    return y.reshape(*lead, n_dim)
+
+
+def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
+    k = p["kernel"]
+    if is_qleaf(k):
+        q = k["q"]
+        if q.dim() == 2:
+            y = _quant_product(x, k, q.shape[0], q.shape[1], k["scale"])
+        elif q.dim() == 3:  # (d, H, hd): the per-hd scale serves every head
+            d, H, hd = q.shape
+            y = _quant_product(x, k, d, H * hd, k["scale"].repeat(H))
+            y = y.reshape(*x.shape[:-1], H, hd)
+        else:
+            raise ValueError(tuple(q.shape))
+    elif k.dim() == 2:
+        y = torch.matmul(x, k)
+    elif k.dim() == 3:  # (d, H, hd)
+        d, H, hd = k.shape
+        y = torch.matmul(x, k.reshape(d, H * hd)).reshape(
+            *x.shape[:-1], H, hd)
+    else:
+        raise ValueError(tuple(k.shape))
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
+
+
+def dense_in3_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """Contract a (H, hd, d) kernel against (..., H, hd) input."""
+    k = p["kernel"]
+    H, hd = x.shape[-2:]
+    xf = x.reshape(*x.shape[:-2], H * hd)
+    if is_qleaf(k):
+        d = k["q"].shape[-1]
+        y = _quant_product(xf, k, H * hd, d, k["scale"])
+    else:
+        y = torch.matmul(xf, k.reshape(H * hd, k.shape[-1]))
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def norm_init(d: int, norm_type: str = "rmsnorm", *, lead=(), device=None):
+    """float32 scales, as the JAX package stores them for every model."""
+    shape = tuple(lead) + (d,)
+    if norm_type == "rmsnorm":
+        # zero-centred scale, always applied as (1 + scale)
+        return {"scale": torch.zeros(shape, device=device)}
+    if norm_type == "layernorm":
+        return {"scale": torch.ones(shape, device=device),
+                "bias": torch.zeros(shape, device=device)}
+    raise ValueError(norm_type)
+
+
+def norm_apply(p, x: torch.Tensor, norm_type: str = "rmsnorm", *,
+               unit_offset: bool = True, eps: float = 1e-6) -> torch.Tensor:
+    # unit_offset kept for API parity; rmsnorm is always (1 + scale)
+    del unit_offset
+    xf = x.float()
+    if norm_type == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        y = y * (1.0 + p["scale"].float())
+    elif norm_type == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        raise ValueError(norm_type)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+
+def embedding_init(generator, vocab: int, d: int, dtype, device=None):
+    return {"table": trunc_normal(generator, (vocab, d), 1.0, dtype, device)}
+
+
+def embedding_apply(p, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """A quantized table dequantizes only the gathered rows, to ``dtype``."""
+    t = p["table"]
+    if is_qleaf(t):
+        return (t["q"][tokens].float() * t["scale"]).to(torch_dtype(dtype))
+    return t[tokens]
+
+
+# ---------------------------------------------------------------------------
+# activations / MLP variants
+# ---------------------------------------------------------------------------
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(torch.relu(x))
+
+
+def mlp_init(generator, d: int, d_ff: int, mlp_type: str, dtype, *,
+             bias=False, lead=(), device=None):
+    kw = dict(bias=bias, lead=lead, device=device)
+    if mlp_type in ("swiglu", "geglu"):
+        return {"wi_gate": dense_init(generator, d, d_ff, dtype, **kw),
+                "wi_up": dense_init(generator, d, d_ff, dtype, **kw),
+                "wo": dense_init(generator, d_ff, d, dtype, **kw)}
+    if mlp_type in ("relu2", "gelu"):
+        return {"wi": dense_init(generator, d, d_ff, dtype, **kw),
+                "wo": dense_init(generator, d_ff, d, dtype, **kw)}
+    raise ValueError(mlp_type)
+
+
+def mlp_apply(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    if mlp_type == "swiglu":
+        h = F.silu(dense_apply(p["wi_gate"], x)) * dense_apply(p["wi_up"], x)
+        return dense_apply(p["wo"], h)
+    if mlp_type == "geglu":
+        h = F.gelu(dense_apply(p["wi_gate"], x), approximate="tanh") \
+            * dense_apply(p["wi_up"], x)
+        return dense_apply(p["wo"], h)
+    if mlp_type == "relu2":
+        return dense_apply(p["wo"], squared_relu(dense_apply(p["wi"], x)))
+    if mlp_type == "gelu":
+        return dense_apply(p["wo"], F.gelu(dense_apply(p["wi"], x),
+                                           approximate="tanh"))
+    raise ValueError(mlp_type)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., T, H, hd); positions broadcastable to (..., T). Computed in
+    float32 and cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs           # (..., T, hd/2)
+    sin = torch.sin(angles)[..., None, :]                   # (..., T, 1, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap if cap else x

@@ -1,5 +1,8 @@
-"""Card-only tests of the port's CUDA kernels: each kernel against its
-plain PyTorch version and the numpy oracle, bit for bit. They import no
+"""Card-only tests of the port's CUDA kernels: K1 (netlist_sim) against
+its plain PyTorch version and the numpy oracle, bit for bit; K2
+(quant_matmul) and K5 (flash_attention) against their plain versions within
+the bounds stated beside them (`quant_matmul_tolerance`,
+`flash_attention_tolerance`), alone and inside the model. They import no
 JAX (the machine with the card has none) and skip without a CUDA device;
 on the card run them without the JAX-importing conftest:
 
@@ -10,10 +13,18 @@ import pytest
 import torch
 
 from repro_torch import circuit
+from repro_torch.configs import ARCHS
 from repro_torch.core import minimize as MZ
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import netlist_sim as NS
+from repro_torch.kernels import quant_matmul as QM
+from repro_torch.kernels.flash_attention import ops as FAO
 from repro_torch.kernels.netlist_sim import ops as NSO
+from repro_torch.kernels.quant_matmul import ops as QMO
+from repro_torch.nn import attention as A
+from repro_torch.nn import transformer as T
+from repro_torch.serve import quantized as QS
 
 
 def _net(dims, bits, seed, sparsity=0.0, clusters=None):
@@ -94,3 +105,160 @@ def test_netlist_sim_wrapper_never_falls_back_on_cuda(monkeypatch):
     monkeypatch.setattr("repro_torch.kernels.build.load", broken)
     with pytest.raises(RuntimeError, match="nvcc"):
         NS.netlist_sim(pop, x)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K5
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def card():
+    """A CUDA device with float32 products in full float32: TF32 off for
+    matmuls and cuDNN, set here and restored after the test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda", torch.cuda.current_device())
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# (M, K, N): qwen3-0.6b's 7 weight shapes at the decode batch of 8 (q, k/v,
+# o, gate/up, down), a ragged shape, N not a multiple of 4 (byte loads),
+# more rows than one block
+QMM_SHAPES = [(8, 1024, 2048), (8, 1024, 1024), (8, 2048, 1024),
+              (8, 1024, 3072), (8, 3072, 1024), (5, 1000, 3000),
+              (7, 130, 50), (17, 64, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QMM_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quant_matmul_kernel_matches_plain(card, shape, dtype):
+    M, K, N = shape
+    g = torch.Generator(device=card).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    w = torch.randint(-127, 128, (K, N), generator=g, device=card,
+                      dtype=torch.int8)
+    s = (torch.rand((N,), generator=g, device=card) + 0.1) * 0.01
+    reset_launches()
+    got = QM.quant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_matmul"] == 1
+    ref = QM.quant_matmul_ref(x, w, s)
+    assert got.dtype == x.dtype and got.shape == (M, N)
+    tol = QM.quant_matmul_tolerance(x, w, s, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+# name: (B, T, S, H, KV, hd, causal, window, softcap, dtype)
+FLASH_CASES = {
+    "prefill_bf16": (4, 1024, 1024, 16, 8, 128, True, 0, 0.0, "bfloat16"),
+    "prefill_f32": (1, 1024, 1024, 16, 8, 128, True, 0, 0.0, "float32"),
+    "ragged_t": (2, 1000, 1000, 4, 2, 128, True, 0, 0.0, "float32"),
+    "window": (1, 700, 700, 4, 1, 64, True, 256, 0.0, "bfloat16"),
+    "softcap": (2, 300, 300, 8, 2, 128, True, 0, 30.0, "float32"),
+    "non_causal_padded": (2, 200, 333, 4, 4, 64, False, 0, 0.0, "float32"),
+    "head_dim_16": (2, 77, 77, 4, 2, 16, True, 0, 0.0, "float32"),
+    "head_dim_256": (1, 130, 130, 2, 1, 256, True, 0, 50.0, "bfloat16"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(card, case):
+    B, Tq, S, H, KV, hd, causal, window, cap, dtype = FLASH_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + S + hd)
+    dt = DTYPES[dtype]
+    q = torch.randn((B, Tq, H, hd), generator=g, device=card).to(dt)
+    k = torch.randn((B, S, KV, hd), generator=g, device=card).to(dt)
+    v = torch.randn((B, S, KV, hd), generator=g, device=card).to(dt)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    reset_launches()
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    ref = FA.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dt and got.shape == (B, Tq, H, hd)
+    tol = FA.flash_attention_tolerance(v, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_lm_wrappers_never_fall_back_on_cuda(card, monkeypatch):
+    """On CUDA tensors K2's and K5's wrappers launch their kernels or
+    raise; they never run the plain versions instead."""
+    def forbidden(*a, **k):
+        raise AssertionError("plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(QMO, "quant_matmul_ref", forbidden)
+    monkeypatch.setattr(FAO, "flash_attention_ref", forbidden)
+    x = torch.ones((2, 64), device=card)
+    w = torch.ones((64, 8), dtype=torch.int8, device=card)
+    assert QM.quant_matmul(x, w, torch.ones(8, device=card)).is_cuda
+    q = torch.ones((1, 8, 2, 64), device=card)
+    assert FA.flash_attention(q, q, q).is_cuda
+
+    def broken(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr("repro_torch.kernels.build.load", broken)
+    monkeypatch.setattr(QMO, "_FNS", {})
+    monkeypatch.setattr(FAO, "_FNS", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        QM.quant_matmul(x, w, torch.ones(8, device=card))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        FA.flash_attention(q, q, q)
+
+
+QUANT_CFG = dict(vocab_size=512, d_model=256, num_heads=4, num_kv_heads=2,
+                 head_dim=64, d_ff=512)
+
+
+@pytest.mark.cuda
+def test_prefill_goes_through_k5(card, monkeypatch):
+    cfg = ARCHS["qwen3-0.6b"].reduced(**QUANT_CFG)
+    params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
+                    device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=card)
+    reset_launches()
+    got, _ = T.forward(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+    monkeypatch.setattr(A, "flash_attention", FA.flash_attention_plain)
+    want, _ = T.forward(params, {"tokens": tokens}, cfg)
+    # float32 end to end: two layers of reordered sums
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_quantized_decode_goes_through_k2(card, monkeypatch):
+    cfg = ARCHS["qwen3-0.6b"].reduced(**QUANT_CFG)
+    params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
+                    device=card)
+    qp = QS.quantize_params(params, bits=8)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 6), device=card)
+    logits = {}
+    for variant in ("kernel", "plain"):
+        if variant == "plain":
+            monkeypatch.setattr("repro_torch.nn.layers.quant_matmul",
+                                QM.quant_matmul_ref)
+        state = T.init_decode_state(cfg, 8, 16, torch.float32, device=card)
+        reset_launches()
+        out = []
+        for t in range(tokens.shape[1]):
+            lg, state = T.decode_step(qp, state, tokens[:, t:t + 1], cfg)
+            out.append(lg)
+        torch.cuda.synchronize()
+        logits[variant] = torch.cat(out, 1)
+        expect = 7 * cfg.num_layers * tokens.shape[1]
+        assert LAUNCHES["quant_matmul"] == (expect if variant == "kernel"
+                                            else 0)
+    torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
+                               atol=1e-4)

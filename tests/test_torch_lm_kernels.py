@@ -1,0 +1,225 @@
+"""The port's LM kernels K2 (`quant_matmul`) and K5 (`flash_attention`)
+against the JAX package's Pallas kernels, run in interpret mode as
+``tests/test_kernels.py`` runs them, and against the JAX oracles. The same
+numpy inputs, made from a seed, go to both sides; bf16 inputs are rounded to
+bf16 once (both frameworks round to nearest even, so both sides see the
+same bits). On CPU tensors the wrappers run their plain versions, so the
+kernels' launch counts stay 0; the CUDA kernels are held against the plain
+versions by the card-only tests in ``tests/test_torch_cuda.py``.
+
+Tolerances: float32 1e-4 against the Pallas kernels (they accumulate
+K / block_k partial tiles, or KV tiles with an online softmax, where the
+plain versions take one product: a few ulp of reassociation at these
+depths) and 1e-5 against the JAX oracles (one product each, summed in
+another order); bf16 outputs 3e-2 (one bf16 ulp is 2^-8 relative, and the
+Pallas kernels round their per-tile partial results differently)."""
+import jax
+
+if not hasattr(jax.experimental, "enable_x64"):
+    # jax >= 0.9 moved the name to jax.enable_x64; the reference imports it
+    # from jax.experimental (circuit/simulate.py, kernels/netlist_sim/ops.py)
+    jax.experimental.enable_x64 = jax.enable_x64
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402,E501
+from repro.kernels.flash_attention import flash_attention_ref as jax_fref  # noqa: E402,E501
+from repro.kernels.quant_matmul import quant_matmul as jax_qmm  # noqa: E402
+from repro.kernels.quant_matmul import quant_matmul_ref as jax_qref  # noqa: E402,E501
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels import flash_attention as TFA  # noqa: E402
+from repro_torch.kernels import quant_matmul as TQM  # noqa: E402
+from repro_torch.nn import attention as TA  # noqa: E402
+from repro_torch.nn import transformer as TT  # noqa: E402
+
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+REF_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    if dtype == "bfloat16":
+        return (jnp.asarray(a, jnp.bfloat16),
+                torch.tensor(a, dtype=torch.float32).to(torch.bfloat16))
+    return jnp.asarray(a, jnp.float32), torch.tensor(a, dtype=torch.float32)
+
+
+def _np(y) -> np.ndarray:
+    if isinstance(y, torch.Tensor):
+        return y.float().numpy()
+    return np.asarray(y, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# K2: quant_matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 64, 96), (5, 100, 300), (17, 130, 50),
+                                   (1, 64, 64), (32, 64, 32)])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_plain_matches_pallas_and_ref(M, K, N, bits, dtype):
+    r = np.random.default_rng(M * 1000 + K + N + bits)
+    qmax = 2 ** (bits - 1) - 1
+    x = r.normal(size=(M, K)).astype(np.float32)
+    w = r.integers(-qmax, qmax + 1, (K, N)).astype(np.int8)
+    s = ((np.abs(r.normal(size=N)) + 0.1) * 0.01).astype(np.float32)
+    xj, xt = _pair(x, dtype)
+    reset_launches()
+    got = TQM.quant_matmul(xt, torch.from_numpy(w), torch.from_numpy(s))
+    assert got.dtype == xt.dtype and got.shape == (M, N)
+    assert LAUNCHES["quant_matmul"] == 0
+    pallas = jax_qmm(xj, jnp.asarray(w), jnp.asarray(s), block_m=32,
+                     block_n=32, block_k=64)
+    ref = jax_qref(xj, jnp.asarray(w), jnp.asarray(s))
+    np.testing.assert_allclose(_np(got), _np(pallas), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=REF_TOL[dtype],
+                               atol=REF_TOL[dtype])
+
+
+def test_quant_matmul_checks_its_inputs():
+    x = torch.zeros((4, 8))
+    w = torch.zeros((8, 16), dtype=torch.int8)
+    s = torch.ones(16)
+    with pytest.raises(ValueError):
+        TQM.quant_matmul(x, w[:4], s)
+    with pytest.raises(TypeError):
+        TQM.quant_matmul(x, w.float(), s)
+    with pytest.raises(TypeError):
+        TQM.quant_matmul(x.double(), w, s)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        TQM.quant_matmul(x.to("meta"), w.to("meta"), s.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# K5: flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _qkv(B, T, S, H, KV, hd, seed):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(B, T, H, hd)).astype(np.float32),
+            r.normal(size=(B, S, KV, hd)).astype(np.float32),
+            r.normal(size=(B, S, KV, hd)).astype(np.float32))
+
+
+def _jax_ref(q, k, v, **kw):
+    """The JAX oracle in the model's layout (GQA folded as its ops.py)."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+
+    def fold(a):
+        return jnp.broadcast_to(a.transpose(0, 2, 1, 3)[:, :, None],
+                                (B, KV, G, S, hd)).reshape(B * H, S, hd)
+
+    o = jax_fref(q.transpose(0, 2, 1, 3).reshape(B * H, T, hd), fold(k),
+                 fold(v), **kw)
+    return o.reshape(B, H, T, hd).transpose(0, 2, 1, 3)
+
+
+CASES = {
+    # name: (B, T, H, KV, hd, window, softcap)
+    "gqa1": (1, 64, 4, 4, 16, 0, 0.0),
+    "gqa2_ragged": (2, 50, 4, 2, 32, 0, 0.0),
+    "gqa4_ragged": (1, 96, 4, 1, 16, 0, 0.0),
+    "window": (1, 128, 2, 2, 16, 32, 0.0),
+    "window_ragged_gqa2": (1, 77, 4, 2, 16, 20, 0.0),
+    "softcap": (1, 64, 2, 1, 16, 0, 50.0),
+    "softcap_window_gqa4": (2, 45, 8, 2, 32, 16, 30.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_and_ref(case, dtype):
+    B, T, H, KV, hd, window, cap = CASES[case]
+    q, k, v = _qkv(B, T, T, H, KV, hd, seed=len(case) + T)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (q, k, v))
+    reset_launches()
+    got = TFA.flash_attention(qt, kt, vt, causal=True, window=window,
+                              softcap=cap)
+    assert got.dtype == qt.dtype and got.shape == (B, T, H, hd)
+    assert LAUNCHES["flash_attention"] == 0
+    pallas = jax_flash(qj, kj, vj, causal=True, window=window, softcap=cap,
+                       block_q=32, block_k=32)
+    ref = _jax_ref(qj, kj, vj, causal=True, window=window, softcap=cap)
+    np.testing.assert_allclose(_np(got), _np(pallas), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=REF_TOL[dtype],
+                               atol=REF_TOL[dtype])
+
+
+@pytest.mark.parametrize("T,S", [(50, 50), (40, 70)])
+def test_flash_attention_non_causal_padded_matches_oracle(T, S):
+    """Fault C2 of the reference: with S not a multiple of block_k and no
+    causal mask, the Pallas wrapper lets padded keys take softmax weight.
+    The port masks keys beyond S, so it is held against the oracle."""
+    q, k, v = _qkv(2, T, S, 4, 2, 16, seed=T + S)
+    got = TFA.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=False)
+    ref = _jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=False)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_checks_its_inputs():
+    q = torch.zeros((1, 8, 4, 16))
+    k = torch.zeros((1, 8, 3, 16))
+    with pytest.raises(ValueError):
+        TFA.flash_attention(q, k, k)
+    with pytest.raises(TypeError):
+        TFA.flash_attention(q, q.double(), q.double())
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        TFA.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# attend routes the prefill case, and only it, through K5
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def k5_spy(monkeypatch):
+    calls = []
+    real = TA.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(TA, "flash_attention", spy)
+    return calls
+
+
+def test_attend_routes_prefill_through_k5_and_decode_not(k5_spy):
+    cfg = ARCHS["qwen3-0.6b"].reduced()
+    params = TT.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    TT.forward(params, {"tokens": tokens}, cfg)
+    assert len(k5_spy) == cfg.num_layers
+    assert all(kw == {"causal": True, "window": 0, "softcap": 0.0}
+               for _, _, kw in k5_spy)
+    k5_spy.clear()
+    state = TT.init_decode_state(cfg, 2, 16, torch.float32, device="cpu")
+    for t in range(3):
+        _, state = TT.decode_step(params, state, tokens[:, t:t + 1], cfg)
+    assert k5_spy == []
+
+
+def test_attend_cases_off_the_kernel_stay_plain(k5_spy):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 8, 4, 2, 16, 3))
+    TA.attend(q, k, v, causal=True, q_offset=4)
+    TA.attend(q, k, v, causal=True, kv_len=6)
+    TA.attend(q, k, v, causal=False)
+    TA.attend(q, k, v, causal=True, k_positions=torch.arange(8))
+    assert k5_spy == []
+    TA.attend(q, k, v, causal=True, window=3, softcap=20.0)
+    assert k5_spy[0][2] == {"causal": True, "window": 3, "softcap": 20.0}

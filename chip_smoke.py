@@ -41,14 +41,34 @@ Phases, each fatal on failure, each with its seconds printed:
 11. K2's and K5's times on the card at those shapes (CUDA events, weights
    and inputs rotated through more than the L2 cache), their plain
    versions', one PyTorch library call's for the same function (a
-   yardstick only), and their bounds.
+   yardstick only), and their bounds;
+12. K6 (ssm_scan) against its plain version on the card: falcon-mamba-7b's
+   prefill shape, a ragged T, a ragged d, a state of 4, bf16 and float32,
+   within the bound stated beside the plain version;
+13. K2 at falcon-mamba-7b's decode shapes (in_proj, x_proj, dt_proj on its
+   float32 input, out_proj, the untied LM head) against its plain version;
+14. falcon-mamba-7b prefill at full width (seeded random bf16 weights,
+   7,272,665,088 parameters, 4 prompts of 1024 tokens), K6's launches
+   counted (64), the last-position logits on 2 prompts of 256 tokens held
+   against the same step on K6's plain version;
+15. falcon-mamba-7b quantized decode: w8 weights, batch 8, 16 prompt tokens
+   fed one at a time, then 16 greedy tokens, K2's launches counted (257 a
+   step), the same tokens teacher-forced through K2's plain version, the
+   device's busy share;
+16. falcon-mamba-7b dense ``ServeEngine`` (batch 4) answering 6 requests of
+   16 prompt and 16 new tokens over the recurrent caches; tokens/s and the
+   busy share;
+17. K6's and K2's times at falcon-mamba-7b's shapes, their plain versions'
+   and their bounds.
 
+Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, with no result, without a CUDA device or outside
 a checkout of the repository.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -65,6 +85,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor-core rate
+TF32_TENSOR_FLOPS = 495e12     # dense TF32 rate: the most a float32 product
+                               # could reach, so a lower bound on its time
 
 
 def fail(msg: str) -> None:
@@ -103,19 +125,25 @@ def synth_compiled(MZ, dims, bits, *, seed, sparsity=0.0, clusters=None):
 
 
 class Phase:
-    """Prints a phase's wall seconds when it ends."""
+    """Prints a phase's wall seconds and the device's peak allocated memory
+    when it ends."""
 
     def __init__(self, n: int, name: str):
         self.n, self.name = n, name
 
     def __enter__(self):
+        import torch
+        torch.cuda.reset_peak_memory_stats()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
+        import torch
         if exc[0] is None:
             print(f"[{self.n}] phase '{self.name}': "
-                  f"{time.perf_counter() - self.t0:.3f} s")
+                  f"{time.perf_counter() - self.t0:.3f} s, peak device "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB")
 
 
 def device_busy(fn):
@@ -534,6 +562,376 @@ def lm_serving(card: str, dev):
     ]
 
 
+def ssm_inputs(gen, B, T, d, N, dtype, dev):
+    """Selective-scan inputs as the model makes them: u, B_, C_ in
+    ``dtype``; dt = softplus(normal - 1), A = -(1..N) times a log-normal
+    factor, D, all float32."""
+    import torch
+    import torch.nn.functional as F
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    u = normal(B, T, d).to(dtype)
+    dt = F.softplus(normal(B, T, d) - 1.0)
+    B_, C_ = normal(B, T, N).to(dtype), normal(B, T, N).to(dtype)
+    A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32) \
+        * torch.exp(0.3 * normal(d, N))
+    return u, dt, B_, C_, A, normal(d)
+
+
+def qmm_bound_ms(M, K, N, x_bytes):
+    """(bound ms, "bytes" or "operations") of y = x @ dequant(w): x read,
+    int8 weight and scales read, y written once; 2MKN operations at the
+    bf16 tensor-core rate (float32 x: the TF32 rate, the most a float32
+    product could reach)."""
+    nbytes = M * K * x_bytes + K * N + N * 4 + M * N * x_bytes
+    rate = BF16_TENSOR_FLOPS if x_bytes == 2 else TF32_TENSOR_FLOPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * M * K * N / rate * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def mamba_serving(card: str, dev):
+    """Phases 12-17: K6 and K2 on the card at falcon-mamba-7b's shapes, then
+    falcon-mamba-7b serving at full width through prefill, quantized decode
+    and the dense engine. Returns K6's entry of the ``{"kernels": [...]}``
+    line and K2's numbers on this path."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import ssm as S
+    from repro_torch.nn import transformer as T
+    from repro_torch.serve import quantized as QS
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.train_state import make_prefill_step
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cfg = ARCHS["falcon-mamba-7b"]
+    s = cfg.ssm
+    d, di, N = cfg.d_model, s.expand * cfg.d_model, s.d_state
+    r = s.dt_rank
+    layers = cfg.num_layers
+    # one layer's 4 products at decode (K, N, x's type) and the LM head
+    shapes = {"in_proj": (d, 2 * di, "bf16"),
+              "x_proj": (di, r + 2 * N, "bf16"),
+              "dt_proj": (r, di, "f32"),
+              "out_proj": (di, d, "bf16"),
+              "lm_head": (d, cfg.vocab_size, "bf16")}
+    # one bf16 rounding (2^-8 relative) of the residual stream in each of
+    # 64 layers, added up without amplification
+    rel_bound = layers * 2.0 ** -8
+
+    # -- 12. K6 against its plain version --------------------------------
+    ssm_err = 0.0
+    with Phase(12, "ssm_scan vs plain"):
+        cases = {  # (B, T, d, N)
+            "prefill": (4, 1024, di, N),
+            "ragged_t_333": (2, 333, di, N),
+            "ragged_d_1000": (2, 256, 1000, N),
+            "state_4": (2, 256, 2048, 4),
+        }
+        for name, (B, Tq, dd, n) in cases.items():
+            for dname, dt in dtypes.items():
+                args = ssm_inputs(gen, B, Tq, dd, n, dt, dev)
+                got = SS.ssm_scan(*args)
+                torch.cuda.synchronize()
+                ref = SS.ssm_scan_ref(*args)
+                tol = SS.ssm_scan_tolerance(*args, ref)
+                diff = (got.float() - ref.float()).abs()
+                err = float(diff.max())
+                ssm_err = max(ssm_err, err)
+                ok = bool((diff <= tol).all())
+                print(f"[12] ssm_scan {name} B={B} T={Tq} d={dd} N={n} "
+                      f"{dname}: max abs err {err:.3e}, tolerance at that "
+                      f"element {float(tol.flatten()[diff.argmax()]):.3e}, "
+                      f"smallest tolerance {float(tol.min()):.3e}, "
+                      f"within={ok}")
+                check(ok, f"ssm_scan disagrees on {name} {dname}")
+                del args, got, ref, tol, diff
+
+    # -- 13. K2 at this model's shapes -----------------------------------
+    qmm_err = 0.0
+    with Phase(13, "quant_matmul vs plain, falcon-mamba-7b shapes"):
+        for name, (K, Nn, xname) in shapes.items():
+            for dname in sorted({xname, "f32"}):
+                x = torch.randn((8, K), generator=gen, device=dev).to(
+                    dtypes[dname])
+                w = torch.randint(-127, 128, (K, Nn), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                sc = (torch.rand((Nn,), generator=gen, device=dev) + 0.1) \
+                    * 0.01
+                got = QM.quant_matmul(x, w, sc)
+                torch.cuda.synchronize()
+                ref = QM.quant_matmul_ref(x, w, sc)
+                tol = QM.quant_matmul_tolerance(x, w, sc, ref)
+                diff = (got.float() - ref.float()).abs()
+                err = float(diff.max())
+                qmm_err = max(qmm_err, err)
+                ok = bool((diff <= tol).all())
+                print(f"[13] quant_matmul {name} M=8 K={K} N={Nn} {dname}: "
+                      f"max abs err {err:.3e}, tolerance at that element "
+                      f"{float(tol.flatten()[diff.argmax()]):.3e}, "
+                      f"within={ok}")
+                check(ok, f"quant_matmul disagrees at {name} {dname}")
+                del x, w, sc, got, ref, tol, diff
+
+    # -- 14. prefill at full width ---------------------------------------
+    with Phase(14, "falcon-mamba-7b prefill"):
+        t0 = time.perf_counter()
+        params = T.init(gen, cfg, device=dev)
+        torch.cuda.synchronize()
+        n_params = T.param_count(params)
+        print(f"[14] falcon-mamba-7b: {layers} Mamba-1 layers, d_model {d}, "
+              f"d_inner {di}, d_state {N}, d_conv {s.d_conv}, dt_rank {r}, "
+              f"vocab {cfg.vocab_size}, untied head, {cfg.dtype}: "
+              f"{n_params} parameters drawn in "
+              f"{time.perf_counter() - t0:.3f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+        check(n_params == 7272665088, f"{n_params} parameters, not the "
+              "JAX package's 7272665088")
+        prefill = make_prefill_step(cfg)
+        Bp, Tp = 4, 1024
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (Bp, Tp),
+                                         generator=gen, device=dev)}
+        reset_launches()
+        last = prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        k6_launches = launches["ssm_scan"]
+        print(f"[14] prefill {Bp} x {Tp} tokens: launches {launches}")
+        check(k6_launches == layers, f"prefill launched ssm_scan "
+              f"{k6_launches} times, not {layers}")
+        check(tuple(last.shape) == (Bp, cfg.vocab_size)
+              and bool(torch.isfinite(last).all()),
+              "prefill logits not finite or of the wrong shape")
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        print(f"[14] {card}: prefill {prefill_s:.4f} s "
+              f"({Bp * Tp / prefill_s:.0f} tokens/s)")
+        # against K6's plain version (a Python loop over T): 2 x 256
+        small = {"tokens": batch["tokens"][:2, :256].contiguous()}
+        kern = prefill(params, small)
+        S.ssm_scan = SS.ssm_scan_ref
+        try:
+            plain = prefill(params, small)
+        finally:
+            S.ssm_scan = SS.ssm_scan
+        rel = _rel(kern, plain)
+        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        print(f"[14] last-position logits on 2 x 256 tokens vs K6's plain "
+              f"version: relative L2 {rel:.3e} (bound {rel_bound:.3e}), max "
+              f"abs {float((kern - plain).abs().max()):.3e}, argmax "
+              f"agreement {agree:.3f}")
+        check(bool(torch.isfinite(kern).all()), "prefill logits not finite")
+        check(rel <= rel_bound, "prefill logits differ from the plain "
+              "version's beyond the bound")
+        del last, kern, plain
+
+    # -- 15. quantized decode at full width --------------------------------
+    with Phase(15, "falcon-mamba-7b quantized decode"):
+        qparams = QS.quantize_params(params, bits=8)
+        torch.cuda.synchronize()
+        print(f"[15] w8 tree beside the bf16 tree: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+        serve = QS.make_quant_serve_step(cfg)
+        Bd, P, G = 8, 16, 16
+        prompt = torch.randint(0, cfg.vocab_size, (Bd, P), generator=gen,
+                               device=dev)
+        state = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+        fed = []
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        nxt = None
+        for t in range(P + G):
+            if t == P:
+                torch.cuda.synchronize()
+                t_gen = time.perf_counter()
+            inp = prompt[:, t:t + 1] if t < P else nxt
+            fed.append(inp)
+            nxt, state = serve(qparams, state, inp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = dict(LAUNCHES)
+        k2_launches = launches["quant_matmul"]
+        per_step = 4 * layers + 1
+        print(f"[15] quantized decode, batch {Bd}, {P} prompt + {G} greedy "
+              f"steps: launches {launches} "
+              f"({k2_launches / (P + G):.0f} quant_matmul a step)")
+        check(k2_launches == per_step * (P + G),
+              f"quant_matmul launched {k2_launches} times in {P + G} steps, "
+              f"not {per_step} a step")
+        check(launches["ssm_scan"] == 0, "decode launched the scan kernel")
+        gen_s = t1 - t_gen
+        print(f"[15] {card}: decode {(t1 - t0) / (P + G) * 1e3:.3f} ms a "
+              f"step; greedy part {Bd * G / gen_s:.1f} tokens/s")
+
+        def teacher_forced():
+            st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+            out = []
+            for inp in fed:
+                lg, st = T.decode_step(qparams, st, inp, cfg)
+                out.append(lg[:, 0])
+            return torch.stack(out)
+
+        kern = teacher_forced()
+        L.quant_matmul = QM.quant_matmul_ref
+        try:
+            plain = teacher_forced()
+        finally:
+            L.quant_matmul = QM.quant_matmul
+        rels = [_rel(kern[i], plain[i]) for i in range(P + G)]
+        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        fed_greedy = torch.cat(fed[P:], 1)
+        gen_greedy = kern[P - 1:-1].argmax(-1).t()
+        print("[15] teacher-forced logits, kernel vs K2's plain version, "
+              "per step relative L2: " + " ".join(f"{x:.2e}" for x in rels))
+        print(f"[15] argmax agreement {agree:.4f} over {Bd * (P + G)} "
+              f"positions; the serve step's greedy tokens reproduced: "
+              f"{bool((fed_greedy == gen_greedy).all())}")
+        check(bool(torch.isfinite(kern).all()), "decode logits not finite")
+        check(bool((fed_greedy == gen_greedy).all()),
+              "teacher-forced kernel run does not reproduce the greedy "
+              "tokens of the serve step")
+        check(max(rels) <= rel_bound, "decode logits differ from the plain "
+              "version's beyond the bound")
+        del kern, plain
+
+        def eight_steps():
+            st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+            for inp in fed[:8]:
+                serve(qparams, st, inp)
+
+        wall_s, busy_s, n_k = device_busy(eight_steps)
+        print(f"[15] {card}: 8 quantized decode steps: wall {wall_s:.4f} s, "
+              f"device busy {busy_s:.4f} s in {n_k} kernels, busy share "
+              f"{busy_s / wall_s:.3f}")
+        del qparams, state
+
+    # -- 16. dense serving engine at full width -----------------------------
+    with Phase(16, "falcon-mamba-7b ServeEngine"):
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, 16).tolist()
+                   for _ in range(6)]
+        eng = ServeEngine(params, cfg, batch=4, max_len=64, device=dev)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        print(f"[16] launches {dict(LAUNCHES)} (no Pallas kernel lies on "
+              f"the dense decode path)")
+        check(all(r.done and len(r.output) == 16
+                  and all(0 <= t < cfg.vocab_size for t in r.output)
+                  for r in reqs), "ServeEngine left a request unanswered")
+        check(eng.stats.requests_completed == 6
+              and eng.stats.tokens_generated == 96, f"stats {eng.stats}")
+        print(f"[16] {card}: ServeEngine batch 4, 6 requests x (16 + 16) "
+              f"tokens: {serve_s:.3f} s, {eng.stats.steps} steps, "
+              f"{eng.stats.tokens_generated / serve_s:.1f} tokens/s; "
+              f"stats {dataclasses.asdict(eng.stats)}")
+        print(f"[16] request 0 output {reqs[0].output}")
+
+        def one_wave():
+            ServeEngine(params, cfg, batch=4, max_len=64, device=dev).run(
+                [Request(rid=i, prompt=p[:4], max_new_tokens=4)
+                 for i, p in enumerate(prompts[:4])])
+
+        wall_s, busy_s, n_k = device_busy(one_wave)
+        print(f"[16] {card}: ServeEngine, one wave of 7 steps: wall "
+              f"{wall_s:.4f} s, device busy {busy_s:.4f} s in {n_k} kernels, "
+              f"busy share {busy_s / wall_s:.3f}")
+        del params, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 17. times at the path's shapes ------------------------------------
+    with Phase(17, "ssm_scan and quant_matmul times, falcon-mamba-7b"):
+        B, Tq = 4, 1024
+        sets = [ssm_inputs(gen, B, Tq, di, N, torch.bfloat16, dev)
+                for _ in range(3)]              # 3 x 269 MB, past the L2
+        ssm_ms = _rotating_ms(SS.ssm_scan, sets, reps=30)
+        ssm_plain_ms = _rotating_ms(SS.ssm_scan_ref, sets, reps=3)
+        ssm_bytes = sum(a.numel() * a.element_size() for a in sets[0]) \
+            + B * Tq * di * 2                    # + y, bf16
+        # N state updates of 5 operations (dt A, da h, dt u, its product
+        # with B, the add) and N multiply-adds into y per (b, t, c), plus
+        # D u; the N exps run on the special-function units, whose rate is
+        # not in the data sheet, and are not counted
+        ssm_ops = B * Tq * di * (7 * N + 2)
+        ssm_bytes_ms = ssm_bytes / HBM_BYTES_PER_S * 1e3
+        ssm_ops_ms = ssm_ops / SCALAR_OPS_PER_S * 1e3
+        ssm_bound = max(ssm_bytes_ms, ssm_ops_ms)
+        print(f"[17] {card}: ssm_scan B={B} T={Tq} d={di} N={N} bf16: "
+              f"kernel {ssm_ms:.4f} ms, plain {ssm_plain_ms:.4f} ms, bound "
+              f"{ssm_bound:.5f} ms ({ssm_bytes} bytes: "
+              f"{ssm_bytes_ms:.5f} ms; {ssm_ops} operations: "
+              f"{ssm_ops_ms:.5f} ms); {ssm_ms / ssm_bound:.1f}x the bound")
+        del sets
+
+        k2 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=0.0)
+        M = 8
+        for name, (K, Nn, xname) in shapes.items():
+            xdt = dtypes[xname]
+            copies = max(2, math.ceil(120e6 / (K * Nn)))
+            x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+            wsets = [(x, torch.randint(-127, 128, (K, Nn), generator=gen,
+                                       device=dev, dtype=torch.int8),
+                      torch.rand((Nn,), generator=gen, device=dev) * 0.01)
+                     for _ in range(copies)]
+            ms = _rotating_ms(QM.quant_matmul, wsets, reps=4 * copies)
+            plain_ms = _rotating_ms(QM.quant_matmul_ref, wsets, reps=copies)
+            deq = [(x, L.dequantize({"q": w, "scale": sc}, xdt))
+                   for _, w, sc in wsets]
+            lib_ms = _rotating_ms(torch.matmul, deq, reps=4 * copies)
+            bound, by = qmm_bound_ms(M, K, Nn, x.element_size())
+            print(f"[17] {card}: quant_matmul {name} M={M} K={K} N={Nn} "
+                  f"{xname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.matmul on the dequantized {xname} weight "
+                  f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+            weight = layers if name != "lm_head" else 1
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bound", bound)):
+                k2[key] += weight * val
+            del wsets, deq
+        print(f"[17] {card}: quant_matmul, one falcon-mamba-7b decode step "
+              f"({layers} x 4 products + LM head): kernel {k2['ms']:.3f} ms, "
+              f"plain {k2['plain_ms']:.3f} ms, library "
+              f"{k2['library_ms']:.3f} ms, bound {k2['bound']:.4f} ms")
+
+    ssm_entry = {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:51",
+        "launches": k6_launches, "max_abs_err": ssm_err,
+        "tolerance": "ssm_scan_tolerance (16 eps32 sum|C| E + 2 (N+2) "
+                     "eps32 (sum|C h| + |D u|) + 2^-7 |y| for bf16)",
+        "shapes": f"prefill B={B} T={Tq} d={di} N={N} bf16 u, float32 dt",
+        "ms": ssm_ms, "plain_ms": ssm_plain_ms, "bound_ms": ssm_bound,
+        "bound_by": "bytes" if ssm_bytes_ms >= ssm_ops_ms else "operations",
+        "library_ms": None}
+    qmm = {"launches": k2_launches, "max_abs_err": qmm_err,
+           "falcon_mamba_step_ms": k2["ms"],
+           "falcon_mamba_step_plain_ms": k2["plain_ms"],
+           "falcon_mamba_step_library_ms": k2["library_ms"],
+           "falcon_mamba_step_bound_ms": k2["bound"]}
+    return ssm_entry, qmm
+
 
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
@@ -576,7 +974,7 @@ def main() -> None:
     # -- 2. build ---------------------------------------------------------
     # always from the sources in this checkout: drop libraries left by an
     # earlier run, so the builds (and their ptxas reports) happen here
-    kernels = ("netlist_sim", "quant_matmul", "flash_attention")
+    kernels = build.KERNELS
     with Phase(2, "build"):
         for name in kernels:
             build.library_path(name).unlink(missing_ok=True)
@@ -771,8 +1169,19 @@ def main() -> None:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None}
 
-    lm_entries = lm_serving(card, dev)
-    print(json.dumps({"kernels": [netlist_entry] + lm_entries}))
+    qmm_entry, fa_entry = lm_serving(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()        # the qwen3-0.6b tensors are gone
+    ssm_entry, qmm_mamba = mamba_serving(card, dev)
+    qmm_entry["launches_by_path"] = {
+        "qwen3-0.6b w8 decode, 64 steps": qmm_entry["launches"],
+        "falcon-mamba-7b w8 decode, 32 steps": qmm_mamba.pop("launches")}
+    qmm_entry["launches"] = sum(qmm_entry["launches_by_path"].values())
+    qmm_entry["max_abs_err"] = max(qmm_entry["max_abs_err"],
+                                   qmm_mamba.pop("max_abs_err"))
+    qmm_entry.update(qmm_mamba)
+    print(json.dumps({"kernels": [netlist_entry, qmm_entry, fa_entry,
+                                  ssm_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

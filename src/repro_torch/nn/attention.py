@@ -141,14 +141,15 @@ def attn_apply(p, x, cfg: ArchConfig, *, mixer: str, cache=None,
         raise NotImplementedError("cross attention is a later slice of the "
                                   "port")
     B, T, _ = x.shape
-    q = L.dense_apply(p["wq"], x)           # (B,T,H,hd)
-    k = L.dense_apply(p["wk"], x)           # (B,T,KV,hd)
-    v = L.dense_apply(p["wv"], x)
+    dt = cfg.dtype
+    q = L.dense_apply(p["wq"], x, dtype=dt)     # (B,T,H,hd)
+    k = L.dense_apply(p["wk"], x, dtype=dt)     # (B,T,KV,hd)
+    v = L.dense_apply(p["wv"], x, dtype=dt)
     if cfg.qk_norm:
         q = L.norm_apply(p["q_norm"], q, "rmsnorm",
-                         unit_offset=cfg.norm_unit_offset)
+                         unit_offset=cfg.norm_unit_offset, dtype=dt)
         k = L.norm_apply(p["k_norm"], k, "rmsnorm",
-                         unit_offset=cfg.norm_unit_offset)
+                         unit_offset=cfg.norm_unit_offset, dtype=dt)
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[
         None, :] + (0 if kv_len is None else kv_len)
     if cfg.use_rope:
@@ -174,7 +175,7 @@ def attn_apply(p, x, cfg: ArchConfig, *, mixer: str, cache=None,
     else:
         o = attend(q, k, v, causal=True, window=window,
                    softcap=cfg.attn_softcap, lowp=cfg.attn_lowp_probs)
-    return L.dense_in3_apply(p["wo"], o), new_cache
+    return L.dense_in3_apply(p["wo"], o, dtype=dt), new_cache
 
 
 def make_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,

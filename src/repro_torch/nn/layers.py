@@ -9,10 +9,15 @@ carry between the two packages unchanged. Initializers draw from an explicit
 A dense kernel may also be a quantized leaf ``{"q": int8, "scale": f32}``
 (`repro_torch.serve.quantized`): `dense_apply` and `dense_in3_apply` then
 run the product through kernel K2 (`kernels.quant_matmul`) on the int8
-weight and its per-output-column scales.
+weight and its per-output-column scales. Any other parameter may be a
+quantized leaf too (a stacked norm scale or bias crosses the quantizer's
+size threshold once a segment has enough repeats): it is read through
+`real`, dequantized to the model's dtype as the JAX package's
+``dequantize_params`` does, which is why these functions take ``dtype``.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -40,21 +45,40 @@ def dequantize(leaf, dtype) -> torch.Tensor:
     return (leaf["q"].float() * leaf["scale"]).to(dtype)
 
 
+def real(leaf, dtype):
+    """A parameter as a tensor: a quantized leaf dequantized to ``dtype``
+    (the model's, ``cfg.dtype``, whatever the leaf's type was before
+    quantization), anything else as it is."""
+    if not is_qleaf(leaf):
+        return leaf
+    if dtype is None:
+        raise ValueError("a quantized parameter is read in the model's "
+                         "dtype, and none was given")
+    return dequantize(leaf, torch_dtype(dtype))
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
 
 
 def trunc_normal(generator: torch.Generator, shape, std: float, dtype,
-                 device=None) -> torch.Tensor:
+                 device=None, *, lead=()) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times ``std``, drawn in float32
     on the generator's device and cast (the JAX package's ``_trunc_normal``;
-    the two frameworks' random bits differ)."""
-    t = torch.empty(tuple(shape), dtype=torch.float32,
-                    device=generator.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(device=device or generator.device,
-                        dtype=torch_dtype(dtype))
+    the two frameworks' random bits differ). ``lead`` prepends stacking
+    axes whose entries are drawn one at a time, so the float32 draw never
+    holds more than one repeat (falcon-mamba-7b's stacked ``in_proj`` is
+    17 GB in float32)."""
+    out = torch.empty(tuple(lead) + tuple(shape), dtype=torch_dtype(dtype),
+                      device=device or generator.device)
+    for idx in itertools.product(*(range(n) for n in lead)):
+        t = torch.empty(tuple(shape), dtype=torch.float32,
+                        device=generator.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        out[idx] = t * std
+    return out
 
 
 def dense_init(generator, d_in: int, d_out: int, dtype, *, bias=False,
@@ -62,8 +86,8 @@ def dense_init(generator, d_in: int, d_out: int, dtype, *, bias=False,
     """Dense kernel; ``out_shape`` reshapes the output dim (e.g. (H, hd)).
     ``lead`` prepends stacking axes (a segment's ``repeats``)."""
     shape = (d_in,) + tuple(out_shape) if out_shape else (d_in, d_out)
-    p = {"kernel": trunc_normal(generator, tuple(lead) + shape,
-                                1.0 / math.sqrt(d_in), dtype, device)}
+    p = {"kernel": trunc_normal(generator, shape, 1.0 / math.sqrt(d_in),
+                                dtype, device, lead=lead)}
     if bias:
         p["bias"] = torch.zeros(tuple(lead) + shape[1:],
                                 dtype=torch_dtype(dtype), device=device)
@@ -72,8 +96,9 @@ def dense_init(generator, d_in: int, d_out: int, dtype, *, bias=False,
 
 def dense_in3_init(generator, h: int, hd: int, d_out: int, dtype, *,
                    bias=False, lead=(), device=None):
-    p = {"kernel": trunc_normal(generator, tuple(lead) + (h, hd, d_out),
-                                1.0 / math.sqrt(h * hd), dtype, device)}
+    p = {"kernel": trunc_normal(generator, (h, hd, d_out),
+                                1.0 / math.sqrt(h * hd), dtype, device,
+                                lead=lead)}
     if bias:
         p["bias"] = torch.zeros(tuple(lead) + (d_out,),
                                 dtype=torch_dtype(dtype), device=device)
@@ -84,12 +109,13 @@ def _quant_product(x: torch.Tensor, leaf, k_dim: int, n_dim: int,
                    scales: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ dequant(q viewed (K, N), per-column scales) via K2."""
     lead = x.shape[:-1]
-    y = quant_matmul(x.reshape(-1, k_dim), leaf["q"].reshape(k_dim, n_dim),
-                     scales)
+    y = quant_matmul(x.reshape(-1, k_dim).contiguous(),
+                     leaf["q"].reshape(k_dim, n_dim), scales)
     return y.reshape(*lead, n_dim)
 
 
-def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
+def dense_apply(p, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """``dtype`` is the model's, in which a quantized bias is read."""
     k = p["kernel"]
     if is_qleaf(k):
         q = k["q"]
@@ -110,11 +136,11 @@ def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(tuple(k.shape))
     if "bias" in p:
-        y = y + p["bias"]
+        y = y + real(p["bias"], dtype)
     return y
 
 
-def dense_in3_apply(p, x: torch.Tensor) -> torch.Tensor:
+def dense_in3_apply(p, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
     """Contract a (H, hd, d) kernel against (..., H, hd) input."""
     k = p["kernel"]
     H, hd = x.shape[-2:]
@@ -125,7 +151,7 @@ def dense_in3_apply(p, x: torch.Tensor) -> torch.Tensor:
     else:
         y = torch.matmul(xf, k.reshape(H * hd, k.shape[-1]))
     if "bias" in p:
-        y = y + p["bias"]
+        y = y + real(p["bias"], dtype)
     return y
 
 
@@ -147,19 +173,23 @@ def norm_init(d: int, norm_type: str = "rmsnorm", *, lead=(), device=None):
 
 
 def norm_apply(p, x: torch.Tensor, norm_type: str = "rmsnorm", *,
-               unit_offset: bool = True, eps: float = 1e-6) -> torch.Tensor:
+               unit_offset: bool = True, eps: float = 1e-6,
+               dtype=None) -> torch.Tensor:
+    """``dtype`` is the model's, in which a quantized scale or bias is
+    read."""
     # unit_offset kept for API parity; rmsnorm is always (1 + scale)
     del unit_offset
     xf = x.float()
     if norm_type == "rmsnorm":
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + eps)
-        y = y * (1.0 + p["scale"].float())
+        y = y * (1.0 + real(p["scale"], dtype).float())
     elif norm_type == "layernorm":
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
         y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["scale"].float() + p["bias"].float()
+        y = y * real(p["scale"], dtype).float() \
+            + real(p["bias"], dtype).float()
     else:
         raise ValueError(norm_type)
     return y.to(x.dtype)
@@ -204,19 +234,20 @@ def mlp_init(generator, d: int, d_ff: int, mlp_type: str, dtype, *,
     raise ValueError(mlp_type)
 
 
-def mlp_apply(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, mlp_type: str, *,
+              dtype=None) -> torch.Tensor:
+    def dense(name, v):
+        return dense_apply(p[name], v, dtype=dtype)
+
     if mlp_type == "swiglu":
-        h = F.silu(dense_apply(p["wi_gate"], x)) * dense_apply(p["wi_up"], x)
-        return dense_apply(p["wo"], h)
+        return dense("wo", F.silu(dense("wi_gate", x)) * dense("wi_up", x))
     if mlp_type == "geglu":
-        h = F.gelu(dense_apply(p["wi_gate"], x), approximate="tanh") \
-            * dense_apply(p["wi_up"], x)
-        return dense_apply(p["wo"], h)
+        return dense("wo", F.gelu(dense("wi_gate", x), approximate="tanh")
+                     * dense("wi_up", x))
     if mlp_type == "relu2":
-        return dense_apply(p["wo"], squared_relu(dense_apply(p["wi"], x)))
+        return dense("wo", squared_relu(dense("wi", x)))
     if mlp_type == "gelu":
-        return dense_apply(p["wo"], F.gelu(dense_apply(p["wi"], x),
-                                           approximate="tanh"))
+        return dense("wo", F.gelu(dense("wi", x), approximate="tanh"))
     raise ValueError(mlp_type)
 
 

@@ -7,9 +7,10 @@ each segment stacks the parameters of its repeating pattern along a leading
 takes one repeat at a time (a view, no copy). `params_from_numpy` and
 `params_to_numpy` carry the tree across as numpy arrays.
 
-This slice covers blocks with an "attn" (or cache-free "local") mixer and a
-dense or absent FFN. MLA, MoE, SSM, RG-LRU, cross attention, the encoder
-and vision inputs are later slices and raise ``NotImplementedError``.
+The port covers blocks with an "attn" (or cache-free "local") or a Mamba-1
+"ssm" mixer and a dense or absent FFN. MLA, MoE, RG-LRU, cross attention,
+the encoder and vision inputs are later slices and raise
+``NotImplementedError``.
 
 Public entry points:
   init(generator, cfg)                     -> params
@@ -28,6 +29,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
+from repro_torch.nn import ssm as S
 
 
 def _unsupported(cfg: ArchConfig, spec: LayerSpec) -> None:
@@ -36,7 +38,7 @@ def _unsupported(cfg: ArchConfig, spec: LayerSpec) -> None:
     if cfg.encoder is not None or cfg.vision is not None:
         raise NotImplementedError("encoder and vision inputs are a later "
                                   "slice of the port")
-    if spec.mixer not in ("attn", "local"):
+    if spec.mixer not in ("attn", "local", "ssm"):
         raise NotImplementedError(f"the {spec.mixer!r} mixer is a later "
                                   "slice of the port")
     if spec.ffn == "moe":
@@ -53,8 +55,11 @@ def _block_init(generator, cfg: ArchConfig, spec: LayerSpec, dtype, *,
     _unsupported(cfg, spec)
     kw = dict(lead=lead, device=device)
     p: Dict[str, Any] = {"norm1": L.norm_init(cfg.d_model, cfg.norm_type,
-                                              **kw),
-                         "mixer": A.attn_init(generator, cfg, dtype, **kw)}
+                                              **kw)}
+    if spec.mixer == "ssm":
+        p["mixer"] = S.ssm_init(generator, cfg, dtype, **kw)
+    else:
+        p["mixer"] = A.attn_init(generator, cfg, dtype, **kw)
     if spec.ffn == "dense":
         p["norm2"] = L.norm_init(cfg.d_model, cfg.norm_type, **kw)
         p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff,
@@ -67,20 +72,26 @@ def _block_init(generator, cfg: ArchConfig, spec: LayerSpec, dtype, *,
 
 
 def _norm(p, x, cfg: ArchConfig):
-    return L.norm_apply(p, x, cfg.norm_type, unit_offset=cfg.norm_unit_offset)
+    return L.norm_apply(p, x, cfg.norm_type, unit_offset=cfg.norm_unit_offset,
+                        dtype=cfg.dtype)
 
 
 def _block_apply(p, x, cfg: ArchConfig, spec: LayerSpec, *, cache=None,
                  kv_len=None):
     """Returns (x, new_cache)."""
     _unsupported(cfg, spec)
-    o, new_cache = A.attn_apply(p["mixer"], _norm(p["norm1"], x, cfg), cfg,
-                                mixer=spec.mixer, cache=cache, kv_len=kv_len)
+    h = _norm(p["norm1"], x, cfg)
+    if spec.mixer == "ssm":
+        o, new_cache = S.ssm_apply(p["mixer"], h, cfg, cache=cache)
+    else:
+        o, new_cache = A.attn_apply(p["mixer"], h, cfg, mixer=spec.mixer,
+                                    cache=cache, kv_len=kv_len)
     if cfg.post_norm:
         o = _norm(p["post_norm1"], o, cfg)
     x = x + o
     if spec.ffn == "dense":
-        o = L.mlp_apply(p["mlp"], _norm(p["norm2"], x, cfg), cfg.mlp_type)
+        o = L.mlp_apply(p["mlp"], _norm(p["norm2"], x, cfg), cfg.mlp_type,
+                        dtype=cfg.dtype)
         if cfg.post_norm:
             o = _norm(p["post_norm2"], o, cfg)
         x = x + o
@@ -125,7 +136,8 @@ def _segment_apply(seg_params, x, cfg: ArchConfig, seg, *, caches=None,
 def init(generator: torch.Generator, cfg: ArchConfig, dtype=None,
          device: DeviceLike = None):
     """Random parameters at ``cfg``'s shapes, drawn from ``generator`` on
-    its own device and placed on ``device`` (CUDA unless ``"cpu"``)."""
+    its own device and placed on ``device`` (CUDA unless ``"cpu"``). A
+    stacked leaf is drawn one repeat at a time (`layers.trunc_normal`)."""
     dev = resolve_device(device)
     dtype = L.torch_dtype(dtype or cfg.dtype)
     if cfg.max_position_embeddings:
@@ -165,7 +177,7 @@ def _lm_head(p, x, cfg: ArchConfig):
             table = L.dequantize(table, x.dtype)
         logits = torch.matmul(x, table.t())
     else:
-        logits = L.dense_apply(p["lm_head"], x)
+        logits = L.dense_apply(p["lm_head"], x, dtype=cfg.dtype)
     return L.softcap(logits.float(), cfg.logit_softcap)
 
 
@@ -196,6 +208,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
         for spec in seg.pattern:
             _unsupported(cfg, spec)
         caches.append(tuple(
+            S.make_ssm_cache(cfg, batch, dtype, lead=(seg.repeats,),
+                             device=dev) if spec.mixer == "ssm" else
             A.make_attn_cache(cfg, batch, max_len, dtype, mixer=spec.mixer,
                               lead=(seg.repeats,), device=dev)
             for spec in seg.pattern))

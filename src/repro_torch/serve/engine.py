@@ -5,7 +5,8 @@ Slots: fixed ``batch`` decode lanes. Every slot shares one ``kv_len``, so a
 wave of up to ``batch`` requests is prefilled token by token (prompts
 left-padded with zeros to the longest) and decoded greedily until every
 request of the wave is done; the next wave starts from a fresh cache
-(barrier batching).
+(barrier batching). Recurrent (Mamba) caches take the same path: the conv
+window and the state are updated in place by every step.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ class EngineStats:
 class ServeEngine:
     """Single-host engine with greedy sampling and barrier batching.
     ``params`` must lie on ``device`` (CUDA unless ``"cpu"``); ``dtype`` is
-    the KV cache's."""
+    the caches' (a Mamba layer's state is float32 whatever it is)."""
 
     def __init__(self, params, cfg: ArchConfig, *, batch: int = 4,
                  max_len: int = 256, dtype=torch.float32,

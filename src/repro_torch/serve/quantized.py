@@ -2,11 +2,12 @@
 weight formats, the PyTorch counterpart of `repro.serve.quantized`.
 
 * int8 and int4 weights with per-output-channel scales: every large >=2-D
-  weight leaf becomes ``{"q": int8, "scale": f32[last_dim]}``. The scale is
-  taken over every axis but the last of the *stacked* leaf, so one scale
-  vector serves all the repeats of a segment, as in the JAX package; the
-  payload and scales match it bit for bit. PyTorch has no int4 type: 4-bit
-  weights are stored in int8 on the 4-bit grid [-7, 7].
+  leaf becomes ``{"q": int8, "scale": f32[last_dim]}`` (norm scales,
+  biases and Mamba's ``D`` too, once stacked repeats make them large). The
+  scale is taken over every axis but the last of the *stacked* leaf, so one
+  scale vector serves all the repeats of a segment, as in the JAX package;
+  the payload and scales match it bit for bit. PyTorch has no int4 type:
+  4-bit weights are stored in int8 on the 4-bit grid [-7, 7].
 * fp8 (``torch.float8_e4m3fn``) KV cache: pass that dtype to
   `transformer.init_decode_state`; cache writes cast to fp8, reads upcast.
 
@@ -14,7 +15,9 @@ Where the JAX package dequantizes every leaf to ``cfg.dtype`` before the
 model runs, the port keeps the int8 payload: each dense product of the
 decode step goes through kernel K2 (`kernels.quant_matmul`), which
 dequantizes in float32 tile by tile (`nn.layers.dense_apply`). The two
-steps therefore agree exactly only at ``dtype="float32"``. The embedding
+steps therefore agree exactly only at ``dtype="float32"``. Every other
+quantized leaf is dequantized to ``cfg.dtype`` where it is read
+(`nn.layers.real`), as the JAX package dequantizes it. The embedding
 gathers and dequantizes only the rows it needs; the tied LM head
 dequantizes the table (see `transformer._lm_head`).
 """
@@ -48,19 +51,39 @@ def _check_bits(bits: int) -> None:
         raise ValueError(bits)
 
 
+# the float32 elements one quantization step holds: a slice along the
+# leading axis at a time, so a stacked leaf is never copied whole to float32
+# (falcon-mamba-7b's in_proj is 17 GB in float32; one repeat is 268 MB)
+_CHUNK_ELEMENTS = 1 << 26
+
+
+def _chunks(w: torch.Tensor):
+    rows = max(1, _CHUNK_ELEMENTS // max(1, w[0].numel()))
+    return torch.split(w, rows, dim=0)
+
+
 def quantize_params(params, bits: int = 8):
-    """Real tensors -> quantized tree (per-channel symmetric)."""
+    """Real tensors -> quantized tree (per-channel symmetric). A running
+    amax over slices of the leading axis, then the payload slice by slice:
+    bit for bit what one pass over the whole leaf gives (max is exact, the
+    rest elementwise)."""
     _check_bits(bits)
     qmax = 2.0 ** (bits - 1) - 1.0
 
     def leaf(path, w):
         if not _is_quantizable(path_str(path), w):
             return w
-        wf = w.float()
-        amax = torch.amax(torch.abs(wf), dim=tuple(range(w.dim() - 1)))
+        amax = None
+        for part in _chunks(w):
+            m = torch.amax(torch.abs(part.float()),
+                           dim=tuple(range(w.dim() - 1)))
+            amax = m if amax is None else torch.maximum(amax, m)
         scale = torch.clamp_min(amax, 1e-8) / qmax
-        q = torch.clamp(torch.round(wf / scale), -qmax, qmax)
-        return {"q": q.to(torch.int8), "scale": scale}
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        for dst, part in zip(_chunks(q), _chunks(w)):
+            dst.copy_(torch.clamp(torch.round(part.float() / scale),
+                                  -qmax, qmax))
+        return {"q": q, "scale": scale}
 
     return T.map_tree(leaf, params)
 

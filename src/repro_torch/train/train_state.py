@@ -21,8 +21,9 @@ def make_serve_step(cfg: ArchConfig):
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """prefill_step(params, batch) -> last-position logits (B, V). Every
-    layer's self-attention runs through kernel K5 on a CUDA device."""
+    """prefill_step(params, batch) -> last-position logits (B, V). On a
+    CUDA device every layer's self-attention runs through kernel K5 and
+    every Mamba layer's selective scan through kernel K6."""
 
     def prefill_step(params, batch):
         logits, _ = T.forward(params, batch, cfg)

@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels: K1 (netlist_sim) against
 its plain PyTorch version and the numpy oracle, bit for bit; K2
-(quant_matmul) and K5 (flash_attention) against their plain versions within
-the bounds stated beside them (`quant_matmul_tolerance`,
-`flash_attention_tolerance`), alone and inside the model. They import no
+(quant_matmul), K5 (flash_attention) and K6 (ssm_scan) against their plain
+versions within the bounds stated beside them (`quant_matmul_tolerance`,
+`flash_attention_tolerance`, `ssm_scan_tolerance`), alone and inside the
+model. They import no
 JAX (the machine with the card has none) and skip without a CUDA device;
 on the card run them without the JAX-importing conftest:
 
@@ -19,10 +20,14 @@ from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import netlist_sim as NS
 from repro_torch.kernels import quant_matmul as QM
+from repro_torch.kernels import ssm_scan as SS
 from repro_torch.kernels.flash_attention import ops as FAO
 from repro_torch.kernels.netlist_sim import ops as NSO
 from repro_torch.kernels.quant_matmul import ops as QMO
+from repro_torch.kernels.ssm_scan import ops as SSO
+from repro_torch.configs.base import SSMConfig
 from repro_torch.nn import attention as A
+from repro_torch.nn import ssm as S
 from repro_torch.nn import transformer as T
 from repro_torch.serve import quantized as QS
 
@@ -131,10 +136,12 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # (M, K, N): qwen3-0.6b's 7 weight shapes at the decode batch of 8 (q, k/v,
 # o, gate/up, down), a ragged shape, N not a multiple of 4 (byte loads),
-# more rows than one block
+# more rows than one block; falcon-mamba-7b's in_proj, x_proj, dt_proj
+# (float32 input in the model), out_proj and untied LM head
 QMM_SHAPES = [(8, 1024, 2048), (8, 1024, 1024), (8, 2048, 1024),
               (8, 1024, 3072), (8, 3072, 1024), (5, 1000, 3000),
-              (7, 130, 50), (17, 64, 96)]
+              (7, 130, 50), (17, 64, 96), (8, 4096, 16384), (8, 8192, 288),
+              (8, 256, 8192), (8, 8192, 4096), (8, 4096, 65024)]
 
 
 @pytest.mark.cuda
@@ -188,6 +195,78 @@ def test_flash_attention_kernel_matches_plain(card, case):
     assert got.dtype == dt and got.shape == (B, Tq, H, hd)
     tol = FA.flash_attention_tolerance(v, ref)
     assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+def ssm_inputs(g, B, T, d, N, dtype, device):
+    """u, B_, C_ in ``dtype``; dt = softplus(normal - 1), A = -(1..N) times
+    a log-normal factor (the S4D-real range the model starts from), D, all
+    float32."""
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    u = normal(B, T, d).to(dtype)
+    dt = torch.nn.functional.softplus(normal(B, T, d) - 1.0)
+    B_, C_ = normal(B, T, N).to(dtype), normal(B, T, N).to(dtype)
+    A = -torch.arange(1, N + 1, device=device, dtype=torch.float32) \
+        * torch.exp(0.3 * normal(d, N))
+    return u, dt, B_, C_, A, normal(d)
+
+
+# name: (B, T, d, N, dtype): falcon-mamba-7b's prefill shape, a ragged T
+# (not a multiple of the 64 staged steps), a ragged d (not a multiple of the
+# 128-channel block), a smaller state, one step
+SSM_CASES = {
+    "prefill_bf16": (4, 1024, 8192, 16, "bfloat16"),
+    "prefill_f32": (1, 1024, 8192, 16, "float32"),
+    "ragged_t_333": (2, 333, 512, 16, "float32"),
+    "ragged_d_1000": (2, 200, 1000, 16, "bfloat16"),
+    "state_4": (3, 130, 256, 4, "float32"),
+    "one_step": (2, 1, 300, 16, "bfloat16"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SSM_CASES))
+def test_ssm_scan_kernel_matches_plain(card, case):
+    B, Tq, d, N, dtype = SSM_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + d + N)
+    args = ssm_inputs(g, B, Tq, d, N, DTYPES[dtype], card)
+    reset_launches()
+    got = SS.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan"] == 1
+    ref = SS.ssm_scan_ref(*args)
+    assert got.dtype == args[0].dtype and got.shape == (B, Tq, d)
+    tol = SS.ssm_scan_tolerance(*args, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_ssm_scan_never_falls_back_on_cuda(card, monkeypatch):
+    """On CUDA tensors K6's wrapper launches its kernel or raises: mixed
+    types are checked, a state beyond 16 values and non-contiguous inputs
+    are refused, and a missing build is an error."""
+    monkeypatch.setattr(SSO, "ssm_scan_ref", lambda *a: pytest.fail(
+        "plain version ran on a CUDA tensor"))
+    g = torch.Generator(device=card).manual_seed(0)
+    u, dt, B_, C_, A, D = ssm_inputs(g, 2, 8, 64, 16, torch.bfloat16, card)
+    assert SS.ssm_scan(u, dt, B_, C_, A, D).is_cuda
+    with pytest.raises(TypeError, match="float32"):
+        SS.ssm_scan(u, dt.to(torch.bfloat16), B_, C_, A, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        SS.ssm_scan(u.transpose(0, 1).contiguous().transpose(0, 1), dt, B_,
+                    C_, A, D)
+    wide = ssm_inputs(g, 1, 4, 64, 32, torch.float32, card)
+    with pytest.raises(ValueError, match="state"):
+        SS.ssm_scan(*wide)
+
+    def broken(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr("repro_torch.kernels.build.load", broken)
+    monkeypatch.setattr(SSO, "_FNS", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        SS.ssm_scan(u, dt, B_, C_, A, D)
 
 
 @pytest.mark.cuda
@@ -260,5 +339,56 @@ def test_quantized_decode_goes_through_k2(card, monkeypatch):
         expect = 7 * cfg.num_layers * tokens.shape[1]
         assert LAUNCHES["quant_matmul"] == (expect if variant == "kernel"
                                             else 0)
+    torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
+                               atol=1e-4)
+
+
+# falcon-mamba-7b at d_model 256, N 16, dt_rank 64: every dense product of
+# a layer is large enough to quantize
+MAMBA_CFG = dict(d_model=256, ssm=SSMConfig(d_state=16, d_conv=4, expand=2,
+                                            dt_rank=64))
+
+
+@pytest.mark.cuda
+def test_prefill_goes_through_k6(card, monkeypatch):
+    cfg = ARCHS["falcon-mamba-7b"].reduced(**MAMBA_CFG)
+    params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
+                    device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=card)
+    reset_launches()
+    got, _ = T.forward(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan"] == cfg.num_layers
+    monkeypatch.setattr(S, "ssm_scan", SS.ssm_scan_ref)
+    want, _ = T.forward(params, {"tokens": tokens}, cfg)
+    # float32 end to end: two layers of reordered sums
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_quantized_mamba_decode_goes_through_k2(card, monkeypatch):
+    cfg = ARCHS["falcon-mamba-7b"].reduced(**MAMBA_CFG)
+    params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
+                    device=card)
+    qp = QS.quantize_params(params, bits=8)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 6), device=card)
+    logits = {}
+    for variant in ("kernel", "plain"):
+        if variant == "plain":
+            monkeypatch.setattr("repro_torch.nn.layers.quant_matmul",
+                                QM.quant_matmul_ref)
+        state = T.init_decode_state(cfg, 8, 16, torch.float32, device=card)
+        reset_launches()
+        out = []
+        for t in range(tokens.shape[1]):
+            lg, state = T.decode_step(qp, state, tokens[:, t:t + 1], cfg)
+            out.append(lg)
+        torch.cuda.synchronize()
+        logits[variant] = torch.cat(out, 1)
+        # in_proj, x_proj, dt_proj, out_proj a layer, and the LM head
+        expect = (4 * cfg.num_layers + 1) * tokens.shape[1]
+        assert LAUNCHES["quant_matmul"] == (expect if variant == "kernel"
+                                            else 0)
+        assert LAUNCHES["ssm_scan"] == 0
     torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
                                atol=1e-4)

@@ -155,13 +155,25 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("name,what", [
-    ("deepseek-v2-236b", "MLA"), ("falcon-mamba-7b", "'ssm'"),
+    ("deepseek-v2-236b", "MLA"),
     ("phi3.5-moe-42b-a6.6b", "MoE"), ("recurrentgemma-9b", "'rec'"),
     ("whisper-base", "whisper"), ("llama-3.2-vision-11b", "vision")])
 def test_later_slices_raise(name, what):
     with pytest.raises(NotImplementedError, match=what):
         TT.init(torch.Generator().manual_seed(0), ARCHS[name].reduced(),
                 device="cpu")
+
+
+def test_ssm_family_builds():
+    """falcon-mamba-7b's "ssm" mixer was a later slice; the port now builds
+    it (its parity tests are in tests/test_torch_ssm.py)."""
+    cfg = ARCHS["falcon-mamba-7b"].reduced()
+    params = TT.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert set(params["segments"][0][0]["mixer"]) >= {"in_proj", "A_log"}
+    state = TT.init_decode_state(cfg, 1, 8, torch.float32, device="cpu")
+    logits, _ = TT.decode_step(params, state,
+                               torch.zeros((1, 1), dtype=torch.long), cfg)
+    assert logits.shape == (1, 1, cfg.vocab_size)
 
 
 def test_sliding_window_ring_buffer_is_a_later_slice():

@@ -59,7 +59,24 @@ Phases, each fatal on failure, each with its seconds printed:
    16 prompt and 16 new tokens over the recurrent caches; tokens/s and the
    busy share;
 17. K6's and K2's times at falcon-mamba-7b's shapes, their plain versions'
-   and their bounds.
+   and their bounds;
+18. K3 (clustered_matmul) against its plain version on the card: qwen3-0.6b's
+   7 decode shapes at C = 16 with int8 indices, a ragged shape, int32
+   indices (C = 16 and 300), M = 4096, bf16 and float32;
+19. K4 (block_sparse_matmul) against its plain version: the same shapes at
+   live shares 1.0, 0.5 and 0.1 in 128 x 128 tiles, (32, 32) and (16, 16)
+   tiles, ragged M with a dead tile of non-zero weights and an all-dead
+   column strip, M = 4096;
+20. qwen3-0.6b at full width (seeded random bf16 weights): each of its 196
+   layer matrices clustered per input row at k = 16 by the port's
+   ``cluster_per_input`` (indices stored int8) and block-pruned at sparsity
+   0.5 in 128 x 128 tiles by its ``block_mask``; one decode step's products
+   at M = 8 through K3, then through K4, the launches counted (196 each),
+   each of the 392 outputs held against its plain version;
+21. K3's and K4's device times (CUDA graphs replayed between CUDA events)
+   for that step and for single products at decode, at M = 4096 and at
+   ``benchmarks/kernel_bench.py``'s shape, with K2's at the same shapes,
+   their plain versions', cuBLAS's on the dense weight and their bounds.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -190,6 +207,20 @@ def event_ms(fn, reps: int, warmup: int = 3) -> float:
 QWEN3_QMM = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
              "wo": (2048, 1024), "wi_gate": (1024, 3072),
              "wi_up": (1024, 3072), "mlp_wo": (3072, 1024)}
+# K3's and K4's single-product timings (M, K, N, K4's live shares): the
+# gate/up product of qwen3-0.6b at decode and at M = 4096, and the shape that
+# benchmarks/kernel_bench.py derives rooflines for
+PER_PRODUCT_SHAPES = {
+    "qwen3_gate_decode": (8, 1024, 3072, (1.0, 0.5, 0.1)),
+    "qwen3_gate_m4096": (4096, 1024, 3072, (0.5,)),
+    "kernel_bench": (16, 4096, 14336, (0.5,)),
+}
+# the TPU functions K3 and K4 replace: where each reaches pl.pallas_call
+REPLACES = {
+    "clustered_matmul": "src/repro/kernels/clustered_matmul/kernel.py:46",
+    "block_sparse_matmul":
+        "src/repro/kernels/block_sparse_matmul/kernel.py:42",
+}
 # the bound below which the model-level comparisons must stay: one bf16
 # rounding (2^-8 relative) of the residual stream in each of 28 layers,
 # added up without amplification
@@ -213,6 +244,33 @@ def _rotating_ms(fn, sets, reps: int) -> float:
         it[0] += 1
 
     return event_ms(step, reps=reps, warmup=len(sets))
+
+
+def _graph_ms(fn, sets, reps: int) -> float:
+    """Device time of one ``fn(*sets[i % len(sets)])``, i < reps: the calls
+    are captured once in a CUDA graph, which is replayed between CUDA
+    events, so the host's cost of each call (a wrapper's checks, the
+    launch) is left out. The sets rotate as in `_rotating_ms`."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # builds, allocations, library handles
+        for args in sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def lm_serving(card: str, dev):
@@ -933,6 +991,432 @@ def mamba_serving(card: str, dev):
     return ssm_entry, qmm
 
 
+def _within(got, ref, tol):
+    """(max abs error, largest share of the bound used, all within)."""
+    import torch
+    diff = (got.float() - ref.float()).abs()
+    share = float((diff / torch.clamp_min(tol, 1e-30)).max())
+    return float(diff.max()), share, bool((diff <= tol).all())
+
+
+def cmm_bound_ms(M, K, N, C, x_bytes):
+    """(bound ms, "bytes" or "operations") of y = x @ W with W gathered
+    from per-row codebooks: x, the int8 indices and the codebooks read once,
+    y written once; 2MKN operations at the tensor-core rate of x's type."""
+    nbytes = M * K * x_bytes + K * N + K * C * 4 + M * N * x_bytes
+    rate = BF16_TENSOR_FLOPS if x_bytes == 2 else TF32_TENSOR_FLOPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * M * K * N / rate * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def bsmm_bound_ms(M, K, N, live, mask_bytes, x_bytes):
+    """(bound ms, "bytes" or "operations") of the block-sparse product with
+    a ``live`` share of its weight tiles: x, the live weights and the mask
+    read once, y written once; 2MKN x live operations."""
+    nbytes = (M * K * x_bytes + live * K * N * x_bytes + mask_bytes
+              + M * N * x_bytes)
+    rate = BF16_TENSOR_FLOPS if x_bytes == 2 else TF32_TENSOR_FLOPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * M * K * N * live / rate * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def qwen3_matrices(params, cfg):
+    """qwen3-0.6b's 196 layer matrices as the 2-D (K, N) its products use,
+    layer by layer in the order of ``QWEN3_QMM``: views, no copies."""
+    check(len(cfg.segments) == 1 and len(cfg.segments[0].pattern) == 1,
+          "qwen3-0.6b is one segment of one repeated block")
+    blk = params["segments"][0][0]
+    att, mlp = blk["mixer"], blk["mlp"]
+    leaves = {"wq": att["wq"], "wk": att["wk"], "wv": att["wv"],
+              "wo": att["wo"], "wi_gate": mlp["wi_gate"],
+              "wi_up": mlp["wi_up"], "mlp_wo": mlp["wo"]}
+    out = []
+    for layer in range(cfg.num_layers):
+        for name, (K, N) in QWEN3_QMM.items():
+            w = leaves[name]["kernel"][layer].reshape(K, N)
+            check(w.is_contiguous(), f"{name} of layer {layer} is a copy")
+            out.append((name, w))
+    return out
+
+
+def compressed_products(card: str, dev):
+    """Phases 18-21: K3 (clustered_matmul) and K4 (block_sparse_matmul)
+    against their plain versions on the card, then every product of
+    qwen3-0.6b at full width compressed by the port's own producers and run
+    through both kernels, then their times. Returns K2's device times at
+    those shapes and K3's and K4's entries of the ``{"kernels": [...]}``
+    line."""
+    import math
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import clustering as CL
+    from repro_torch.core import pruning as PR
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import block_sparse_matmul as BS
+    from repro_torch.kernels import clustered_matmul as CM
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels.block_sparse_matmul.ref import live_weight
+    from repro_torch.nn import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    decode = [(8,) + kn for kn in QWEN3_QMM.values()]
+
+    def cmm_inputs(M, K, N, C, dt, idx_dt):
+        x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+        idx = torch.randint(0, C, (K, N), generator=gen, device=dev).to(
+            idx_dt)
+        cb = torch.randn((K, C), generator=gen, device=dev) * 0.05
+        return x, idx, cb
+
+    def bsmm_inputs(M, K, N, bk, bn, live, dt):
+        x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+        w = (torch.randn((K, N), generator=gen, device=dev) * 0.05).to(dt)
+        bm = torch.rand((K // bk, N // bn), generator=gen, device=dev) < live
+        return x, w, bm
+
+    # -- 18. K3 against its plain version ---------------------------------
+    cmm_err, cmm_share = 0.0, 0.0
+    with Phase(18, "clustered_matmul vs plain"):
+        cases = [(s, 16, "int8") for s in decode] + [
+            ((20, 70, 40), 3, "int8"), ((20, 70, 40), 3, "int32"),
+            ((8, 1024, 3072), 16, "int32"), ((8, 1024, 3072), 300, "int32"),
+            ((4096, 1024, 3072), 16, "int8")]
+        for (M, K, N), C, iname in cases:
+            for dname, dt in dtypes.items():
+                x, idx, cb = cmm_inputs(M, K, N, C, dt, getattr(torch, iname))
+                got = CM.clustered_matmul(x, idx, cb)
+                torch.cuda.synchronize()
+                ref = CM.clustered_matmul_ref(x, idx, cb)
+                err, share, ok = _within(
+                    got, ref, CM.clustered_matmul_tolerance(x, idx, cb, ref))
+                cmm_err, cmm_share = max(cmm_err, err), max(cmm_share, share)
+                print(f"[18] clustered_matmul M={M} K={K} N={N} C={C} "
+                      f"{iname} {dname}: max abs err {err:.3e}, largest "
+                      f"share of the bound {share:.3e}, within={ok}")
+                check(ok, f"clustered_matmul disagrees at {(M, K, N, C)} "
+                      f"{iname} {dname}")
+                del x, idx, cb, got, ref
+
+    # -- 19. K4 against its plain version ---------------------------------
+    bsmm_err, bsmm_share = 0.0, 0.0
+    with Phase(19, "block_sparse_matmul vs plain"):
+        cases = [(s, (128, 128), live, "") for s in decode
+                 for live in (1.0, 0.5, 0.1)] + [
+            ((8, 1024, 3072), (32, 32), 0.5, ""),
+            ((8, 1024, 3072), (16, 16), 0.5, ""),
+            ((20, 1024, 1024), (128, 128), 0.5, "dead"),
+            ((13, 256, 160), (16, 16), 0.5, "dead"),
+            ((4096, 1024, 3072), (128, 128), 0.5, "")]
+        for (M, K, N), (bk, bn), live, dead in cases:
+            for dname, dt in dtypes.items():
+                x, w, bm = bsmm_inputs(M, K, N, bk, bn, live, dt)
+                if dead:   # tile (1, 0) dead below a live one, its weights
+                    bm[0, 0] = True    # non-zero; the last column strip dead
+                    bm[1, 0] = False
+                    bm[:, -1] = False
+                got = BS.block_sparse_matmul(x, w, bm, block_k=bk,
+                                             block_n=bn)
+                torch.cuda.synchronize()
+                ref = BS.block_sparse_matmul_ref(x, w, bm, block_k=bk,
+                                                 block_n=bn)
+                err, share, ok = _within(
+                    got, ref, BS.block_sparse_matmul_tolerance(
+                        x, w, bm, ref, block_k=bk, block_n=bn))
+                if dead:
+                    ok = ok and int(torch.count_nonzero(got[:, N - bn:])) == 0
+                bsmm_err = max(bsmm_err, err)
+                bsmm_share = max(bsmm_share, share)
+                print(f"[19] block_sparse_matmul M={M} K={K} N={N} tiles "
+                      f"({bk}, {bn}) live {float(bm.float().mean()):.3f}"
+                      f"{' dead tile + dead strip' if dead else ''} {dname}: "
+                      f"max abs err {err:.3e}, largest share of the bound "
+                      f"{share:.3e}, within={ok}")
+                check(ok, f"block_sparse_matmul disagrees at {(M, K, N)} "
+                      f"tiles {(bk, bn)} live {live} {dname}")
+                del x, w, bm, got, ref
+
+    # -- 20. qwen3-0.6b's products, compressed, at full width -------------
+    cfg = ARCHS["qwen3-0.6b"]
+    K_CLUSTERS, SPARSITY, TILE = 16, 0.5, 128
+    with Phase(20, "qwen3-0.6b compressed products"):
+        params = T.init(gen, cfg, device=dev)
+        n_params = T.param_count(params)
+        check(n_params == 596049920, f"{n_params} parameters, not the JAX "
+              "package's 596049920")
+        mats = qwen3_matrices(params, cfg)
+        check(len(mats) == 7 * cfg.num_layers, f"{len(mats)} matrices")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clustered = []
+        for _, w in mats:
+            cb, idx = CL.cluster_per_input(w, K_CLUSTERS)
+            clustered.append((cb, idx.to(torch.int8)))
+        torch.cuda.synchronize()
+        cluster_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # tile norms in float32: bf16 norms of 16384 weights drawn alike
+        # tie at the threshold
+        tiles = [PR.block_mask(w.float(), SPARSITY, (TILE, TILE))
+                 [::TILE, ::TILE].contiguous() for _, w in mats]
+        torch.cuda.synchronize()
+        prune_s = time.perf_counter() - t0
+        live_share = float(sum(int(t.sum()) for t in tiles)
+                           / sum(t.numel() for t in tiles))
+        print(f"[20] qwen3-0.6b: {n_params} parameters; {len(mats)} layer "
+              f"matrices clustered per input row at k={K_CLUSTERS} "
+              f"(cluster_per_input, indices stored int8) in {cluster_s:.3f} "
+              f"s; block-pruned at sparsity {SPARSITY} in {TILE} x {TILE} "
+              f"tiles (block_mask) in {prune_s:.3f} s, live share "
+              f"{live_share:.4f}")
+        xs = {K: torch.randn((8, K), generator=gen, device=dev).to(
+            torch.bfloat16) for K in {k for k, _ in QWEN3_QMM.values()}}
+
+        def k3_step():
+            return [CM.clustered_matmul(xs[w.shape[0]], idx, cb)
+                    for (_, w), (cb, idx) in zip(mats, clustered)]
+
+        def k4_step():
+            return [BS.block_sparse_matmul(xs[w.shape[0]], w, t,
+                                           block_k=TILE, block_n=TILE)
+                    for (_, w), t in zip(mats, tiles)]
+
+        torch.cuda.synchronize()
+        reset_launches()
+        y3 = k3_step()
+        torch.cuda.synchronize()
+        k3_launches = dict(LAUNCHES)
+        reset_launches()
+        y4 = k4_step()
+        torch.cuda.synchronize()
+        k4_launches = dict(LAUNCHES)
+        print(f"[20] one decode step's products at M=8 through K3: "
+              f"launches {k3_launches}; through K4: launches {k4_launches}")
+        check(k3_launches["clustered_matmul"] == len(mats)
+              and sum(k3_launches.values()) == len(mats),
+              f"K3 step launched {k3_launches}")
+        check(k4_launches["block_sparse_matmul"] == len(mats)
+              and sum(k4_launches.values()) == len(mats),
+              f"K4 step launched {k4_launches}")
+        share3 = share4 = 0.0
+        for (name, w), (cb, idx), t, a, b in zip(mats, clustered, tiles, y3,
+                                                 y4):
+            x = xs[w.shape[0]]
+            check(tuple(a.shape) == (8, w.shape[1]) and tuple(b.shape) ==
+                  (8, w.shape[1]) and bool(torch.isfinite(a).all())
+                  and bool(torch.isfinite(b).all()),
+                  f"{name}: outputs not finite or of the wrong shape")
+            ref = CM.clustered_matmul_ref(x, idx, cb)
+            err, share, ok = _within(
+                a, ref, CM.clustered_matmul_tolerance(x, idx, cb, ref))
+            check(ok, f"K3 disagrees on {name}")
+            cmm_err, share3 = max(cmm_err, err), max(share3, share)
+            ref = BS.block_sparse_matmul_ref(x, w, t, block_k=TILE,
+                                             block_n=TILE)
+            err, share, ok = _within(b, ref, BS.block_sparse_matmul_tolerance(
+                x, w, t, ref, block_k=TILE, block_n=TILE))
+            check(ok, f"K4 disagrees on {name}")
+            bsmm_err, share4 = max(bsmm_err, err), max(share4, share)
+        cmm_share = max(cmm_share, share3)
+        bsmm_share = max(bsmm_share, share4)
+        print(f"[20] all {2 * len(mats)} outputs within their bounds against "
+              f"the plain versions: largest share of the bound used, K3 "
+              f"{share3:.3e}, K4 {share4:.3e}")
+        del y3, y4
+
+    # -- 21. times ---------------------------------------------------------
+    # At M = 8 a product can take less device time than its eager call takes
+    # on the host (cuBLAS's do), so the times here are the device's: the
+    # calls are captured in a CUDA graph and replayed between CUDA events
+    # (`_graph_ms`). The eager loop's time is printed beside the kernel's.
+    with Phase(21, "clustered_matmul and block_sparse_matmul times"):
+        # one decode step: 196 products, 440 MB of int8 indices or 880 MB
+        # of bf16 weights, far past the L2
+        rec = [CL.reconstruct_per_input(cb, idx).to(torch.bfloat16)
+               for cb, idx in clustered]
+        pre = [live_weight(w, t, block_k=TILE, block_n=TILE)
+               for (_, w), t in zip(mats, tiles)]
+        steps = {
+            "k3": k3_step,
+            "k3_plain": lambda: [
+                CM.clustered_matmul_ref(xs[w.shape[0]], idx, cb)
+                for (_, w), (cb, idx) in zip(mats, clustered)],
+            "k3_library": lambda: [torch.matmul(xs[r.shape[0]], r)
+                                   for r in rec],
+            "k4": k4_step,
+            "k4_plain": lambda: [
+                BS.block_sparse_matmul_ref(xs[w.shape[0]], w, t,
+                                           block_k=TILE, block_n=TILE)
+                for (_, w), t in zip(mats, tiles)],
+            "k4_library": lambda: [torch.matmul(xs[p.shape[0]], p)
+                                   for p in pre],
+        }
+        step = {key: _graph_ms(fn, [()], reps=3) for key, fn in steps.items()}
+        eager = {key: event_ms(steps[key], reps=10, warmup=2)
+                 for key in ("k3", "k4")}
+        k3_bound = k4_bound = 0.0
+        k3_by, k4_by = set(), set()
+        for (_, w), (cb, _), t in zip(mats, clustered, tiles):
+            K, N = w.shape
+            b, by = cmm_bound_ms(8, K, N, cb.shape[1], 2)
+            k3_bound += b
+            k3_by.add(by)
+            b, by = bsmm_bound_ms(8, K, N, float(t.float().mean()),
+                                  t.numel(), 2)
+            k4_bound += b
+            k4_by.add(by)
+        for key, name, bound, by, lib in (
+                ("k3", "clustered_matmul", k3_bound, k3_by, "reconstructed"),
+                ("k4", f"block_sparse_matmul at live share {live_share:.4f}",
+                 k4_bound, k4_by, "pre-masked")):
+            print(f"[21] {card}: qwen3-0.6b decode step, {len(mats)} "
+                  f"products at M=8, bf16 x, {name}: kernel "
+                  f"{step[key]:.4f} ms on the device (an eager loop of the "
+                  f"same launches {eager[key]:.4f} ms), plain "
+                  f"{step[key + '_plain']:.4f} ms, torch.matmul on the {lib} "
+                  f"bf16 weights {step[key + '_library']:.4f} ms, bound "
+                  f"{bound:.5f} ms ({'/'.join(sorted(by))}); "
+                  f"{step[key] / bound:.1f}x the bound")
+        del rec, pre, clustered, tiles, mats, params, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def timed(label, kernel, plain, library, sets, lib_sets, bound, by,
+                  reps, **extra):
+            out = dict(ms=_graph_ms(kernel, sets, reps),
+                       eager_ms=_rotating_ms(kernel, sets, reps=reps),
+                       plain_ms=_graph_ms(plain, sets, max(2, reps // 4)),
+                       library_ms=_graph_ms(library, lib_sets, reps),
+                       bound_ms=bound, bound_by=by, **extra)
+            print(f"[21] {card}: {label}: kernel {out['ms']:.4f} ms on the "
+                  f"device (eager {out['eager_ms']:.4f} ms), plain "
+                  f"{out['plain_ms']:.4f} ms, torch.matmul "
+                  f"{out['library_ms']:.4f} ms, bound {bound:.5f} ms ({by}); "
+                  f"{out['ms'] / bound:.1f}x the bound")
+            return out
+
+        def k2_times(x, N, copies, reps):
+            """K2 at the same shape: int8 weights, the same bytes as K3's
+            indices."""
+            M, K = x.shape
+            sets = [(x, torch.randint(-127, 128, (K, N), generator=gen,
+                                      device=dev, dtype=torch.int8),
+                     torch.rand((N,), generator=gen, device=dev) * 0.01)
+                    for _ in range(copies)]
+            return timed(f"quant_matmul M={M} K={K} N={N} bf16",
+                         QM.quant_matmul, QM.quant_matmul_ref, torch.matmul,
+                         sets, [(a, (w.float() * sc).to(torch.bfloat16))
+                                for a, w, sc in sets],
+                         *qmm_bound_ms(M, K, N, 2), reps)
+
+        def per_product(M, K, N, live_shares):
+            """K2's, K3's and K4's times at one shape, bf16 x; at decode
+            the weights rotate through more than the L2 (a large M is bound
+            by operations, and two sets do). The library call is
+            torch.matmul on the dequantized, reconstructed or pre-masked
+            bf16 weight."""
+            copies = max(2, math.ceil(120e6 / (K * N))) if M <= 64 else 2
+            reps = 4 * copies if M <= 64 else 5
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            out = {"quant_matmul": k2_times(x, N, copies, reps)}
+            sets = [(x,) + cmm_inputs(1, K, N, 16, torch.bfloat16,
+                                      torch.int8)[1:] for _ in range(copies)]
+            out["clustered_matmul"] = timed(
+                f"clustered_matmul M={M} K={K} N={N} C=16 int8 bf16",
+                CM.clustered_matmul, CM.clustered_matmul_ref, torch.matmul,
+                sets, [(a, CL.reconstruct_per_input(cb, idx).to(
+                    torch.bfloat16)) for a, idx, cb in sets],
+                *cmm_bound_ms(M, K, N, 16, 2), reps)
+            out["block_sparse_matmul"] = {}
+            for live in live_shares:
+                sets = [(x,) + bsmm_inputs(1, K, N, TILE, TILE, live,
+                                           torch.bfloat16)[1:]
+                        for _ in range(copies)]
+                share = float(sum(float(bm.float().mean()) for _, _, bm in
+                                  sets) / copies)
+
+                def kernel(a, w, bm):
+                    return BS.block_sparse_matmul(a, w, bm, block_k=TILE,
+                                                  block_n=TILE)
+
+                def plain(a, w, bm):
+                    return BS.block_sparse_matmul_ref(a, w, bm, block_k=TILE,
+                                                      block_n=TILE)
+
+                out["block_sparse_matmul"][f"live_{live}"] = timed(
+                    f"block_sparse_matmul M={M} K={K} N={N} tiles ({TILE}, "
+                    f"{TILE}) live {share:.3f} bf16", kernel, plain,
+                    torch.matmul, sets,
+                    [(a, live_weight(w, bm, block_k=TILE, block_n=TILE))
+                     for a, w, bm in sets],
+                    *bsmm_bound_ms(M, K, N, share, sets[0][2].numel(), 2),
+                    reps, live=share)
+            return out
+
+        times = {name: per_product(*args)
+                 for name, args in PER_PRODUCT_SHAPES.items()}
+        # K2's qwen3-0.6b decode layer (phase 11's 7 products) on the device
+        k2_layer = {}
+        for K, N in QWEN3_QMM.values():
+            copies = max(2, math.ceil(120e6 / (K * N)))
+            x = torch.randn((8, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            for key, val in k2_times(x, N, copies, 4 * copies).items():
+                if key != "bound_by":
+                    k2_layer[key] = k2_layer.get(key, 0.0) + val
+        print(f"[21] {card}: quant_matmul, one qwen3-0.6b decode layer (7 "
+              f"products, M=8, bf16) on the device: kernel "
+              f"{k2_layer['ms']:.4f} ms (eager {k2_layer['eager_ms']:.4f} "
+              f"ms), plain {k2_layer['plain_ms']:.4f} ms, torch.matmul on the "
+              f"dequantized weights {k2_layer['library_ms']:.4f} ms, bound "
+              f"{k2_layer['bound_ms']:.5f} ms")
+        dec = times["qwen3_gate_decode"]["block_sparse_matmul"]
+        t10, t100 = dec["live_0.1"]["ms"], dec["live_1.0"]["ms"]
+        print(f"[21] {card}: K4 at the gate's decode shape on the device: "
+              f"live 0.1 {t10:.4f} ms against live 1.0 {t100:.4f} ms")
+        check(t10 < t100, "K4 at 10% live tiles is not faster than at 100%: "
+              "dead tiles are not skipped")
+
+    def entry(name, launches, err, share, tol, step_key, bound, by, lib):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_by_path": {
+                "qwen3-0.6b compressed decode step, 196 products":
+                    launches},
+            "max_abs_err": err, "largest_share_of_bound": share,
+            "tolerance": tol,
+            "shapes": "qwen3-0.6b's 196 decode products, M=8, bf16 x; "
+                      "times summed over the step",
+            "ms": step[step_key], "eager_ms": eager[step_key],
+            "plain_ms": step[step_key + "_plain"],
+            "bound_ms": bound,
+            "bound_by": "bytes" if by == {"bytes"} else "operations",
+            "library_ms": step[step_key + "_library"], "library": lib,
+            "per_product": {shape: v[name] for shape, v in times.items()}}
+
+    k2 = {"qwen3_layer": k2_layer,
+          "per_product": {shape: v["quant_matmul"]
+                          for shape, v in times.items()}}
+    return k2, [
+        entry("clustered_matmul", k3_launches["clustered_matmul"], cmm_err,
+              cmm_share, "clustered_matmul_tolerance (2 K eps32 sum|x w| "
+              "+ 2^-7 |y| for bf16)", "k3", k3_bound, k3_by,
+              "torch.matmul on the reconstructed bf16 weight"),
+        entry("block_sparse_matmul", k4_launches["block_sparse_matmul"],
+              bsmm_err, bsmm_share, "block_sparse_matmul_tolerance (2 K eps32 "
+              "sum|x w live| + 2^-7 |y| for bf16)", "k4", k4_bound, k4_by,
+              "torch.matmul on the pre-masked bf16 weight"),
+    ]
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1180,8 +1664,12 @@ def main() -> None:
     qmm_entry["max_abs_err"] = max(qmm_entry["max_abs_err"],
                                    qmm_mamba.pop("max_abs_err"))
     qmm_entry.update(qmm_mamba)
-    print(json.dumps({"kernels": [netlist_entry, qmm_entry, fa_entry,
-                                  ssm_entry]}))
+    gc.collect()
+    torch.cuda.empty_cache()        # the falcon-mamba-7b tensors are gone
+    k2_device, (cmm_entry, bsmm_entry) = compressed_products(card, dev)
+    qmm_entry["device_ms_by_graph"] = k2_device
+    print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
+                                  bsmm_entry, fa_entry, ssm_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

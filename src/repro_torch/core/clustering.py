@@ -1,11 +1,17 @@
-"""Per-input weight clustering (paper §II-C), in PyTorch.
+"""Weight clustering (paper §II-C), in PyTorch.
 
-Weights in the same input row share values, so the bespoke circuit computes
-each product x_i * c once and fans it out. 1-D Lloyd k-means with quantile
-initialisation, matching `repro.core.clustering` operation for operation:
-``jnp.quantile``'s "linear" rule, first-index argmin, centroid sums through
-a one-hot. One batched implementation (`kmeans_rows`) serves the static-k
-path here and the per-candidate-k path of `core.batch_eval`.
+Two granularities, as in `repro.core.clustering`:
+
+* `kmeans_layer`: one codebook for a whole layer (Deep Compression).
+* `cluster_per_input`: the paper's hardware form. Weights in the same input
+  row share values, so the bespoke circuit computes each product x_i * c
+  once and fans it out; its codebooks feed the clustered matmul K3.
+
+1-D Lloyd k-means with quantile initialisation, matching the reference
+operation for operation: ``jnp.quantile``'s "linear" rule, first-index
+argmin, centroid sums through a one-hot. One batched implementation
+(`kmeans_rows`) serves both granularities here and the per-candidate-k path
+of `core.batch_eval`.
 """
 from __future__ import annotations
 
@@ -67,11 +73,24 @@ def _kmeans_1d(x: torch.Tensor, k: int, iters: int = 25):
     return cent[0], a[0]
 
 
+def kmeans_layer(w: torch.Tensor, k: int, iters: int = 25):
+    """One codebook for the whole layer. -> (codebook (k,), idx w.shape
+    int32)."""
+    cent, a = _kmeans_1d(w.to(torch.float32).reshape(-1), k, iters)
+    return cent, a.reshape(w.shape)
+
+
 def cluster_per_input(w: torch.Tensor, k: int, iters: int = 25):
     """k-means per input row. w: (d_in, d_out) -> (codebooks (d_in, k),
-    idx (d_in, d_out) int32)."""
+    idx (d_in, d_out) int32). Rows are independent, so a caller may run
+    the rows in chunks."""
     kk = torch.full((w.shape[0],), k, dtype=torch.int64, device=w.device)
     return kmeans_rows(w.to(torch.float32), kk, k, iters)
+
+
+def reconstruct_layer(codebook: torch.Tensor, idx: torch.Tensor):
+    """codebook (k,), idx (any shape) -> w of idx's shape."""
+    return codebook[idx.long()]
 
 
 def reconstruct_per_input(codebooks: torch.Tensor, idx: torch.Tensor):
@@ -79,9 +98,37 @@ def reconstruct_per_input(codebooks: torch.Tensor, idx: torch.Tensor):
     return torch.gather(codebooks, 1, idx.long())
 
 
-def cluster_ste(w: torch.Tensor, k: int) -> torch.Tensor:
-    """Cluster-aware training forward: snap each row to its codebook,
-    identity gradient."""
+def _snap(w: torch.Tensor, k: int, per_input: bool) -> torch.Tensor:
+    if per_input and w.dim() == 2:
+        return reconstruct_per_input(*cluster_per_input(w, k))
+    return reconstruct_layer(*kmeans_layer(w, k))
+
+
+def cluster_ste(w: torch.Tensor, k: int, *,
+                per_input: bool = True) -> torch.Tensor:
+    """Cluster-aware training forward: snap to the codebook (per input row
+    for a 2-D ``w`` when ``per_input``, else one per layer), identity
+    gradient."""
     wd = w.detach()
-    cb, idx = cluster_per_input(wd, k)
-    return w + (reconstruct_per_input(cb, idx).to(w.dtype) - wd)
+    return w + (_snap(wd, k, per_input).to(w.dtype) - wd)
+
+
+# ---------------------------------------------------------------------------
+# hardware statistics
+# ---------------------------------------------------------------------------
+
+
+def multipliers_needed(idx: torch.Tensor, codebooks: torch.Tensor) -> int:
+    """Bespoke multiplier count after per-input sharing: for each input row,
+    one multiplier per *distinct, non-zero* cluster actually used."""
+    used = torch.zeros(codebooks.shape, dtype=torch.bool,
+                       device=codebooks.device)
+    used.scatter_(1, idx.long(), True)
+    return int((used & (torch.abs(codebooks) > 1e-8)).sum())
+
+
+def clustering_error(w: torch.Tensor, k: int, *,
+                     per_input: bool = True) -> float:
+    """||w - snapped w|| / ||w|| (the denominator floored at 1e-9)."""
+    err = torch.linalg.vector_norm(w - _snap(w, k, per_input))
+    return float(err / torch.clamp_min(torch.linalg.vector_norm(w), 1e-9))

@@ -8,7 +8,9 @@ from __future__ import annotations
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "quant_matmul": 0,
-                             "flash_attention": 0, "ssm_scan": 0}
+                             "flash_attention": 0, "ssm_scan": 0,
+                             "clustered_matmul": 0,
+                             "block_sparse_matmul": 0}
 
 
 def reset_launches() -> None:

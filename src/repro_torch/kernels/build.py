@@ -23,7 +23,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel of the package, one ``csrc/<name>.cu`` each
-KERNELS = ("netlist_sim", "quant_matmul", "flash_attention", "ssm_scan")
+KERNELS = ("netlist_sim", "quant_matmul", "flash_attention", "ssm_scan",
+           "clustered_matmul", "block_sparse_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

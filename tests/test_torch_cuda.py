@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels: K1 (netlist_sim) against
 its plain PyTorch version and the numpy oracle, bit for bit; K2
-(quant_matmul), K5 (flash_attention) and K6 (ssm_scan) against their plain
-versions within the bounds stated beside them (`quant_matmul_tolerance`,
+(quant_matmul), K3 (clustered_matmul), K4 (block_sparse_matmul), K5
+(flash_attention) and K6 (ssm_scan) against their plain versions within the
+bounds stated beside them (`quant_matmul_tolerance`,
+`clustered_matmul_tolerance`, `block_sparse_matmul_tolerance`,
 `flash_attention_tolerance`, `ssm_scan_tolerance`), alone and inside the
 model. They import no
 JAX (the machine with the card has none) and skip without a CUDA device;
@@ -16,11 +18,17 @@ import torch
 from repro_torch import circuit
 from repro_torch.configs import ARCHS
 from repro_torch.core import minimize as MZ
+from repro_torch.core import clustering as CL
+from repro_torch.core import pruning as PR
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import block_sparse_matmul as BS
+from repro_torch.kernels import clustered_matmul as CM
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import netlist_sim as NS
 from repro_torch.kernels import quant_matmul as QM
 from repro_torch.kernels import ssm_scan as SS
+from repro_torch.kernels.block_sparse_matmul import ops as BSO
+from repro_torch.kernels.clustered_matmul import ops as CMO
 from repro_torch.kernels.flash_attention import ops as FAO
 from repro_torch.kernels.netlist_sim import ops as NSO
 from repro_torch.kernels.quant_matmul import ops as QMO
@@ -392,3 +400,149 @@ def test_quantized_mamba_decode_goes_through_k2(card, monkeypatch):
         assert LAUNCHES["ssm_scan"] == 0
     torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4
+# ---------------------------------------------------------------------------
+
+
+# (M, K, N, C): qwen3-0.6b's gate/up and q shapes at the decode batch of 8,
+# the JAX test's ragged shape, N not a multiple of 4 (single index loads),
+# more clusters than int8 holds (int32 only), a prefill-sized M
+CMM_CASES = {
+    "decode_gate": (8, 1024, 3072, 16),
+    "decode_q": (8, 1024, 2048, 16),
+    "ragged": (20, 70, 40, 3),
+    "n_not_4": (5, 130, 50, 7),
+    "c_300": (8, 256, 96, 300),
+    "m_1000": (1000, 1024, 256, 16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,idx_dtype", [
+    (c, i) for c in sorted(CMM_CASES) for i in ("int8", "int32")
+    if i == "int32" or CMM_CASES[c][3] <= 128])   # int8 holds 128 clusters
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_clustered_matmul_kernel_matches_plain(card, case, idx_dtype, dtype):
+    M, K, N, C = CMM_CASES[case]
+    g = torch.Generator(device=card).manual_seed(M + K + N + C)
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    idx = torch.randint(0, C, (K, N), generator=g, device=card).to(
+        getattr(torch, idx_dtype))
+    cb = torch.randn((K, C), generator=g, device=card)
+    reset_launches()
+    got = CM.clustered_matmul(x, idx, cb)
+    torch.cuda.synchronize()
+    assert LAUNCHES["clustered_matmul"] == 1
+    ref = CM.clustered_matmul_ref(x, idx, cb)
+    assert got.dtype == x.dtype and got.shape == (M, N)
+    tol = CM.clustered_matmul_tolerance(x, idx, cb, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_clustered_matmul_on_per_input_codebooks(card):
+    """K3 over `cluster_per_input`'s codebooks, indices stored int8, equals
+    the product with the reconstructed weight."""
+    g = torch.Generator(device=card).manual_seed(1)
+    w = torch.randn((256, 384), generator=g, device=card) * 0.05
+    x = torch.randn((8, 256), generator=g, device=card).to(torch.bfloat16)
+    cb, idx = CL.cluster_per_input(w, 16)
+    got = CM.clustered_matmul(x, idx.to(torch.int8), cb)
+    dense = (x.float() @ CL.reconstruct_per_input(cb, idx)).to(x.dtype)
+    tol = CM.clustered_matmul_tolerance(x, idx, cb, dense)
+    assert bool(((got.float() - dense.float()).abs() <= tol).all())
+
+
+# (M, K, N, bk, bn, live share): the decode shapes in 128 x 128 tiles at
+# three live shares, smaller tiles than the 32-column strip, a ragged M
+BSMM_CASES = {
+    "decode_gate_half": (8, 1024, 3072, 128, 128, 0.5),
+    "decode_down_tenth": (8, 3072, 1024, 128, 128, 0.1),
+    "decode_o_full": (8, 2048, 1024, 128, 128, 1.0),
+    "tiles_32": (8, 1024, 1024, 32, 32, 0.5),
+    "tiles_16": (13, 256, 160, 16, 16, 0.5),
+    "tiles_16x48": (8, 128, 96, 16, 48, 0.4),
+    "m_1000": (1000, 1024, 256, 128, 128, 0.5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BSMM_CASES))
+@pytest.mark.parametrize("mask_dtype", ["bool", "int32"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_block_sparse_matmul_kernel_matches_plain(card, case, mask_dtype,
+                                                  dtype):
+    M, K, N, bk, bn, live = BSMM_CASES[case]
+    g = torch.Generator(device=card).manual_seed(M + K + N + bk + bn)
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    w = torch.randn((K, N), generator=g, device=card).to(DTYPES[dtype])
+    bm = torch.rand((K // bk, N // bn), generator=g, device=card) < live
+    bm[0, 0] = False                 # a dead tile with non-zero weights
+    bm[:, -1] = False                # an all-dead column strip
+    bm = bm.to(getattr(torch, mask_dtype))
+    reset_launches()
+    got = BS.block_sparse_matmul(x, w, bm, block_k=bk, block_n=bn)
+    torch.cuda.synchronize()
+    assert LAUNCHES["block_sparse_matmul"] == 1
+    ref = BS.block_sparse_matmul_ref(x, w, bm, block_k=bk, block_n=bn)
+    assert got.dtype == x.dtype and got.shape == (M, N)
+    assert torch.count_nonzero(got[:, N - bn:]) == 0
+    tol = BS.block_sparse_matmul_tolerance(x, w, bm, ref, block_k=bk,
+                                           block_n=bn)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_block_sparse_matmul_on_block_mask(card):
+    """K4 over `block_mask`'s tiles equals the product with
+    `apply_mask(w, block_mask(w))`."""
+    g = torch.Generator(device=card).manual_seed(2)
+    w = torch.randn((512, 384), generator=g, device=card)
+    x = torch.randn((8, 512), generator=g, device=card)
+    full = PR.block_mask(w, 0.5, block=(128, 128))
+    tiles = full[::128, ::128].contiguous()
+    got = BS.block_sparse_matmul(x, w, tiles)
+    dense = x @ PR.apply_mask(w, full)
+    tol = BS.block_sparse_matmul_tolerance(x, w, tiles, dense, block_k=128,
+                                           block_n=128)
+    assert bool(((got - dense).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_compressed_wrappers_never_fall_back_on_cuda(card, monkeypatch):
+    """On CUDA tensors K3's and K4's wrappers launch their kernels or
+    raise: they never run the plain versions, refuse non-contiguous inputs,
+    and a missing build is an error."""
+    def forbidden(*a, **k):
+        raise AssertionError("plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(CMO, "clustered_matmul_ref", forbidden)
+    monkeypatch.setattr(BSO, "block_sparse_matmul_ref", forbidden)
+    x = torch.ones((2, 64), device=card)
+    idx = torch.zeros((64, 8), dtype=torch.int8, device=card)
+    cb = torch.ones((64, 4), device=card)
+    w = torch.ones((64, 32), device=card)
+    bm = torch.ones((2, 1), dtype=torch.bool, device=card)
+    assert CM.clustered_matmul(x, idx, cb).is_cuda
+    assert BS.block_sparse_matmul(x, w, bm, block_k=32, block_n=32).is_cuda
+    with pytest.raises(ValueError, match="contiguous"):
+        CM.clustered_matmul(x, idx.t().contiguous().t(), cb)
+    with pytest.raises(ValueError, match="contiguous"):
+        BS.block_sparse_matmul(x, torch.ones((64, 64), device=card),
+                               torch.ones((2, 2), dtype=torch.bool,
+                                          device=card).t(),
+                               block_k=32, block_n=32)
+
+    def broken(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr("repro_torch.kernels.build.load", broken)
+    monkeypatch.setattr(CMO, "_FNS", {})
+    monkeypatch.setattr(BSO, "_FNS", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        CM.clustered_matmul(x, idx, cb)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        BS.block_sparse_matmul(x, w, bm, block_k=32, block_n=32)

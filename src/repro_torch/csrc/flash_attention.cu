@@ -6,20 +6,78 @@
 // flash_attention_pallas (body _flash_kernel) and computes what the plain
 // version (kernels/flash_attention/ref.py) computes: query t sees key s when
 // s < S, s <= t (causal) and s > t - window (window > 0); scores, softmax
-// and the product with v are float32; o is written in q's type (float32 or
-// bf16, one template).
+// and the sums of the product with v are float32; o is written in q's type.
 //
 // Where it runs: every layer of the prefill forward (self-attention over the
 // whole prompt, no cache), 4 x 1024 tokens x 16 heads x 128 dims at
 // qwen3-0.6b's width.
 //
-// What bounds it on this card: with bf16 inputs, the least time is the
-// multiply-adds of the visible (t, s) pairs at the tensor-core rate, just
-// above the bytes of q, k, v and o. This first kernel does its math on the
-// CUDA cores from shared memory, so it stays well above that bound; wgmma
-// and TMA are later work.
+// What bounds it on this card: with bf16 inputs, the multiply-adds of the
+// visible (t, s) pairs at the tensor-core rate, just above the bytes of q,
+// k, v and o.
 //
-// Design (not the Pallas grid carried over block by block):
+// Two bodies, one entry point each; the wrapper (kernels/flash_attention/
+// ops.py) picks by type, head_dim and alignment, never by a failure:
+//
+// 1. The wgmma body (flash_wgmma_kernel): bf16 inputs at head_dim 64, 128
+//    and 256 whose (b, t, head) strides are multiples of 8 elements and
+//    whose pointers are 16-byte aligned, as TMA requires. Every bf16 model
+//    config takes it (qwen3 hd 128; gemma, gemma2, recurrentgemma hd 256).
+//  * One block per (b * H + h, 128-query tile), two warpgroups of 64 query
+//    rows. The grid is ordered so that the last query tiles, which see the
+//    most keys under the causal mask, start first.
+//  * Q is loaded once by TMA, K and V tiles of 64 keys by TMA into a ring of
+//    two stages; each stage's completion is an mbarrier with a transaction
+//    count, and tile j + 1 is in flight while tile j is computed. One
+//    __syncthreads a tile frees the stage that the next load refills.
+//  * 128-byte swizzle: a TMA box's inner extent is then at most 128 bytes
+//    (64 bf16), so a row of hd = 128 or 256 comes as 2 or 4 boxes, each
+//    its own 1024-byte aligned region (8 rows of 128 bytes form one swizzle
+//    atom). The wgmma shared-memory descriptors say the same: swizzle mode
+//    1 (128 B) in bits 62-63, stride byte offset 1024 between 8-row groups,
+//    and for a k16 step the start address advanced 32 bytes inside the
+//    swizzled row (q, k: K-major) or 2048 bytes, two 8-key groups (v).
+//  * S = Q K^T: wgmma m64n64k16 with both operands from shared memory, q
+//    rows and k rows K-major as stored, f32 accumulators in registers.
+//  * Softmax on the accumulator fragment, in the log2 domain (exp2f): a
+//    thread holds 2 rows x 16 keys; row maxima across the 4 lanes of a quad
+//    by shuffles; the row sums stay per thread until the epilogue (the
+//    correction factor is uniform over a quad). Scale, softcap and masks
+//    are applied there; the masks only on tiles that straddle a boundary
+//    (causal diagonal, window edge, s >= S). Zero-filled keys beyond S give
+//    a score of 0, so s >= S is masked explicitly. The running max starts
+//    at the finite kMaskInit, so a row whose first tiles are all masked
+//    never computes exp(-inf - (-inf)).
+//  * O += P V: the S fragment of keys 16 j .. 16 j + 15, packed pairwise to
+//    bf16x2, is the A-register fragment of a k16 step (the PTX ISA's
+//    m64nNk16 D and A layouts agree: rows lane / 4 and + 8, columns
+//    2 (lane % 4) + {0, 1} and + 8). V is the B operand from shared memory
+//    as stored, (keys x hd), MN-major, read through wgmma's transpose bit;
+//    one m64n64k16 per 64 columns of hd, so no descriptor spans two boxes.
+//    P is rounded to bf16 here, as in every tensor-core flash attention;
+//    the denominator sums the unrounded float32 p. That rounding is what
+//    flash_attention_tolerance's bf16-P term covers.
+//  * wgmma ordering: wgmma.fence before each group (the accumulators and P
+//    were written by ordinary code), commit_group / wait_group 0 before the
+//    softmax or the epilogue reads an accumulator. Only TMA and wgmma touch
+//    the staged tiles, both in the async proxy, so no proxy fence is needed
+//    after the barrier init's.
+//  * Tensor maps: encoded on the host for every call (the pointers change)
+//    through cuTensorMapEncodeTiled, reached by cudaGetDriverEntryPoint so
+//    the library needs no -lcuda; three 4-D maps (hd, heads, len, batch).
+//    Their host cost lies inside the eager time chip_smoke.py prints beside
+//    the device time (not measured apart). They are passed by value as
+//    __grid_constant__ kernel parameters, so a CUDA graph captures them.
+//  * GQA: the k and v maps' head coordinate is h / (H / KV); nothing is
+//    broadcast. Rows t >= T are zero-filled by TMA and not written.
+//  * Registers: at hd = 256 the O accumulator is 128 floats a thread; with
+//    256 threads and one block an SM a thread may hold 255. Shared memory at
+//    hd = 256: Q 64 KB + 2 stages x (K + V) 128 KB.
+//
+// 2. The CUDA-core body (flash_kernel), for everything else: float32 inputs
+//    (the tests, the float32 configs), head_dim 16 and 32 (no config uses
+//    them), and bf16 views whose strides TMA cannot take. It is the first
+//    port of the kernel, kept as it was:
 //  * One block per (b * H + h, 64-query tile); the Pallas kernel's
 //    sequential KV grid axis becomes a loop inside the block, carrying the
 //    running max m, denominator l and the 64 x HD output accumulator (in
@@ -40,6 +98,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -290,6 +349,454 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The wgmma body
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int kThreads = 256;      // two consumer warpgroups
+constexpr int kBQ = 128;           // queries per block, 64 per warpgroup
+constexpr int kBK = 64;            // keys per KV tile
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing on ``bar``
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a 128-byte swizzled operand: start
+// address >> 4 (bits 0-13), leading byte offset >> 4 (16-29; unused by the
+// shapes here), stride byte offset 1024 >> 4 between 8-row groups (32-45),
+// swizzle mode 1 = 128 B (62-63); base offset 0, every tile being 1024-byte
+// aligned
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, bf16, K-major, shared) B^T (B: 64 x 16,
+// K-major, shared)
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16, registers) B (16 x 64, bf16,
+// MN-major in shared memory: the transpose bit set)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// KV tiles [begin, end) that some query of [first, last] sees
+__device__ __forceinline__ void visible_tiles(int first, int last, int S_len,
+                                              int causal, int window,
+                                              int& begin, int& end) {
+  end = (S_len + kBK - 1) / kBK;
+  if (causal) end = min(end, last / kBK + 1);
+  begin = 0;
+  if (window > 0) {
+    const int lo = first - window + 1;
+    begin = lo > 0 ? lo / kBK : 0;
+  }
+}
+
+template <int HD>
+constexpr int smem_bytes() {
+  // Q, then kStages x (K, V), then 3 mbarriers; 1024 bytes of slack to
+  // align the base
+  return (HD / 64) * (kBQ * 128 + 2 * kStages * kBK * 128) + 64 + 1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, int T_len, int S_len, int H,
+                   int KV, int BH, int n_qt, Strides os, int causal,
+                   int window, float softcap, float scale) {
+  constexpr int NB = HD / 64;               // 64-column boxes of a row
+  constexpr int kQBox = kBQ * 128;          // bytes of a 128-row box
+  constexpr int kKVBox = kBK * 128;         // bytes of a 64-row box
+  constexpr int kQBytes = NB * kQBox;
+  constexpr int kKVBytes = NB * kKVBox;     // one K (or V) tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + kQBytes;                  // + stage * kKVBytes
+  const uint32_t sv = sk + kStages * kKVBytes;       // + stage * kKVBytes
+  const uint32_t bar_q = sv + kStages * kKVBytes;
+  const uint32_t bar_kv = bar_q + 8;                 // + stage * 8
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;                // warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / BH;  // last first
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = qt * kBQ;
+  const int qw = q0 + 64 * wgi;             // first row of this warpgroup
+  const int row0 = qw + 16 * warp + lane / 4;   // this thread's rows: row0,
+                                                // row0 + 8
+  int kt_begin, kt_end, w_begin, w_end;
+  visible_tiles(q0, min(q0 + kBQ, T_len) - 1, S_len, causal, window,
+                kt_begin, kt_end);
+  const bool active = qw < T_len;
+  const int w_last = min(qw + 63, T_len - 1);
+  visible_tiles(qw, w_last, S_len, causal, window, w_begin, w_end);
+  const int n_tiles = kt_end - kt_begin;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(bar_kv + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int stage, int kt) {
+    const uint32_t bar = bar_kv + 8 * stage;
+    mbar_expect_tx(bar, 2 * kKVBytes);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      tma_load(sk + stage * kKVBytes + j * kKVBox, &tk, bar, 64 * j, kvh,
+               kt * kBK, b);
+      tma_load(sv + stage * kKVBytes + j * kKVBox, &tv, bar, 64 * j, kvh,
+               kt * kBK, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, kQBytes);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      tma_load(sq + j * kQBox, &tq, bar_q, 64 * j, h, q0, b);
+    if (n_tiles > 0) load_kv(0, kt_begin);
+  }
+  __syncwarp();
+
+  float oacc[NB][32];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[j][i] = 0.f;
+  float m_run[2] = {kMaskInit, kMaskInit};
+  float l_part[2] = {0.f, 0.f};      // this thread's share of the row sums
+  const float scale_log2 = scale * kLog2e;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kt = kt_begin + it, st = it % kStages;
+    if (tid == 0 && it + 1 < n_tiles) load_kv((it + 1) % kStages, kt + 1);
+    __syncwarp();
+    mbar_wait(bar_kv + 8 * st, (it / kStages) & 1);
+    if (active && kt >= w_begin && kt < w_end) {
+      // S = Q K^T over HD / 16 k16 steps
+      float s[32];
+      fence_regs(s);
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;   // 16 bf16 along the row
+        const uint64_t da =
+            desc_sw128(sq + (kk / 4) * kQBox + wgi * 64 * 128 + off);
+        const uint64_t db =
+            desc_sw128(sk + st * kKVBytes + (kk / 4) * kKVBox + off);
+        mma_ss(s, da, db, kk > 0);
+      }
+      commit();
+      wait_all();
+      fence_regs(s);
+
+      // scale, softcap and masks, in the log2 domain
+      const int k0 = kt * kBK;
+      const bool edge = k0 + kBK > S_len || (causal && k0 + kBK - 1 > qw) ||
+                        (window > 0 && k0 <= w_last - window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * i + e];
+          if (softcap > 0.f)
+            x = tanhf(x * scale / softcap) * softcap * kLog2e;
+          else
+            x *= scale_log2;
+          if (edge) {
+            const int col = k0 + 8 * i + 2 * (lane % 4) + (e & 1);
+            const int t = row0 + 8 * (e >> 1);
+            bool ok = col < S_len;
+            if (causal) ok = ok && col <= t;
+            if (window > 0) ok = ok && col > t - window;
+            if (!ok) x = -INFINITY;
+          }
+          s[4 * i + e] = x;
+        }
+      // online softmax: row r holds s[4 i + 2 r], s[4 i + 2 r + 1]
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          mx = fmaxf(mx, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[r], mx);
+        corr[r] = exp2f(m_run[r] - m_new);
+        m_run[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = exp2f(s[4 * i + 2 * r + c] - m_new);
+            s[4 * i + 2 * r + c] = p;
+            sum += p;
+          }
+        l_part[r] = l_part[r] * corr[r] + sum;
+      }
+      // P in bf16 as the A fragments of the four k16 steps
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pa[kk][q] = pack_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          oacc[j][4 * i + 0] *= corr[0];
+          oacc[j][4 * i + 1] *= corr[0];
+          oacc[j][4 * i + 2] *= corr[1];
+          oacc[j][4 * i + 3] *= corr[1];
+        }
+      // O += P V: per k16 step (16 keys, 2 x 8-row groups = 2048 bytes of
+      // the V box) one product per 64 columns of hd
+#pragma unroll
+      for (int j = 0; j < NB; ++j) fence_regs(oacc[j]);
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          mma_rs(oacc[j], pa[kk],
+                 desc_sw128(sv + st * kKVBytes + j * kKVBox + kk * 2048));
+      commit();
+      wait_all();
+#pragma unroll
+      for (int j = 0; j < NB; ++j) fence_regs(oacc[j]);
+    }
+    __syncthreads();   // both warpgroups are done with stage st
+  }
+
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_part[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + 8 * r;
+    if (t >= T_len) continue;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 64 * j + 8 * i + 2 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(ob + t * os.t + col) =
+            __floats2bfloat162_rn(oacc[j][4 * i + 2 * r] * inv[r],
+                                  oacc[j][4 * i + 2 * r + 1] * inv[r]);
+      }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (batch, len, heads, HD) bf16 tensor as a 4-D map (HD, heads, len,
+// batch) read in boxes of 64 x 1 x rows x 1, 128-byte swizzled. The stride
+// of an extent-1 dimension is never used; it is replaced by the dense one
+// so that a broadcast (stride 0) view encodes.
+bool encode(CUtensorMap* map, const void* ptr, int HD, int heads, int len,
+            int batch, Strides st, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const int64_t h = heads > 1 ? st.h : HD;
+  const int64_t t = len > 1 ? st.t : h * heads;
+  const int64_t bb = batch > 1 ? st.b : t * len;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(h) * 2,
+                                 static_cast<cuuint64_t>(t) * 2,
+                                 static_cast<cuuint64_t>(bb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
+              int T_len, int S_len, int H, int KV, Strides qs, Strides ks,
+              Strides vs, Strides os, int causal, int window, float softcap,
+              cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();   // not left for the next call to report
+      return static_cast<int>(e);
+    }
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, HD, H, T_len, B, qs, kBQ) ||
+      !encode(&tk, k, HD, KV, S_len, B, ks, kBK) ||
+      !encode(&tv, v, HD, KV, S_len, B, vs, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_qt = (T_len + kBQ - 1) / kBQ;
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  flash_wgmma_kernel<HD><<<n_qt * B * H, kThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), T_len, S_len, H, KV, B * H,
+      n_qt, os, causal, window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int T_len, int S_len, int H, int KV, int HD, const int64_t* st,
+           int causal, int window, float softcap, void* stream) {
+  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
+  if (KV <= 0 || H % KV != 0 || S_len <= 0) return cudaErrorInvalidValue;
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (HD) {
+    case 64:
+      return launch_hd<64>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
+                           os, causal, window, softcap, s);
+    case 128:
+      return launch_hd<128>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
+                            os, causal, window, softcap, s);
+    case 256:
+      return launch_hd<256>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
+                            os, causal, window, softcap, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 // q (B, T, H, HD), k and v (B, S, KV, HD), o (B, T, H, HD) on the current
 // device, each with unit stride along HD; strides holds the (b, t, head)
 // strides in elements of q, k, v and o, in that order (12 values). HD is
@@ -310,4 +817,18 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int window, float softcap, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, B, T, S, H, KV, HD, strides,
                                causal, window, softcap, stream);
+}
+
+// The wgmma body: bf16 q, k, v, o as above, HD 64, 128 or 256, every
+// (b, t, head) stride a multiple of 8 elements and q, k, v 16-byte aligned
+// (TMA's terms). Returns the CUDA error of the launch (0 on success);
+// cudaErrorInvalidValue also when a tensor map does not encode.
+extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int T, int S, int H, int KV,
+                                          int HD, const int64_t* strides,
+                                          int causal, int window,
+                                          float softcap, void* stream) {
+  return wg::launch(q, k, v, o, B, T, S, H, KV, HD, strides, causal, window,
+                    softcap, stream);
 }

@@ -2,13 +2,16 @@
 
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel and
 nowhere else, so a run can show that its path went through the kernel.
+``LAUNCHES["flash_attention_wgmma"]`` counts, in addition, the launches of
+K5 that took its wgmma body (bf16 at head_dim 64, 128 or 256).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "quant_matmul": 0,
-                             "flash_attention": 0, "ssm_scan": 0,
+                             "flash_attention": 0,
+                             "flash_attention_wgmma": 0, "ssm_scan": 0,
                              "clustered_matmul": 0,
                              "block_sparse_matmul": 0}
 

@@ -5,7 +5,8 @@
 ``repro_torch.kernels.LAUNCHES["clustered_matmul"]``) or raises; only for
 CPU tensors does it run the plain version `clustered_matmul_ref`. The
 reference's padding to (128, 128, 128) blocks is gone: the kernel masks its
-ragged edges. The indices are read as stored, int8 or int32; the reference
+ragged edges. The kernel splits K over a thread-block cluster and reduces
+the partial sums in a fixed order inside the one launch. The indices are read as stored, int8 or int32; the reference
 widens them to int32 first.
 """
 from __future__ import annotations
@@ -86,8 +87,9 @@ def clustered_matmul(x: torch.Tensor, idx: torch.Tensor,
     if max(M, K, N) >= 2 ** 31 or M > 8 * 65535:
         raise ValueError(f"clustered_matmul: shape {(M, K, N)} too large")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    # four neighbouring indices in one load: 4 bytes (int8) or 16 (int32)
-    vec = int(N % 4 == 0 and idx.data_ptr() % (4 * idx.element_size()) == 0)
+    # 16 bytes of neighbouring indices in one load (16 int8 or 4 int32)
+    vec = int(N % (16 // idx.element_size()) == 0
+              and idx.data_ptr() % 16 == 0)
     rc = _kernel(x.dtype, idx.dtype)(
         x.data_ptr(), idx.data_ptr(), codebook.data_ptr(), y.data_ptr(),
         M, K, N, C, vec, torch.cuda.current_stream().cuda_stream)

@@ -9,6 +9,13 @@ reads KV head h // (H // KV) by strides, so nothing is transposed, padded or
 broadcast. Only for CPU tensors does it run the plain version
 `flash_attention_plain`, which folds the heads as the reference's ops.py
 does and calls `flash_attention_ref`.
+
+The kernel has two bodies (see the note in the source). bf16 inputs at
+head_dim 64, 128 or 256 whose tensors TMA can read (`takes_wgmma`) go
+through the wgmma body, counted also in ``LAUNCHES["flash_attention_wgmma"]``;
+it rounds P to bf16 before P @ v, which `flash_attention_tolerance` covers
+for bf16. Everything else goes through the CUDA-core body. The choice
+follows from the inputs alone, never from a failure.
 """
 from __future__ import annotations
 
@@ -18,15 +25,16 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref, flash_attention_tolerance)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _FNS: Dict[str, object] = {}
 
 
-def _kernel(dtype: torch.dtype):
-    name = _SUFFIX[dtype]
+def _kernel(name: str):
     if name not in _FNS:
         from repro_torch.kernels import build
         fn = getattr(build.load("flash_attention"), f"flash_attention_{name}")
@@ -55,6 +63,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             fold_kv(k), fold_kv(v), causal=causal,
                             window=window, softcap=softcap)
     return o.reshape(B, H, T, -1).permute(0, 2, 1, 3)
+
+
+def takes_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the wgmma body serves these inputs: bf16, head_dim 64, 128 or
+    256, and what TMA needs of each tensor, every (b, t, head) stride a
+    multiple of 16 bytes (the stride of an extent-1 dimension is never
+    used) and a 16-byte aligned start."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS
+            and all(a.data_ptr() % 16 == 0
+                    and all(s % 8 == 0 for s, n in zip(a.stride()[:3],
+                                                       a.shape[:3]) if n > 1)
+                    for a in (q, k, v)))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -103,7 +123,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(*(s for a in (q, k, v, o)
                                       for s in a.stride()[:3]))
-    rc = _kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    wgmma = takes_wgmma(q, k, v)
+    name = "bf16_wgmma" if wgmma else _SUFFIX[q.dtype]
+    rc = _kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), B, T, S, H, KV, hd, strides,
                           int(causal), int(window), float(softcap),
                           torch.cuda.current_stream().cuda_stream)
@@ -111,7 +133,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     LAUNCHES["flash_attention"] += 1
+    if wgmma:
+        LAUNCHES["flash_attention_wgmma"] += 1
     return o
 
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_ref"]
+def flash_attention_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          ref: torch.Tensor, *, causal: bool = True,
+                          window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """`flash_attention_tolerance` for these inputs, in the model's layout:
+    for bf16 it needs softmax(q k^T / sqrt(hd)) |v|, the plain version run
+    in float32 on |v|."""
+    abs_out = None
+    if ref.dtype == torch.bfloat16:
+        abs_out = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                        causal=causal, window=window,
+                                        softcap=softcap)
+    return flash_attention_tolerance(v, ref, abs_out)
+
+
+__all__ = ["flash_attention", "flash_attention_bound",
+           "flash_attention_plain", "flash_attention_ref", "takes_wgmma"]

@@ -4,7 +4,8 @@ its plain PyTorch version and the numpy oracle, bit for bit; K2
 (flash_attention) and K6 (ssm_scan) against their plain versions within the
 bounds stated beside them (`quant_matmul_tolerance`,
 `clustered_matmul_tolerance`, `block_sparse_matmul_tolerance`,
-`flash_attention_tolerance`, `ssm_scan_tolerance`), alone and inside the
+`flash_attention_tolerance` through `flash_attention_bound`,
+`ssm_scan_tolerance`), alone and inside the
 model. They import no
 JAX (the machine with the card has none) and skip without a CUDA device;
 on the card run them without the JAX-importing conftest:
@@ -201,8 +202,77 @@ def test_flash_attention_kernel_matches_plain(card, case):
     assert LAUNCHES["flash_attention"] == 1
     ref = FA.flash_attention_plain(q, k, v, **kw)
     assert got.dtype == dt and got.shape == (B, Tq, H, hd)
-    tol = FA.flash_attention_tolerance(v, ref)
+    tol = FA.flash_attention_bound(q, k, v, ref, **kw)
     assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+# name: (B, T, S, H, KV, hd, causal, window, softcap), all bf16 through the
+# wgmma body: each head_dim with ragged T (not a multiple of the 128-query
+# block or the 64-key tile), non-causal S padded past the last tile, a
+# window, a softcap, and GQA groups of 1, 2 and 8
+WGMMA_CASES = {
+    "hd64_t1000_g2": (2, 1000, 1000, 4, 2, 64, True, 0, 0.0),
+    "hd64_t77_g1": (2, 77, 77, 4, 4, 64, True, 0, 0.0),
+    "hd64_s333_g8": (1, 200, 333, 8, 1, 64, False, 0, 0.0),
+    "hd128_t1000_g2": (1, 1000, 1000, 16, 8, 128, True, 0, 0.0),
+    "hd128_t77_g8": (3, 77, 77, 8, 1, 128, True, 0, 0.0),
+    "hd128_s333_g1": (2, 130, 333, 4, 4, 128, False, 0, 0.0),
+    "hd128_window_softcap_g2": (1, 700, 700, 8, 4, 128, True, 256, 30.0),
+    "hd256_t1000_g2": (1, 1000, 1000, 4, 2, 256, True, 0, 50.0),
+    "hd256_t77_g1": (2, 77, 77, 2, 2, 256, True, 0, 0.0),
+    "hd256_s333_g8": (1, 150, 333, 8, 1, 256, False, 0, 0.0),
+    "hd256_window_g2": (1, 600, 600, 4, 2, 256, True, 100, 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_flash_attention_wgmma_body_matches_plain(card, case):
+    B, Tq, S, H, KV, hd, causal, window, cap = WGMMA_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + S + hd + H)
+    q, k, v = (torch.randn(shape, generator=g, device=card).to(
+        torch.bfloat16) for shape in ((B, Tq, H, hd), (B, S, KV, hd),
+                                      (B, S, KV, hd)))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    assert FA.takes_wgmma(q, k, v)
+    reset_launches()
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert LAUNCHES["flash_attention_wgmma"] == 1
+    ref = FA.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Tq, H, hd)
+    tol = FA.flash_attention_bound(q, k, v, ref, **kw)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_bodies_by_type_head_dim_and_alignment(card):
+    """bf16 at head_dim 64/128/256 with TMA-readable strides takes the wgmma
+    body; float32, head_dim 32 and a view whose token stride is not a
+    multiple of 16 bytes take the CUDA-core body, and still agree."""
+    g = torch.Generator(device=card).manual_seed(5)
+
+    def qkv(hd, dt, pad=0):
+        full = torch.randn((1, 90, 4, hd + pad), generator=g,
+                           device=card).to(dt)
+        return full[..., :hd], full[:, :, :2, :hd], full[:, :, 2:, :hd]
+
+    for hd, dt, pad, wgmma in ((128, torch.bfloat16, 0, True),
+                               (128, torch.float32, 0, False),
+                               (32, torch.bfloat16, 0, False),
+                               (64, torch.bfloat16, 4, False)):
+        q, k, v = qkv(hd, dt, pad)
+        q = q.contiguous() if pad == 0 else q
+        assert FA.takes_wgmma(q, k, v) == wgmma
+        reset_launches()
+        got = FA.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert (LAUNCHES["flash_attention"],
+                LAUNCHES["flash_attention_wgmma"]) == (1, int(wgmma))
+        ref = FA.flash_attention_plain(q, k, v)
+        tol = FA.flash_attention_bound(q, k, v, ref)
+        assert bool(((got.float() - ref.float()).abs() <= tol).all())
 
 
 def ssm_inputs(g, B, T, d, N, dtype, device):
@@ -325,6 +395,25 @@ def test_prefill_goes_through_k5(card, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_bf16_prefill_goes_through_the_wgmma_body(card, monkeypatch):
+    cfg = ARCHS["qwen3-0.6b"].reduced(**dict(QUANT_CFG, head_dim=128,
+                                             dtype="bfloat16"))
+    params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
+                    device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device=card)
+    reset_launches()
+    got, _ = T.forward(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+    assert LAUNCHES["flash_attention_wgmma"] == cfg.num_layers
+    monkeypatch.setattr(A, "flash_attention", FA.flash_attention_plain)
+    want, _ = T.forward(params, {"tokens": tokens}, cfg)
+    # one bf16 rounding (2^-8 relative) of the residual stream a layer
+    rel = float((got.double() - want.double()).norm() / want.double().norm())
+    assert rel <= cfg.num_layers * 2.0 ** -8, rel
+
+
+@pytest.mark.cuda
 def test_quantized_decode_goes_through_k2(card, monkeypatch):
     cfg = ARCHS["qwen3-0.6b"].reduced(**QUANT_CFG)
     params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
@@ -438,6 +527,65 @@ def test_clustered_matmul_kernel_matches_plain(card, case, idx_dtype, dtype):
     assert LAUNCHES["clustered_matmul"] == 1
     ref = CM.clustered_matmul_ref(x, idx, cb)
     assert got.dtype == x.dtype and got.shape == (M, N)
+    tol = CM.clustered_matmul_tolerance(x, idx, cb, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+# (M, K, N, C, idx dtype): the split-K layout at M = 1, 8, 33 and 4096 (one
+# cluster of 1 block for large M), K shorter than a full split (chunks past
+# the end contribute nothing), N ragged, 1024 and 3072, C from 2 to 128 in
+# int8 and 256 and 4096 in int32 (fewer rows staged at a time)
+SPLIT_K_CASES = {
+    "m1_n1024_c2": (1, 1024, 1024, 2, "int8"),
+    "m8_n3072_c16": (8, 1024, 3072, 16, "int8"),
+    "m8_k3072_n1024_c16": (8, 3072, 1024, 16, "int8"),
+    "m8_k900_n1000_c16": (8, 900, 1000, 16, "int8"),
+    "m33_n1000_c128": (33, 1024, 1000, 128, "int8"),
+    "m8_k200_n3072_c128": (8, 200, 3072, 128, "int8"),
+    "m4096_n3072_c16": (4096, 1024, 3072, 16, "int8"),
+    "m8_n1024_c256_i32": (8, 1024, 1024, 256, "int32"),
+    "m33_k300_n1000_c4096_i32": (33, 300, 1000, 4096, "int32"),
+    "m1_n3072_c256_i32": (1, 512, 3072, 256, "int32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SPLIT_K_CASES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_clustered_matmul_split_k_matches_plain(card, case, dtype):
+    M, K, N, C, idx_dtype = SPLIT_K_CASES[case]
+    g = torch.Generator(device=card).manual_seed(M + K + N + C)
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    idx = torch.randint(0, C, (K, N), generator=g, device=card).to(
+        getattr(torch, idx_dtype))
+    cb = torch.randn((K, C), generator=g, device=card)
+    reset_launches()
+    got = CM.clustered_matmul(x, idx, cb)
+    torch.cuda.synchronize()
+    assert LAUNCHES["clustered_matmul"] == 1
+    ref = CM.clustered_matmul_ref(x, idx, cb)
+    assert got.dtype == x.dtype and got.shape == (M, N)
+    tol = CM.clustered_matmul_tolerance(x, idx, cb, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    again = CM.clustered_matmul(x, idx, cb)    # a fixed summation order
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", ["int8", "int32"])
+def test_clustered_matmul_unaligned_index_view(card, idx_dtype):
+    """An idx view that starts off a 16-byte boundary takes the kernel's
+    single-index loads and agrees with the plain version."""
+    g = torch.Generator(device=card).manual_seed(3)
+    M, K, N, C = 8, 512, 1024, 16
+    x = torch.randn((M, K), generator=g, device=card).to(torch.bfloat16)
+    flat = torch.randint(0, C, (K * N + 1,), generator=g, device=card).to(
+        getattr(torch, idx_dtype))
+    idx = flat[1:].view(K, N)
+    assert idx.is_contiguous() and idx.data_ptr() % 16 != 0
+    cb = torch.randn((K, C), generator=g, device=card)
+    got = CM.clustered_matmul(x, idx, cb)
+    ref = CM.clustered_matmul_ref(x, idx, cb)
     tol = CM.clustered_matmul_tolerance(x, idx, cb, ref)
     assert bool(((got.float() - ref.float()).abs() <= tol).all())
 

@@ -169,6 +169,91 @@ def test_flash_attention_non_causal_padded_matches_oracle(T, S):
     np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-5, atol=1e-5)
 
 
+def _wgmma_body(q, k, v, *, causal, window, softcap, block_k):
+    """The arithmetic of K5's wgmma body (``csrc/flash_attention.cu``) in
+    plain PyTorch: float32 scores of tiles of ``block_k`` keys, an online
+    softmax in the log2 domain from a finite running max, P rounded to bf16
+    before the product with v (summed in float32), the denominator summed
+    from the unrounded float32 p, the output rounded to bf16."""
+    B, T, H, hd = q.shape
+    S, G = k.shape[1], H // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    log2e = 1.4426950408889634
+    m = torch.full((B, H, T), -1e30)
+    l = torch.zeros((B, H, T))
+    acc = torch.zeros((B, H, T, hd))
+    t = torch.arange(T)[:, None]
+    for k0 in range(0, S, block_k):
+        kk, vv = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = torch.einsum("bhtd,bhsd->bhts", qf, kk)
+        if softcap:
+            x = torch.tanh(s * hd ** -0.5 / softcap) * softcap * log2e
+        else:
+            x = s * (hd ** -0.5 * log2e)
+        sp = torch.arange(k0, k0 + kk.shape[2])[None, :]
+        ok = sp < S
+        if causal:
+            ok = ok & (sp <= t)
+        if window:
+            ok = ok & (sp > t - window)
+        x = torch.where(ok, x, torch.full_like(x, -float("inf")))
+        m_new = torch.maximum(m, x.amax(-1))
+        corr, p = torch.exp2(m - m_new), torch.exp2(x - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhts,bhsd->bhtd", p.to(torch.bfloat16).float(), vv)
+        m = m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+WGMMA_CASES = {
+    # name: (T, S, H, KV, hd, causal, window, softcap)
+    "hd64_gqa2": (200, 200, 4, 2, 64, True, 0, 0.0),
+    "hd128_gqa2_ragged": (150, 150, 2, 1, 128, True, 0, 0.0),
+    "hd256_softcap": (130, 130, 2, 1, 256, True, 0, 50.0),
+    "hd64_window_softcap": (300, 300, 4, 2, 64, True, 100, 30.0),
+    "hd64_non_causal_padded": (100, 200, 4, 4, 64, False, 0, 0.0),
+    "hd128_window_gqa8": (160, 160, 8, 1, 128, True, 48, 0.0),
+}
+
+
+def _wgmma_case(case, block_k):
+    T, S, H, KV, hd, causal, window, cap = WGMMA_CASES[case]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, T, S, H, KV, hd, seed=T + S + hd))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    ref = TFA.flash_attention_plain(q, k, v, **kw)
+    got = _wgmma_body(q, k, v, block_k=block_k, **kw)
+    return q, k, v, ref, (got.float() - ref.float()).abs(), kw
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_flash_attention_tolerance_covers_bf16_p(case, block_k):
+    """The wgmma body's rounding of P to bf16 stays within the restated
+    `flash_attention_tolerance` of the plain version."""
+    q, k, v, ref, diff, kw = _wgmma_case(case, block_k)
+    tol = TFA.flash_attention_bound(q, k, v, ref, **kw)
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+def test_flash_attention_tolerance_needs_the_bf16_p_term():
+    """Without the bf16-P term, the bound stated before the wgmma body (the
+    float32 reordering and the output's rounding) does not hold for it."""
+    eps = torch.finfo(torch.float32).eps
+    shares = []
+    for case in sorted(WGMMA_CASES):
+        _, _, v, ref, diff, _ = _wgmma_case(case, 64)
+        old = 2 * v.shape[1] * eps * float(v.float().abs().max()) \
+            + 1.01 * 2.0 ** -7 * ref.float().abs()
+        shares.append(float((diff / old).max()))
+    assert max(shares) > 1.0, shares
+    with pytest.raises(ValueError, match="abs_out"):
+        TFA.flash_attention_tolerance(v, ref)
+
+
 def test_flash_attention_checks_its_inputs():
     q = torch.zeros((1, 8, 4, 16))
     k = torch.zeros((1, 8, 3, 16))

@@ -22,19 +22,23 @@ Phases, each fatal on failure, each with its seconds printed:
    path's shapes, beside the least time the card could take, and the
    device's busy share during the largest population finetune;
 6. K2 (quant_matmul) against its plain version on the card: qwen3-0.6b's 7
-   weight shapes at the decode batch of 8 and a ragged shape, bf16 and
-   float32, within the bound stated beside the plain version;
+   weight shapes at M = 1, 8 (the decode batch) and 16 and a ragged shape,
+   bf16 (the tensor-core body) and float32 (the CUDA-core body), within the
+   bound stated beside the plain version; each case checks the body it took;
 7. K5 (flash_attention) against its plain version on the card: the prefill
    shape, a ragged length, a window and a softcap case, bf16 (the wgmma
    body) and float32 (the CUDA-core body); bf16 at head_dim 64 and 256, GQA
-   groups of 1, a window with a softcap; each case checks the body it took;
+   groups of 1, a window with a softcap; head_dim 192 at nemotron-4-340b's
+   96/8 heads, T = 512 and 333, in both bodies; each case checks the body
+   it took;
 8. LM serving, prefill: ``make_prefill_step`` on qwen3-0.6b at full width
    (seeded random bf16 weights, 4 prompts of 1024 tokens), K5's launches
    counted (28, all through the wgmma body), the last-position logits held
    against the same step on K5's plain version;
 9. LM serving, quantized decode: ``make_quant_serve_step`` on w8 weights,
    batch 8, 32 prompt tokens fed one at a time, then 32 greedy tokens,
-   K2's launches counted (196 a step); the same token sequence teacher-forced
+   K2's launches counted (196 a step, all through its tensor-core body);
+   the same token sequence teacher-forced
    through the kernel and through K2's plain version, logits compared per
    step; the device's busy share during decode;
 10. LM serving, dense: ``ServeEngine`` (batch 4, max_len 256) answers 6
@@ -49,37 +53,45 @@ Phases, each fatal on failure, each with its seconds printed:
    prefill shape, a ragged T, a ragged d, a state of 4, bf16 and float32,
    within the bound stated beside the plain version;
 13. K2 at falcon-mamba-7b's decode shapes (in_proj, x_proj, dt_proj on its
-   float32 input, out_proj, the untied LM head) against its plain version;
+   float32 input, out_proj, the untied LM head) at M = 1, 8 and 16 against
+   its plain version, each case's body checked;
 14. falcon-mamba-7b prefill at full width (seeded random bf16 weights,
    7,272,665,088 parameters, 4 prompts of 1024 tokens), K6's launches
    counted (64), the last-position logits on 2 prompts of 256 tokens held
    against the same step on K6's plain version;
 15. falcon-mamba-7b quantized decode: w8 weights, batch 8, 16 prompt tokens
    fed one at a time, then 16 greedy tokens, K2's launches counted (257 a
-   step), the same tokens teacher-forced through K2's plain version, the
-   device's busy share;
+   step, 256 through its tensor-core body: dt_proj's x is float32), the same
+   tokens teacher-forced through K2's plain version, the device's busy
+   share;
 16. falcon-mamba-7b dense ``ServeEngine`` (batch 4) answering 6 requests of
    16 prompt and 16 new tokens over the recurrent caches; tokens/s and the
    busy share;
 17. K6's and K2's times at falcon-mamba-7b's shapes, their plain versions'
-   and their bounds;
+   and their bounds; K2's and cuBLAS's per shape and for a decode step as
+   device times from CUDA graphs, the eager loops' beside them;
 18. K3 (clustered_matmul) against its plain version on the card: qwen3-0.6b's
    7 decode shapes at C = 16 with int8 indices, a ragged shape, int32
-   indices (C = 16 and 300), M = 4096, bf16 and float32;
+   indices (C = 16 and 300), M = 4096, bf16 and float32; indices C, C + 1
+   and -1 (fault F2: weight 0), int8 and int32;
 19. K4 (block_sparse_matmul) against its plain version: the same shapes at
-   live shares 1.0, 0.5 and 0.1 in 128 x 128 tiles, (32, 32) and (16, 16)
-   tiles, ragged M with a dead tile of non-zero weights and an all-dead
-   column strip, M = 4096;
+   live shares 1.0, 0.5 and 0.1 in 128 x 128 tiles, (32, 32), (16, 16) and
+   (8, 128) tiles, a skewed mask, M = 1 and 16, ragged M with a dead tile
+   of non-zero weights and an all-dead column strip, M = 4096; each case's
+   body checked;
 20. qwen3-0.6b at full width (seeded random bf16 weights): each of its 196
    layer matrices clustered per input row at k = 16 by the port's
    ``cluster_per_input`` (indices stored int8) and block-pruned at sparsity
    0.5 in 128 x 128 tiles by its ``block_mask``; one decode step's products
-   at M = 8 through K3, then through K4, the launches counted (196 each),
-   each of the 392 outputs held against its plain version;
+   at M = 8 through K3, then through K4, the launches counted (196 each,
+   K4's all through its tensor-core body), each of the 392 outputs held
+   against its plain version;
 21. K3's and K4's device times (CUDA graphs replayed between CUDA events)
    for that step and for single products at decode, at M = 4096 and at
    ``benchmarks/kernel_bench.py``'s shape, with K2's at the same shapes,
-   their plain versions', cuBLAS's on the dense weight and their bounds.
+   their plain versions', cuBLAS's on the dense weight and their bounds;
+   K4 at the gate's decode shape with a skewed mask beside a uniform one,
+   and at 10% live against 100%.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -214,7 +226,7 @@ QWEN3_QMM = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
 # gate/up product of qwen3-0.6b at decode and at M = 4096, and the shape that
 # benchmarks/kernel_bench.py derives rooflines for
 PER_PRODUCT_SHAPES = {
-    "qwen3_gate_decode": (8, 1024, 3072, (1.0, 0.5, 0.1)),
+    "qwen3_gate_decode": (8, 1024, 3072, (1.0, 0.5, 0.1, "skewed")),
     "qwen3_gate_m4096": (4096, 1024, 3072, (0.5,)),
     "kernel_bench": (16, 4096, 14336, (0.5,)),
 }
@@ -303,21 +315,27 @@ def lm_serving(card: str, dev):
     # -- 6. K2 against its plain version ---------------------------------
     qmm_err = 0.0
     with Phase(6, "quant_matmul vs plain"):
-        shapes = [(8,) + kn for kn in QWEN3_QMM.values()] + [(5, 1000, 3000)]
+        shapes = [(M,) + kn for M in (1, 8, 16)
+                  for kn in QWEN3_QMM.values()] + [(5, 1000, 3000)]
         for (M, K, N) in shapes:
             for dname, dt in dtypes.items():
                 x = torch.randn((M, K), generator=gen, device=dev).to(dt)
                 w = torch.randint(-127, 128, (K, N), generator=gen,
                                   device=dev, dtype=torch.int8)
                 s = (torch.rand((N,), generator=gen, device=dev) + 0.1) * 0.01
+                reset_launches()
                 got = QM.quant_matmul(x, w, s)
                 torch.cuda.synchronize()
+                check(LAUNCHES["quant_matmul_mma"] == int(dname == "bf16"),
+                      f"quant_matmul {(M, K, N)} {dname} took the wrong body")
                 ref = QM.quant_matmul_ref(x, w, s)
                 tol = QM.quant_matmul_tolerance(x, w, s, ref)
                 diff = (got.float() - ref.float()).abs()
                 err = float(diff.max())
                 qmm_err = max(qmm_err, err)
-                print(f"[6] quant_matmul M={M} K={K} N={N} {dname}: max abs "
+                print(f"[6] quant_matmul M={M} K={K} N={N} {dname} "
+                      f"({'mma' if dname == 'bf16' else 'cuda-core'} body): "
+                      f"max abs "
                       f"err {err:.3e}, tolerance at that element "
                       f"{float(tol.flatten()[diff.argmax()]):.3e}, "
                       f"within={bool((diff <= tol).all())}")
@@ -325,8 +343,8 @@ def lm_serving(card: str, dev):
                       f"quant_matmul disagrees at {(M, K, N)} {dname}")
 
     # -- 7. K5 against its plain version ---------------------------------
-    # bf16 at head_dim 64, 128 and 256 goes through the wgmma body, float32
-    # through the CUDA-core body; each case checks which body it took
+    # bf16 at head_dim 64, 128, 192 and 256 goes through the wgmma body,
+    # float32 through the CUDA-core body; each case checks which body it took
     fa_err, fa_share = 0.0, 0.0
     with Phase(7, "flash_attention vs plain"):
         cases = {  # (B, T, S, H, KV, hd, causal, window, softcap, dtypes)
@@ -345,6 +363,11 @@ def lm_serving(card: str, dev):
                                      {"bf16": torch.bfloat16}),
             "window_128_softcap_30_gqa1": (1, 900, 900, 8, 8, 128, True, 128,
                                            30.0, {"bf16": torch.bfloat16}),
+            # nemotron-4-340b's head_dim and head counts (fault F3)
+            "hd192_nemotron": (1, 512, 512, 96, 8, 192, True, 0, 0.0,
+                               dtypes),
+            "hd192_ragged_333": (1, 333, 333, 96, 8, 192, True, 0, 0.0,
+                                 dtypes),
         }
         for name, (B, Tq, S, H, KV, hd, causal, window, cap, dts) in \
                 cases.items():
@@ -458,6 +481,9 @@ def lm_serving(card: str, dev):
               f"({k2_launches / (P + G):.0f} quant_matmul a step)")
         check(k2_launches == 7 * cfg.num_layers * (P + G),
               f"quant_matmul launched {k2_launches} times in {P + G} steps")
+        check(launches["quant_matmul_mma"] == k2_launches,
+              f"{launches['quant_matmul_mma']} of {k2_launches} quant_matmul "
+              f"launches took the tensor-core body")
         gen_s = t1 - t_gen
         print(f"[9] {card}: decode {(t1 - t0) / (P + G) * 1e3:.3f} ms a "
               f"step; greedy part {Bd * G / gen_s:.1f} tokens/s")
@@ -625,8 +651,9 @@ def lm_serving(card: str, dev):
     return [
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
-         "body": "CUDA cores: a block per 32-column strip x 8 rows walking "
-                 "all of K",
+         "body": "bf16 x: mma.sync.m16n8k16 (tensor cores) on int8 "
+                 "dequantized in registers; float32 x: CUDA cores; split-K "
+                 "over a thread-block cluster, staged by cp.async",
          "replaces": "src/repro/kernels/quant_matmul/kernel.py:40",
          "launches": k2_launches, "max_abs_err": qmm_err,
          "tolerance": "quant_matmul_tolerance (2 K eps32 sum|x w| "
@@ -757,22 +784,27 @@ def mamba_serving(card: str, dev):
     qmm_err = 0.0
     with Phase(13, "quant_matmul vs plain, falcon-mamba-7b shapes"):
         for name, (K, Nn, xname) in shapes.items():
-            for dname in sorted({xname, "f32"}):
-                x = torch.randn((8, K), generator=gen, device=dev).to(
+            for M, dname in [(M, d) for M in (1, 8, 16)
+                             for d in sorted({xname, "f32"})]:
+                x = torch.randn((M, K), generator=gen, device=dev).to(
                     dtypes[dname])
                 w = torch.randint(-127, 128, (K, Nn), generator=gen,
                                   device=dev, dtype=torch.int8)
                 sc = (torch.rand((Nn,), generator=gen, device=dev) + 0.1) \
                     * 0.01
+                reset_launches()
                 got = QM.quant_matmul(x, w, sc)
                 torch.cuda.synchronize()
+                check(LAUNCHES["quant_matmul_mma"] == int(dname == "bf16"),
+                      f"quant_matmul {name} M={M} {dname} took the wrong "
+                      f"body")
                 ref = QM.quant_matmul_ref(x, w, sc)
                 tol = QM.quant_matmul_tolerance(x, w, sc, ref)
                 diff = (got.float() - ref.float()).abs()
                 err = float(diff.max())
                 qmm_err = max(qmm_err, err)
                 ok = bool((diff <= tol).all())
-                print(f"[13] quant_matmul {name} M=8 K={K} N={Nn} {dname}: "
+                print(f"[13] quant_matmul {name} M={M} K={K} N={Nn} {dname}: "
                       f"max abs err {err:.3e}, tolerance at that element "
                       f"{float(tol.flatten()[diff.argmax()]):.3e}, "
                       f"within={ok}")
@@ -868,6 +900,10 @@ def mamba_serving(card: str, dev):
               f"quant_matmul launched {k2_launches} times in {P + G} steps, "
               f"not {per_step} a step")
         check(launches["ssm_scan"] == 0, "decode launched the scan kernel")
+        # every product but dt_proj (float32 x) takes the tensor-core body
+        check(launches["quant_matmul_mma"] == (per_step - layers) * (P + G),
+              f"{launches['quant_matmul_mma']} quant_matmul launches took "
+              f"the tensor-core body, not {(per_step - layers) * (P + G)}")
         gen_s = t1 - t_gen
         print(f"[15] {card}: decode {(t1 - t0) / (P + G) * 1e3:.3f} ms a "
               f"step; greedy part {Bd * G / gen_s:.1f} tokens/s")
@@ -978,7 +1014,10 @@ def mamba_serving(card: str, dev):
               f"{ssm_ops_ms:.5f} ms); {ssm_ms / ssm_bound:.1f}x the bound")
         del sets
 
-        k2 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=0.0)
+        # device times from CUDA graphs (`_graph_ms`: at a few us a product
+        # an eager loop reads the host's cost of each call), eager beside
+        k2 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, eager_ms=0.0,
+                  eager_plain_ms=0.0, eager_library_ms=0.0, bound=0.0)
         M = 8
         for name, (K, Nn, xname) in shapes.items():
             xdt = dtypes[xname]
@@ -988,25 +1027,38 @@ def mamba_serving(card: str, dev):
                                        device=dev, dtype=torch.int8),
                       torch.rand((Nn,), generator=gen, device=dev) * 0.01)
                      for _ in range(copies)]
-            ms = _rotating_ms(QM.quant_matmul, wsets, reps=4 * copies)
-            plain_ms = _rotating_ms(QM.quant_matmul_ref, wsets, reps=copies)
             deq = [(x, L.dequantize({"q": w, "scale": sc}, xdt))
                    for _, w, sc in wsets]
-            lib_ms = _rotating_ms(torch.matmul, deq, reps=4 * copies)
-            bound, by = qmm_bound_ms(M, K, Nn, x.element_size())
+            t = dict(
+                ms=_graph_ms(QM.quant_matmul, wsets, reps=4 * copies),
+                plain_ms=_graph_ms(QM.quant_matmul_ref, wsets,
+                                   reps=max(2, copies)),
+                library_ms=_graph_ms(torch.matmul, deq, reps=4 * copies),
+                eager_ms=_rotating_ms(QM.quant_matmul, wsets,
+                                      reps=4 * copies),
+                eager_plain_ms=_rotating_ms(QM.quant_matmul_ref, wsets,
+                                            reps=copies),
+                eager_library_ms=_rotating_ms(torch.matmul, deq,
+                                              reps=4 * copies))
+            t["bound"], by = qmm_bound_ms(M, K, Nn, x.element_size())
             print(f"[17] {card}: quant_matmul {name} M={M} K={K} N={Nn} "
-                  f"{xname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"torch.matmul on the dequantized {xname} weight "
-                  f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+                  f"{xname}: kernel {t['ms']:.4f} ms on the device (eager "
+                  f"{t['eager_ms']:.4f}), plain {t['plain_ms']:.4f} "
+                  f"(eager {t['eager_plain_ms']:.4f}), torch.matmul on the "
+                  f"dequantized {xname} weight {t['library_ms']:.4f} (eager "
+                  f"{t['eager_library_ms']:.4f}), bound {t['bound']:.5f} ms "
+                  f"({by}); {t['ms'] / t['bound']:.1f}x the bound")
             weight = layers if name != "lm_head" else 1
-            for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                             ("library_ms", lib_ms), ("bound", bound)):
+            for key, val in t.items():
                 k2[key] += weight * val
             del wsets, deq
         print(f"[17] {card}: quant_matmul, one falcon-mamba-7b decode step "
-              f"({layers} x 4 products + LM head): kernel {k2['ms']:.3f} ms, "
-              f"plain {k2['plain_ms']:.3f} ms, library "
-              f"{k2['library_ms']:.3f} ms, bound {k2['bound']:.4f} ms")
+              f"({layers} x 4 products + LM head) on the device: kernel "
+              f"{k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, library "
+              f"{k2['library_ms']:.3f} ms, bound {k2['bound']:.4f} ms; "
+              f"eager: kernel {k2['eager_ms']:.3f} ms, plain "
+              f"{k2['eager_plain_ms']:.3f} ms, library "
+              f"{k2['eager_library_ms']:.3f} ms")
 
     ssm_entry = {
         "name": "ssm_scan", "route": "cuda",
@@ -1024,6 +1076,9 @@ def mamba_serving(card: str, dev):
            "falcon_mamba_step_ms": k2["ms"],
            "falcon_mamba_step_plain_ms": k2["plain_ms"],
            "falcon_mamba_step_library_ms": k2["library_ms"],
+           "falcon_mamba_step_eager_ms": k2["eager_ms"],
+           "falcon_mamba_step_eager_plain_ms": k2["eager_plain_ms"],
+           "falcon_mamba_step_eager_library_ms": k2["eager_library_ms"],
            "falcon_mamba_step_bound_ms": k2["bound"]}
     return ssm_entry, qmm
 
@@ -1112,9 +1167,17 @@ def compressed_products(card: str, dev):
         return x, idx, cb
 
     def bsmm_inputs(M, K, N, bk, bn, live, dt):
+        """A uniform mask at a live share, or "skewed": the first quarter of
+        the column strips fully live, the rest at a third, half live in
+        all."""
         x = torch.randn((M, K), generator=gen, device=dev).to(dt)
         w = (torch.randn((K, N), generator=gen, device=dev) * 0.05).to(dt)
-        bm = torch.rand((K // bk, N // bn), generator=gen, device=dev) < live
+        u = torch.rand((K // bk, N // bn), generator=gen, device=dev)
+        if live == "skewed":
+            bm = u < 1 / 3
+            bm[:, :max(1, N // bn // 4)] = True
+        else:
+            bm = u < live
         return x, w, bm
 
     # -- 18. K3 against its plain version ---------------------------------
@@ -1139,6 +1202,27 @@ def compressed_products(card: str, dev):
                 check(ok, f"clustered_matmul disagrees at {(M, K, N, C)} "
                       f"{iname} {dname}")
                 del x, idx, cb, got, ref
+        # fault F2: an index outside [0, C) weighs 0, in the kernel as in
+        # the plain version (and the Pallas kernel)
+        for iname in ("int8", "int32"):
+            x, idx, cb = cmm_inputs(8, 1024, 1024, 4, torch.bfloat16,
+                                    torch.int32)
+            idx[::2, 0], idx[1::2, 0], idx[::7, 5] = 4, -1, 5
+            idx = idx.to(getattr(torch, iname))
+            got = CM.clustered_matmul(x, idx, cb)
+            torch.cuda.synchronize()
+            ref = CM.clustered_matmul_ref(x, idx, cb)
+            err, share, ok = _within(
+                got, ref, CM.clustered_matmul_tolerance(x, idx, cb, ref))
+            # column 0 has no index inside [0, C): exactly zero
+            ok = ok and int(torch.count_nonzero(got[:, 0])) == 0
+            print(f"[18] clustered_matmul M=8 K=1024 N=1024 C=4 {iname} "
+                  f"bf16, indices C, C + 1 and -1 in columns 0 and 5: max "
+                  f"abs err {err:.3e}, largest share of the bound "
+                  f"{share:.3e}, column 0 zero and within={ok}")
+            check(ok, f"clustered_matmul disagrees on out-of-range "
+                  f"{iname} indices")
+            del x, idx, cb, got, ref
 
     # -- 19. K4 against its plain version ---------------------------------
     bsmm_err, bsmm_share = 0.0, 0.0
@@ -1147,6 +1231,11 @@ def compressed_products(card: str, dev):
                  for live in (1.0, 0.5, 0.1)] + [
             ((8, 1024, 3072), (32, 32), 0.5, ""),
             ((8, 1024, 3072), (16, 16), 0.5, ""),
+            ((8, 1024, 3072), (8, 128), 0.5, ""),
+            ((8, 1024, 3072), (128, 128), "skewed", ""),
+            ((8, 3072, 1024), (128, 128), "skewed", ""),
+            ((1, 1024, 3072), (128, 128), 0.5, ""),
+            ((16, 1024, 3072), (8, 128), "skewed", ""),
             ((20, 1024, 1024), (128, 128), 0.5, "dead"),
             ((13, 256, 160), (16, 16), 0.5, "dead"),
             ((4096, 1024, 3072), (128, 128), 0.5, "")]
@@ -1157,9 +1246,14 @@ def compressed_products(card: str, dev):
                     bm[0, 0] = True    # non-zero; the last column strip dead
                     bm[1, 0] = False
                     bm[:, -1] = False
+                reset_launches()
                 got = BS.block_sparse_matmul(x, w, bm, block_k=bk,
                                              block_n=bn)
                 torch.cuda.synchronize()
+                check(LAUNCHES["block_sparse_matmul_mma"]
+                      == int(dname == "bf16"),
+                      f"block_sparse_matmul {(M, K, N)} {dname} took the "
+                      f"wrong body")
                 ref = BS.block_sparse_matmul_ref(x, w, bm, block_k=bk,
                                                  block_n=bn)
                 err, share, ok = _within(
@@ -1238,8 +1332,10 @@ def compressed_products(card: str, dev):
               and sum(k3_launches.values()) == len(mats),
               f"K3 step launched {k3_launches}")
         check(k4_launches["block_sparse_matmul"] == len(mats)
-              and sum(k4_launches.values()) == len(mats),
-              f"K4 step launched {k4_launches}")
+              and k4_launches["block_sparse_matmul_mma"] == len(mats)
+              and sum(k4_launches.values()) == 2 * len(mats),
+              f"K4 step launched {k4_launches}, not {len(mats)} through "
+              f"the tensor-core body")
         share3 = share4 = 0.0
         for (name, w), (cb, idx), t, a, b in zip(mats, clustered, tiles, y3,
                                                  y4):
@@ -1415,8 +1511,13 @@ def compressed_products(card: str, dev):
               f"{k2_layer['bound_ms']:.5f} ms")
         dec = times["qwen3_gate_decode"]["block_sparse_matmul"]
         t10, t100 = dec["live_0.1"]["ms"], dec["live_1.0"]["ms"]
+        t50, tskew = dec["live_0.5"]["ms"], dec["live_skewed"]["ms"]
         print(f"[21] {card}: K4 at the gate's decode shape on the device: "
-              f"live 0.1 {t10:.4f} ms against live 1.0 {t100:.4f} ms")
+              f"live 0.1 {t10:.4f} ms against live 1.0 {t100:.4f} ms "
+              f"({t10 / t100:.3f} of it); skewed mask (live "
+              f"{dec['live_skewed']['live']:.3f}) {tskew:.4f} ms against "
+              f"uniform (live {dec['live_0.5']['live']:.3f}) {t50:.4f} ms "
+              f"({tskew / t50:.3f}x)")
         check(t10 < t100, "K4 at 10% live tiles is not faster than at 100%: "
               "dead tiles are not skipped")
 
@@ -1445,13 +1546,15 @@ def compressed_products(card: str, dev):
                           for shape, v in times.items()}}
     return k2, [
         entry("clustered_matmul", "CUDA cores: split-K over a thread-block "
-              "cluster, indices and codebooks staged by cp.async",
+              "cluster, indices and codebooks staged by cp.async; an index "
+              "outside [0, C) weighs 0",
               k3_launches["clustered_matmul"], cmm_err,
               cmm_share, "clustered_matmul_tolerance (2 K eps32 sum|x w| "
               "+ 2^-7 |y| for bf16)", "k3", k3_bound, k3_by,
               "torch.matmul on the reconstructed bf16 weight"),
-        entry("block_sparse_matmul", "CUDA cores: a block per 32-column "
-              "strip x 8 rows over its live k-tiles",
+        entry("block_sparse_matmul", "bf16: mma.sync.m16n8k16 (tensor "
+              "cores), float32: CUDA cores; a cluster of blocks per 16-column "
+              "strip sharing its live k16 steps, staged by cp.async",
               k4_launches["block_sparse_matmul"],
               bsmm_err, bsmm_share, "block_sparse_matmul_tolerance (2 K eps32 "
               "sum|x w live| + 2^-7 |y| for bf16)", "k4", k4_bound, k4_by,
@@ -1711,6 +1814,11 @@ def main() -> None:
     torch.cuda.empty_cache()        # the falcon-mamba-7b tensors are gone
     k2_device, (cmm_entry, bsmm_entry) = compressed_products(card, dev)
     qmm_entry["device_ms_by_graph"] = k2_device
+    # the qwen3-0.6b layer's times on the device (CUDA graphs, phase 21),
+    # phase 11's eager loops beside them
+    for key in ("ms", "plain_ms", "library_ms"):
+        qmm_entry["eager_" + key] = qmm_entry[key]
+        qmm_entry[key] = k2_device["qwen3_layer"][key]
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
                                   bsmm_entry, fa_entry, ssm_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,235 +16,375 @@
 // kernel skips only the matrix unit's work on a dead tile and still copies
 // the tile into VMEM, so its bytes do not shrink with the sparsity.
 //
-// Design: the weight bytes of a dead tile are never read.
-//  * A block owns a strip of BN = 32 output columns for MT = 8 rows of x
-//    (as quant_matmul.cu), independent of the mask's tile: at decode with
-//    N = 1024 and bn = 128 that gives the card 32 blocks, where one block
-//    per mask column would give it 8. A grid row of blocks takes each
-//    further 8 rows of x.
-//  * The block reads the mask entries its strip touches (one mask column
-//    when bn is a multiple of 32, more for smaller bn) for 256 k-tiles at a
-//    time, one tile a thread, and turns each into a 32-bit word of the
-//    strip's live columns. Tiles with any live column are compacted into
-//    a list in shared memory by a warp ballot and a prefix over the 8
-//    warps' counts: no host-side compaction, no sync of the card.
-//  * It then walks only the rows of the listed tiles, 128 at a time: the x
-//    values of those rows are staged in shared memory as float32, and each
-//    k lane reads 4 neighbouring weights of a row in one load when all 4
-//    columns are live (else only its live columns, one by one). A strip
-//    with no live tile reads no weight and writes zeros.
-//  * 256 threads = 8 column threads x 32 k lanes; the k lanes are summed by
-//    two warp shuffles and one pass through shared memory.
-//  * Ragged edges: rows beyond M read zeros; columns beyond N are neither
-//    loaded nor written. K and N are multiples of the tile (the wrapper
-//    checks it); M is free.
-//
-// Not yet: tensor cores (wgmma on the live tiles) for large M, split-K for
-// small N.
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design (the skeleton of skinny_mma.cuh, shared with K2): the weight bytes
+// of a dead tile are never read.
+//  * A block owns a strip of 16 output columns for 8, 16 or 64 rows of x;
+//    the S blocks of a strip are a thread-block cluster (S gives one block
+//    an SM: 192-256 blocks for qwen3-0.6b's decode shapes, S = 1 for
+//    N = 3072), reduced through distributed shared memory into rank 0 in
+//    rank order.
+//  * The ranks share the strip's live k16 steps, not equal slices of K:
+//    every rank reads the mask entries of its strip on the device (no host
+//    sync, no compaction on the host), 128 steps at a time, one a thread,
+//    and turns each step into a word of live bits, one per (row, 16-byte
+//    piece of the row). A step with any live bit is live; the live steps
+//    are numbered in k order by a warp ballot and a prefix over the 4
+//    warps, and rank r takes live steps r, r + S, ... So the time follows
+//    ceil(live / S) steps, and a skewed mask costs what a uniform one of
+//    the same live share does. When bk is a multiple of 16 and the copies
+//    are whole (the 128 x 128 tiles of the decode step), a step lies in
+//    one tile and its word takes one round of independent mask loads (the
+//    general per-row walk, a dependent load per piece, cost more than the
+//    copies at qwen3-0.6b's decode shapes). A step is skipped only when
+//    all of its rows are dead; the rows of a dead tile inside a live step
+//    (bk not a multiple of 16, or a step across two tiles) are zero-filled.
+//    A rank keeps at most 512 steps at a time and walks the strip in
+//    passes.
+//  * Staging by cp.async, 16 bytes a copy: a piece is 8 of the rank's
+//    steps (their rows of the strip, and x's 16 columns each), in a ring of
+//    up to 48 KB (5 slots at M = 8): all but one piece in flight ahead of
+//    the one computed. A dead piece of a
+//    row writes zeros by cp.async's src-size of 0 and reads nothing. A
+//    strip with no live step reads no weight and writes zeros.
+//  * bf16, tensor cores: a warp takes 2 steps of a piece; one
+//    ldmatrix.x4.trans of the staged (k, n) rows (48-byte pitch, so the 8
+//    rows of each matrix fall on distinct banks) is the A fragment of W^T,
+//    B is x's rows, and mma.sync.m16n8k16 accumulates in float32 (at M = 8
+//    bound by bytes: one mma a 512 bytes of weight).
+//  * float32: the CUDA cores over the same stage, a thread a column and 16
+//    of the piece's rows; no TF32.
+//  * Any tile the wrapper takes: when bn is a multiple of 16 bytes of w,
+//    N too and w is 16-byte aligned, every 16-byte piece of a row lies in
+//    one mask column and is copied whole or zero-filled; otherwise (bn of
+//    1, 2 or 4 bf16, say, where a piece straddles a live and a dead tile)
+//    the weights are staged by single loads with the mask read per
+//    element. x is staged by single loads when K is not a multiple of 16
+//    bytes or x is not 16-byte aligned. The wrapper decides by alignment.
+//  * Launch latency: programmatic stream serialization (see pdl_enter); a
+//    decode step's products run back to back.
+#include "skinny_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 32;      // output columns per block
-constexpr int kMT = 8;       // rows of x per block
-constexpr int kBK = 128;     // live rows staged at once
-constexpr int kLanes = 32;   // k lanes
-constexpr int kRound = kThreads;  // k-tiles examined per compaction round
+using namespace skinny;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int kCap = 512;   // live steps a rank holds at a time
+
+// bytes of a staged weight row: 16 columns, padded for bf16 so that the 8
+// rows of an ldmatrix matrix fall on distinct banks
+template <typename T>
+__host__ __device__ constexpr int w_pitch() {
+  return sizeof(T) == 2 ? 48 : 64;
 }
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__host__ __device__ constexpr int x_pitch() {
+  return kPieceRows + 16 / static_cast<int>(sizeof(T));
 }
 
-// four neighbouring weights in one load
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+template <typename T, int NT>
+__host__ __device__ constexpr int slot_bytes() {
+  return kPieceRows * w_pitch<T>() +
+         8 * NT * x_pitch<T>() * static_cast<int>(sizeof(T));
 }
 
-// bits a .. b-1 of a 32-bit word (0 <= a < b <= 32)
-__device__ __forceinline__ unsigned bit_range(int a, int b) {
-  const unsigned width = (b - a == 32) ? 0xffffffffu : ((1u << (b - a)) - 1u);
-  return width << a;
+template <typename T, int NT>
+constexpr size_t smem_bytes(int split) {
+  constexpr int slot = slot_bytes<T, NT>();
+  return static_cast<size_t>(ring_for(slot)) * slot +
+         static_cast<size_t>(kWarps + split) * 8 * NT * kBN * sizeof(float);
 }
 
-template <typename T, typename Mk, bool kVec>
+template <typename T, typename Mk, int NT>
 __global__ void __launch_bounds__(kThreads)
 bsmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
             const Mk* __restrict__ mask, T* __restrict__ y, int M, int K,
-            int N, int bk, int bn) {
-  __shared__ float xs[kMT][kBK];
-  __shared__ int row_k[kBK];             // k of each staged row
-  __shared__ unsigned row_bits[kBK];     // the strip's live columns there
-  __shared__ int live_tile[kRound];      // this round's live k-tiles
-  __shared__ unsigned live_bits[kRound];
-  __shared__ int warp_live[kThreads / 32];
-  __shared__ float red[kThreads / 32][kMT][kBN];
+            int N, int bk, int bn, int flags) {
+  constexpr int MB = 8 * NT;
+  constexpr int WP = w_pitch<T>();
+  constexpr int XP = x_pitch<T>();
+  constexpr int kSlot = slot_bytes<T, NT>();
+  constexpr int kRing = ring_for(kSlot), kAhead = kRing - 1;
+  constexpr int PW = 16 / static_cast<int>(sizeof(T));   // values a copy
+  constexpr int PPR = kBN / PW;                          // copies a row
+  constexpr bool kMma = sizeof(T) == 2;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* red = reinterpret_cast<float*>(smem + kRing * kSlot);
+  float* gathered = red + kWarps * MB * kBN;
+  __shared__ int lst_step[kCap];
+  __shared__ unsigned long long lst_bits[kCap];
+  __shared__ int warp_live[kWarps];
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int cx = lane & 7;                  // column thread
-  const int kl = warp * 4 + (lane >> 3);    // k lane, 0..31
-  const int s0 = blockIdx.x * kBN;          // the strip's first column
-  const int s1 = min(s0 + kBN, N);          // one past its last
-  const int n0 = s0 + cx * 4;
-  const int m0 = blockIdx.y * kMT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = (static_cast<int>(blockIdx.x) / split) * kBN;
+  const int m0 = blockIdx.y * MB;
   const int mask_cols = N / bn;
-  const int k_tiles = K / bk;
-  const int j0 = s0 / bn, j1 = (s1 - 1) / bn;   // mask columns of the strip
+  const int steps_total = (K + kStep - 1) / kStep;
+  const bool wvec = flags & 1, xvec = flags & 2;
 
-  float acc[kMT][4];
-#pragma unroll
-  for (int m = 0; m < kMT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+  pdl_enter();
 
-  for (int t0 = 0; t0 < k_tiles; t0 += kRound) {
-    // 1. one k-tile a thread: which of the strip's columns are live there
-    const int t = t0 + tid;
-    unsigned bits = 0;
-    if (t < k_tiles) {
-      const Mk* mrow = mask + static_cast<int64_t>(t) * mask_cols;
-      for (int j = j0; j <= j1; ++j)
-        if (mrow[j] > 0)
-          bits |= bit_range(max(s0, j * bn) - s0, min(s1, (j + 1) * bn) - s0);
-    }
-    // 2. compact the live tiles, in k order, by ballot and prefix
-    const unsigned ballot = __ballot_sync(0xffffffffu, bits != 0);
-    if (lane == 0) warp_live[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, n_live = 0;
+  auto live = [&](int k, int n) {
+    return mask[static_cast<int64_t>(k / bk) * mask_cols + n / bn] > 0;
+  };
+  // the mask column of each 16-byte piece of the strip's rows, when each
+  // piece lies in one (wvec)
+  int piece_col[PPR];
 #pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) {
-      before += (i < warp) ? warp_live[i] : 0;
-      n_live += warp_live[i];
+  for (int h = 0; h < PPR; ++h)
+    piece_col[h] = n0 + h * PW < N ? (n0 + h * PW) / bn : -1;
+  // bit i * PPR + h: piece h of row i of step s has a live column
+  auto step_bits = [&](int s) {
+    if (wvec && bk % kStep == 0) {
+      // the step's 16 rows lie in one tile: PPR independent loads, one
+      // round trip (K is then a multiple of 16: no row past K)
+      const Mk* row = mask + static_cast<int64_t>(kStep * s / bk) * mask_cols;
+      Mk v[PPR];
+#pragma unroll
+      for (int h = 0; h < PPR; ++h)
+        v[h] = piece_col[h] >= 0 ? row[piece_col[h]] : Mk{0};
+      unsigned long long tile_bits = 0;
+#pragma unroll
+      for (int h = 0; h < PPR; ++h)
+        tile_bits |= static_cast<unsigned long long>(v[h] > 0) << h;
+      unsigned long long bits = 0;
+#pragma unroll
+      for (int i = 0; i < kStep; ++i) bits |= tile_bits << (i * PPR);
+      return bits;
     }
-    if (bits != 0) {
-      const int pos = before + __popc(ballot & ((1u << lane) - 1u));
-      live_tile[pos] = t;
-      live_bits[pos] = bits;
+    unsigned long long bits = 0;
+    int prev = -1;
+    unsigned tile_bits = 0;
+    for (int i = 0; i < kStep; ++i) {
+      const int k = kStep * s + i;
+      if (k >= K) break;
+      if (k / bk != prev) {
+        prev = k / bk;
+        tile_bits = 0;
+        for (int h = 0; h < PPR; ++h) {
+          const int a = n0 + h * PW, b = min(N, a + PW);
+          for (int j = a / bn; a < b && j <= (b - 1) / bn; ++j)
+            if (live(k, j * bn)) {
+              tile_bits |= 1u << h;
+              break;
+            }
+        }
+      }
+      bits |= static_cast<unsigned long long>(tile_bits) << (i * PPR);
     }
-    __syncthreads();
-    // 3. walk the rows of the live tiles only, kBK at a time (n_live * bk
-    //    <= K, so the row counts fit an int)
-    const int n_rows = n_live * bk;
-    for (int v0 = 0; v0 < n_rows; v0 += kBK) {
-      const int vend = min(kBK, n_rows - v0);
-      for (int i = tid; i < vend; i += kThreads) {
-        const int li = (v0 + i) / bk;
-        row_k[i] = live_tile[li] * bk + (v0 + i - li * bk);
-        row_bits[i] = live_bits[li];
-      }
+    return bits;
+  };
+  // live steps numbered before x that fall to this rank
+  auto owned = [&](int xx) { return (xx + split - 1 - rank) / split; };
+
+  float acc[kMma ? NT : 1][kMma ? 4 : MB];
+#pragma unroll
+  for (int i = 0; i < (kMma ? NT : 1); ++i)
+#pragma unroll
+    for (int j = 0; j < (kMma ? 4 : MB); ++j) acc[i][j] = 0.f;
+
+  const int g = lane >> 2, t = lane & 3;
+  int live_seen = 0, scan = 0;
+  do {
+    // 1. this rank's next live steps, in k order
+    int cnt = 0;
+    while (scan < steps_total && cnt <= kCap - kThreads) {
+      const int s = scan + tid;
+      const unsigned long long bits = s < steps_total ? step_bits(s) : 0ull;
+      const unsigned ballot = __ballot_sync(0xffffffffu, bits != 0);
+      if (lane == 0) warp_live[warp] = __popc(ballot);
       __syncthreads();
-      for (int i = tid; i < kMT * kBK; i += kThreads) {
-        const int r = i / kBK, c = i % kBK;
-        const int m = m0 + r;
-        xs[r][c] = (m < M && c < vend)
-                       ? to_f32(x[static_cast<int64_t>(m) * K + row_k[c]])
-                       : 0.f;
+      int before = 0, n_live = 0;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        before += i < warp ? warp_live[i] : 0;
+        n_live += warp_live[i];
       }
+      if (bits != 0) {
+        const int gi = live_seen + before +
+                       __popc(ballot & ((1u << lane) - 1u));
+        if (gi % split == rank) {
+          const int at = cnt + owned(gi) - owned(live_seen);
+          lst_step[at] = s;
+          lst_bits[at] = bits;
+        }
+      }
+      cnt += owned(live_seen + n_live) - owned(live_seen);
+      live_seen += n_live;
+      scan += kThreads;
       __syncthreads();
-      for (int c = kl; c < vend; c += kLanes) {
-        const unsigned live4 = (row_bits[c] >> (cx * 4)) & 0xfu;
-        if (live4 == 0) continue;        // dead here: no weight is read
-        const T* wr = w + static_cast<int64_t>(row_k[c]) * N + n0;
-        float wv[4];
-        if (kVec && live4 == 0xfu) {
-          load4(wr, wv);
+    }
+
+    // 2. the listed steps, kPieceSteps a piece
+    const int n_pieces = (cnt + kPieceSteps - 1) / kPieceSteps;
+    auto issue = [&](int p) {
+      if (p < n_pieces) {
+        uint8_t* slot = smem + (p % kRing) * kSlot;
+        T* xs = reinterpret_cast<T*>(slot + kPieceRows * WP);
+        const int e0 = p * kPieceSteps;
+        const int ne = min(kPieceSteps, cnt - e0);
+        if (wvec) {
+          for (int i = tid; i < ne * kStep * PPR; i += kThreads) {
+            const int js = i / (kStep * PPR), r = (i / PPR) % kStep;
+            const int h = i % PPR;
+            const bool in = (lst_bits[e0 + js] >> (r * PPR + h)) & 1ull;
+            const int k = kStep * lst_step[e0 + js] + r;
+            cp_async16(slot + (js * kStep + r) * WP + 16 * h,
+                       in ? w + static_cast<int64_t>(k) * N + n0 + h * PW
+                          : w, in);
+          }
         } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            wv[j] = ((live4 >> j) & 1u) ? to_f32(wr[j]) : 0.f;
+          for (int i = tid; i < ne * kStep * kBN; i += kThreads) {
+            const int js = i / (kStep * kBN), r = (i / kBN) % kStep;
+            const int c = i % kBN;
+            const int k = kStep * lst_step[e0 + js] + r, n = n0 + c;
+            const bool in = k < K && n < N && live(k, n);
+            reinterpret_cast<T*>(slot + (js * kStep + r) * WP)[c] =
+                in ? w[static_cast<int64_t>(k) * N + n] : from_f32<T>(0.f);
+          }
         }
-#pragma unroll
-        for (int m = 0; m < kMT; ++m) {
-          const float xv = xs[m][c];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
+        if (xvec) {
+          constexpr int kWords = kStep / PW;   // copies of x a step and row
+          for (int i = tid; i < ne * MB * kWords; i += kThreads) {
+            const int js = i / (MB * kWords), m = (i / kWords) % MB;
+            const int h = i % kWords;
+            const int k = kStep * lst_step[e0 + js] + h * PW;
+            const bool in = m0 + m < M && k < K;
+            cp_async16(xs + m * XP + js * kStep + h * PW,
+                       in ? x + static_cast<int64_t>(m0 + m) * K + k : x, in);
+          }
+        } else {
+          for (int i = tid; i < ne * MB * kStep; i += kThreads) {
+            const int js = i / (MB * kStep), m = (i / kStep) % MB;
+            const int c = i % kStep;
+            const int k = kStep * lst_step[e0 + js] + c;
+            xs[m * XP + js * kStep + c] =
+                (m0 + m < M && k < K)
+                    ? x[static_cast<int64_t>(m0 + m) * K + k]
+                    : from_f32<T>(0.f);
+          }
         }
       }
-      __syncthreads();
-    }
-  }
+      cp_async_commit();   // an empty group past the last piece
+    };
 
-  // sum the 4 k lanes of a warp (lane bits 3 and 4), then the 8 warps
+    for (int p = 0; p < kAhead; ++p) issue(p);
+    for (int p = 0; p < n_pieces; ++p) {
+      cp_async_wait<kAhead - 1>();
+      __syncthreads();
+      issue(p + kAhead);   // refills the slot computed in the last iteration
+      const uint8_t* slot = smem + (p % kRing) * kSlot;
+      const T* xs = reinterpret_cast<const T*>(slot + kPieceRows * WP);
+      const int ne = min(kPieceSteps, cnt - p * kPieceSteps);
+      if constexpr (kMma) {
 #pragma unroll
-  for (int m = 0; m < kMT; ++m)
+        for (int s = 0; s < 2; ++s) {
+          const int js = 2 * warp + s;
+          if (js >= ne) break;
+          // lanes 0-7: k 0-7, n 0-7; 8-15: k 0-7, n 8-15; 16-23: k 8-15,
+          // n 0-7; 24-31: k 8-15, n 8-15 -> a0, a1, a2, a3
+          uint32_t a[4];
+          ldsm_x4_trans(a, smem_u32(slot + (js * kStep + (lane >> 4) * 8 +
+                                            (lane & 7)) * WP +
+                                    ((lane >> 3) & 1) * 16));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][j] = v;
+          for (int nt = 0; nt < NT; ++nt) {
+            const T* xr = xs + (8 * nt + g) * XP + js * kStep + 2 * t;
+            mma_bf16(acc[nt], a, *reinterpret_cast<const uint32_t*>(xr),
+                     *reinterpret_cast<const uint32_t*>(xr + 8));
+          }
+        }
+      } else {
+        const int c = tid % kBN, L = tid / kBN;
+#pragma unroll 4
+        for (int i = 0; i < kPieceRows / 8; ++i) {
+          const int r = L + 8 * i;
+          if (r >= ne * kStep) break;
+          const float wv =
+              to_f32(reinterpret_cast<const T*>(slot + r * WP)[c]);
+#pragma unroll
+          for (int m = 0; m < MB; ++m)
+            acc[0][m] = fmaf(to_f32(xs[m * XP + r]), wv, acc[0][m]);
+        }
+      }
     }
-  if ((lane >> 3) == 0) {
+    __syncthreads();   // the next pass overwrites the list and the ring
+  } while (scan < steps_total);
+
+  // each warp's partial sums into red[warp][m][c]
+  float* mine = red + warp * MB * kBN;
+  if constexpr (kMma) {
 #pragma unroll
-    for (int m = 0; m < kMT; ++m)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) red[warp][m][cx * 4 + j] = acc[m][j];
+      for (int e = 0; e < 4; ++e)
+        mine[(8 * nt + 2 * t + (e & 1)) * kBN + g + 8 * (e >> 1)] =
+            acc[nt][e];
+  } else {
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      const float v = acc[0][m] + __shfl_xor_sync(0xffffffffu, acc[0][m], 16);
+      if (lane < 16) mine[m * kBN + lane] = v;
+    }
   }
-  __syncthreads();
-  const int m = tid / kBN, c = tid % kBN;   // kMT * kBN == kThreads
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) sum += red[i][m][c];
-  const int gm = m0 + m, gn = s0 + c;
-  if (gm < M && gn < N) y[static_cast<int64_t>(gm) * N + gn] = from_f32<T>(sum);
+  cluster_reduce<MB, kBN>(red, gathered, [&](int m, int c, float sum) {
+    if (m0 + m < M && n0 + c < N)
+      y[static_cast<int64_t>(m0 + m) * N + n0 + c] = from_f32<T>(sum);
+  });
+}
+
+template <typename T, typename Mk, int NT>
+int launch_nt(const void* x, const void* w, const void* mask, void* y, int M,
+              int K, int N, int bk, int bn, int flags, void* stream) {
+  constexpr int MB = 8 * NT;
+  const int strips = (N + kBN - 1) / kBN;
+  const int m_tiles = (M + MB - 1) / MB;
+  const int split = split_for(strips, m_tiles, (K + kStep - 1) / kStep);
+  static bool allowed = false;
+  const int rc = allow_smem(bsmm_kernel<T, Mk, NT>,
+                            smem_bytes<T, NT>(kMaxSplit), allowed);
+  if (rc != 0) return rc;
+  return launch_clustered(bsmm_kernel<T, Mk, NT>, strips, split, m_tiles,
+                          smem_bytes<T, NT>(split), stream,
+                          static_cast<const T*>(x), static_cast<const T*>(w),
+                          static_cast<const Mk*>(mask), static_cast<T*>(y),
+                          M, K, N, bk, bn, flags);
 }
 
 template <typename T, typename Mk>
 int launch(const void* x, const void* w, const void* mask, void* y, int M,
-           int K, int N, int bk, int bn, int vec, void* stream) {
+           int K, int N, int bk, int bn, int flags, void* stream) {
   if (bk < 1 || bn < 1 || K % bk || N % bn)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kMT - 1) / kMT);
-  auto s = static_cast<cudaStream_t>(stream);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  const Mk* mp = static_cast<const Mk*>(mask);
-  T* yp = static_cast<T*>(y);
-  if (vec)
-    bsmm_kernel<T, Mk, true><<<grid, kThreads, 0, s>>>(xp, wp, mp, yp, M, K,
-                                                       N, bk, bn);
-  else
-    bsmm_kernel<T, Mk, false><<<grid, kThreads, 0, s>>>(xp, wp, mp, yp, M, K,
-                                                        N, bk, bn);
-  return static_cast<int>(cudaGetLastError());
+  switch (n_tiles_for(M)) {
+    case 1:
+      return launch_nt<T, Mk, 1>(x, w, mask, y, M, K, N, bk, bn, flags,
+                                 stream);
+    case 2:
+      return launch_nt<T, Mk, 2>(x, w, mask, y, M, K, N, bk, bn, flags,
+                                 stream);
+    default:
+      return launch_nt<T, Mk, 8>(x, w, mask, y, M, K, N, bk, bn, flags,
+                                 stream);
+  }
 }
 
 }  // namespace
 
 // x (M, K), w (K, N) of one type, mask (K/bk, N/bn) bool (one byte) or
-// int32, y (M, N): all contiguous on the current device. vec != 0 requires
-// N % 4 == 0 and w aligned to four weights. Returns the CUDA error of the
-// launch (0 on success).
+// int32, y (M, N): all contiguous on the current device. flags bit 0: bn
+// and N multiples of the values in 16 bytes and w 16-byte aligned (the
+// weights are staged by 16-byte copies); bit 1: the same of K and x. The
+// bf16 entries take the tensor-core body, the f32 ones the CUDA-core body.
+// Returns the CUDA error of the launch (0 on success).
 #define BSMM_ENTRY(NAME, T, Mk)                                             \
   extern "C" int NAME(const void* x, const void* w, const void* mask,       \
                       void* y, int M, int K, int N, int bk, int bn,         \
-                      int vec, void* stream) {                              \
-    return launch<T, Mk>(x, w, mask, y, M, K, N, bk, bn, vec, stream);      \
+                      int flags, void* stream) {                            \
+    return launch<T, Mk>(x, w, mask, y, M, K, N, bk, bn, flags, stream);    \
   }
 
 BSMM_ENTRY(block_sparse_matmul_f32_b8, float, uint8_t)

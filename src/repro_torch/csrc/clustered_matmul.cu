@@ -61,8 +61,14 @@
 //    is not aligned for it (the wrapper decides by alignment), the indices
 //    are read singly from global memory; x and the codebook rows are read
 //    by plain loads where they are not 16-byte aligned.
-//  * The index range is the caller's contract: an index outside [0, C) is
-//    clamped into it, so no read leaves the staged codebook.
+//  * An index outside [0, C) gives weight 0, as in the Pallas body (its
+//    one-hot against iota(C) matches no entry) and the plain version, and
+//    nothing outside the staged codebook is read. A thread tests its two
+//    16-byte words of indices once a row (SIMD byte compares for int8);
+//    only a word holding such an index takes the gathers that test each
+//    one. A test and a select on every gather, and a zero entry padded
+//    onto every staged codebook row (a 20-word pitch at C = 16), both
+//    measured slower.
 //  * Launch latency: a product's fixed latencies are most of its time, so
 //    the kernel is launched with programmatic stream serialization. It
 //    waits (griddepcontrol.wait) for the previous grid in the stream and
@@ -74,17 +80,15 @@
 //
 // Not yet: tensor cores (codebook gather into a bf16 tile feeding wgmma)
 // for large M, packed sub-byte indices.
-#include <cstdint>
+#include <type_traits>
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "skinny_mma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;         // 4 warps
+constexpr int kThreads = skinny::kThreads;   // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowLanes = 64;         // k rows in parallel: 16 a warp
 constexpr int kPiece = 2 * kRowLanes;  // k rows of a piece: 2 a thread
@@ -96,32 +100,13 @@ constexpr int kWave = 264;            // blocks aimed at: two an SM
 // dynamic shared memory of a stage (opted in above 48 KB)
 constexpr int kStageBytes = 64 * 1024;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+using skinny::cp_async_commit;
+using skinny::cp_async_wait;
+using skinny::from_f32;
+using skinny::to_f32;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// waits until at most N of this thread's groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  skinny::cp_async16(dst, src, true);
 }
 
 template <typename I>
@@ -136,6 +121,19 @@ __device__ __forceinline__ int lane_index(const int4& w, int j, int8_t) {
 }
 __device__ __forceinline__ int lane_index(const int4& w, int j, int32_t) {
   return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
+}
+
+// whether every index of a 16-byte word lies in [0, C): int8 indices by
+// four SIMD byte compares (a negative int8 is a byte >= 128)
+__device__ __forceinline__ bool all_in_range(const int4& w, int C, int8_t) {
+  const unsigned lim = static_cast<unsigned>(min(C, 128)) * 0x01010101u;
+  return (__vcmpltu4(w.x, lim) & __vcmpltu4(w.y, lim) &
+          __vcmpltu4(w.z, lim) & __vcmpltu4(w.w, lim)) == 0xffffffffu;
+}
+__device__ __forceinline__ bool all_in_range(const int4& w, int C, int32_t) {
+  const unsigned n = static_cast<unsigned>(C);
+  return static_cast<unsigned>(w.x) < n && static_cast<unsigned>(w.y) < n &&
+         static_cast<unsigned>(w.z) < n && static_cast<unsigned>(w.w) < n;
 }
 
 // one round of the row reduction: lanes ``o`` apart exchange halves of
@@ -164,11 +162,7 @@ cmm_kernel(const T* __restrict__ x, const I* __restrict__ idx,
   __shared__ float red[kWarps][kOut];
   __shared__ float gathered[kMaxSplit][kOut];   // rank 0's: every rank's sums
 
-  // programmatic dependent launch: wait for the grid before this one in
-  // the stream (and its memory) before any global access, then let the
-  // next one start launching
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  skinny::pdl_enter();
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -180,7 +174,7 @@ cmm_kernel(const T* __restrict__ x, const I* __restrict__ idx,
   const int m0 = blockIdx.y * kMT;
   const int k_lo = rank * chunk;
   const int k_hi = min(K, k_lo + chunk);
-  const unsigned cmax = static_cast<unsigned>(C - 1);
+  const unsigned n_cb = static_cast<unsigned>(C);
   // each part starts 16-byte aligned: a row of ids is 32 bytes
   I* ids = reinterpret_cast<I*>(stage);                          // [rows][BN]
   T* xs = reinterpret_cast<T*>(ids + stage_rows * BN);           // [kMT][rows]
@@ -265,26 +259,39 @@ cmm_kernel(const T* __restrict__ x, const I* __restrict__ idx,
       }
       const I* ir[2] = {idx + static_cast<int64_t>(ks + r0) * N + n0,
                         idx + static_cast<int64_t>(ks + r1) * N + n0};
+      // an index outside [0, C) weighs 0; the test per gather runs only
+      // where the thread's words hold such an index
+      auto gather = [&](auto checked) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        float w[2] = {0.f, 0.f};
+        for (int j = 0; j < V; ++j) {
+          float w[2] = {0.f, 0.f};
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (u == 1 && !two) break;
-          if (kVecLoad) {
-            if (n0 < N)
-              w[u] = row[u][min(
-                  static_cast<unsigned>(lane_index(word[u], j, I{})), cmax)];
-          } else if (n0 + j < N) {
-            w[u] = row[u][min(
-                static_cast<unsigned>(static_cast<int>(ir[u][j])), cmax)];
+          for (int u = 0; u < 2; ++u) {
+            if (u == 1 && !two) break;
+            if (kVecLoad) {
+              if (n0 < N) {
+                const unsigned c =
+                    static_cast<unsigned>(lane_index(word[u], j, I{}));
+                w[u] = (!decltype(checked)::value || c < n_cb) ? row[u][c]
+                                                               : 0.f;
+              }
+            } else if (n0 + j < N) {
+              const unsigned c =
+                  static_cast<unsigned>(static_cast<int>(ir[u][j]));
+              w[u] = c < n_cb ? row[u][c] : 0.f;
+            }
           }
-        }
 #pragma unroll
-        for (int m = 0; m < kMT; ++m)
-          acc[m * V + j] = fmaf(xv[1][m], w[1],
-                                fmaf(xv[0][m], w[0], acc[m * V + j]));
-      }
+          for (int m = 0; m < kMT; ++m)
+            acc[m * V + j] = fmaf(xv[1][m], w[1],
+                                  fmaf(xv[0][m], w[0], acc[m * V + j]));
+        }
+      };
+      if (kVecLoad && all_in_range(word[0], C, I{}) &&
+          all_in_range(word[1], C, I{}))
+        gather(std::false_type{});
+      else
+        gather(std::true_type{});
     }
     __syncthreads();   // the next stage overwrites the staged tiles
   }
@@ -350,49 +357,18 @@ int launch(const void* x, const void* idx, const void* cb, void* y, int M,
       min(chunk, fit >= kRowLanes ? fit / kRowLanes * kRowLanes : fit);
   if (stage_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(row_bytes) * stage_rows;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cmm_kernel<T, I, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kStageBytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(cmm_kernel<T, I, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kStageBytes);
-    if (e != cudaSuccess) {
-      cudaGetLastError();   // not left for the next call to report
-      return static_cast<int>(e);
-    }
-    configured = true;
+  static bool allowed[2] = {false, false};
+  for (int v = 0; v < 2; ++v) {
+    const int rc = skinny::allow_smem(
+        v ? cmm_kernel<T, I, true> : cmm_kernel<T, I, false>, kStageBytes,
+        allowed[v]);
+    if (rc != 0) return rc;
   }
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(strips * split, m_tiles);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 2;
-  const T* xp = static_cast<const T*>(x);
-  const I* ip = static_cast<const I*>(idx);
-  const float* cp = static_cast<const float*>(cb);
-  T* yp = static_cast<T*>(y);
-  const cudaError_t e =
-      vec ? cudaLaunchKernelEx(&cfg, cmm_kernel<T, I, true>, xp, ip, cp, yp,
-                               M, K, N, C, chunk, stage_rows)
-          : cudaLaunchKernelEx(&cfg, cmm_kernel<T, I, false>, xp, ip, cp, yp,
-                               M, K, N, C, chunk, stage_rows);
-  // a refused launch also sets the last error: clear it, so that the next
-  // call does not report it
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(e != cudaSuccess ? e : last);
+  return skinny::launch_clustered(
+      vec ? cmm_kernel<T, I, true> : cmm_kernel<T, I, false>, strips, split,
+      m_tiles, smem, stream, static_cast<const T*>(x),
+      static_cast<const I*>(idx), static_cast<const float*>(cb),
+      static_cast<T*>(y), M, K, N, C, chunk, stage_rows);
 }
 
 }  // namespace

@@ -19,10 +19,11 @@
 // Two bodies, one entry point each; the wrapper (kernels/flash_attention/
 // ops.py) picks by type, head_dim and alignment, never by a failure:
 //
-// 1. The wgmma body (flash_wgmma_kernel): bf16 inputs at head_dim 64, 128
-//    and 256 whose (b, t, head) strides are multiples of 8 elements and
+// 1. The wgmma body (flash_wgmma_kernel): bf16 inputs at head_dim 64, 128,
+//    192 and 256 whose (b, t, head) strides are multiples of 8 elements and
 //    whose pointers are 16-byte aligned, as TMA requires. Every bf16 model
-//    config takes it (qwen3 hd 128; gemma, gemma2, recurrentgemma hd 256).
+//    config takes it (qwen3 hd 128; nemotron-4-340b hd 192; gemma, gemma2,
+//    recurrentgemma hd 256).
 //  * One block per (b * H + h, 128-query tile), two warpgroups of 64 query
 //    rows. The grid is ordered so that the last query tiles, which see the
 //    most keys under the causal mask, start first.
@@ -31,12 +32,13 @@
 //    count, and tile j + 1 is in flight while tile j is computed. One
 //    __syncthreads a tile frees the stage that the next load refills.
 //  * 128-byte swizzle: a TMA box's inner extent is then at most 128 bytes
-//    (64 bf16), so a row of hd = 128 or 256 comes as 2 or 4 boxes, each
-//    its own 1024-byte aligned region (8 rows of 128 bytes form one swizzle
-//    atom). The wgmma shared-memory descriptors say the same: swizzle mode
-//    1 (128 B) in bits 62-63, stride byte offset 1024 between 8-row groups,
-//    and for a k16 step the start address advanced 32 bytes inside the
-//    swizzled row (q, k: K-major) or 2048 bytes, two 8-key groups (v).
+//    (64 bf16), so a row of hd = 128, 192 or 256 comes as 2, 3 or 4 boxes,
+//    each its own 1024-byte aligned region (8 rows of 128 bytes form one
+//    swizzle atom). The wgmma shared-memory descriptors say the same:
+//    swizzle mode 1 (128 B) in bits 62-63, stride byte offset 1024 between
+//    8-row groups, and for a k16 step the start address advanced 32 bytes
+//    inside the swizzled row (q, k: K-major) or 2048 bytes, two 8-key
+//    groups (v).
 //  * S = Q K^T: wgmma m64n64k16 with both operands from shared memory, q
 //    rows and k rows K-major as stored, f32 accumulators in registers.
 //  * Softmax on the accumulator fragment, in the log2 domain (exp2f): a
@@ -72,7 +74,8 @@
 //    broadcast. Rows t >= T are zero-filled by TMA and not written.
 //  * Registers: at hd = 256 the O accumulator is 128 floats a thread; with
 //    256 threads and one block an SM a thread may hold 255. Shared memory at
-//    hd = 256: Q 64 KB + 2 stages x (K + V) 128 KB.
+//    hd = 256: Q 64 KB + 2 stages x (K + V) 128 KB. hd = 192 (3 boxes) needs
+//    three quarters of both: 96 floats of O a thread, 144 KB.
 //
 // 2. The CUDA-core body (flash_kernel), for everything else: float32 inputs
 //    (the tests, the float32 configs), head_dim 16 and 32 (no config uses
@@ -340,6 +343,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     REPRO_FLASH_HD(32)
     REPRO_FLASH_HD(64)
     REPRO_FLASH_HD(128)
+    REPRO_FLASH_HD(192)
     REPRO_FLASH_HD(256)
 #undef REPRO_FLASH_HD
     default:
@@ -787,6 +791,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     case 128:
       return launch_hd<128>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
                             os, causal, window, softcap, s);
+    case 192:
+      return launch_hd<192>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
+                            os, causal, window, softcap, s);
     case 256:
       return launch_hd<256>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
                             os, causal, window, softcap, s);
@@ -800,7 +807,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // q (B, T, H, HD), k and v (B, S, KV, HD), o (B, T, H, HD) on the current
 // device, each with unit stride along HD; strides holds the (b, t, head)
 // strides in elements of q, k, v and o, in that order (12 values). HD is
-// 16, 32, 64, 128 or 256. Returns the CUDA error of the launch (0 on success).
+// 16, 32, 64, 128, 192 or 256. Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int T,
                                    int S, int H, int KV, int HD,
@@ -819,7 +827,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                causal, window, softcap, stream);
 }
 
-// The wgmma body: bf16 q, k, v, o as above, HD 64, 128 or 256, every
+// The wgmma body: bf16 q, k, v, o as above, HD 64, 128, 192 or 256, every
 // (b, t, head) stride a multiple of 8 elements and q, k, v 16-byte aligned
 // (TMA's terms). Returns the CUDA error of the launch (0 on success);
 // cudaErrorInvalidValue also when a tensor map does not encode.

@@ -2,184 +2,342 @@
 //
 // Replaces the TPU kernel src/repro/kernels/quant_matmul/kernel.py:
 // quant_matmul_pallas (body _qmm_kernel) and computes what it and the plain
-// version (kernels/quant_matmul/ref.py) compute: every int8 weight (on an
-// 8-bit or 4-bit grid) is dequantized in float32 against its output
-// column's scale, products accumulate in float32, and y is written in x's
-// type (float32 or bf16, one template).
+// version (kernels/quant_matmul/ref.py) compute: int8 weights (on an 8-bit
+// or 4-bit grid) with one float32 scale per output column, products
+// accumulated in float32, y written in x's type (float32 or bf16).
 //
-// Where it runs: the quantized decode step, 7 products per layer (q, k, v,
-// o, gate, up, down) with M = batch rows (8), K and N of 1024 to 3072.
+// Where it runs: the quantized decode step. qwen3-0.6b: 7 products a layer
+// (q, k, v, o, gate, up, down), K and N of 1024 to 3072; q, k and v run back
+// to back, and so do gate and up. falcon-mamba-7b: in_proj, x_proj, dt_proj
+// (float32 x), out_proj a layer and the LM head (4096 x 65024). M is the
+// decode batch, 8.
 //
 // What bounds it on this card: bytes. At M = 8 each weight byte feeds 8
-// multiply-adds, far below the ~295 operations per byte at which the
-// tensor cores would become the limit, so the least time is the int8
-// weight over the HBM rate. The TPU kernel's (128, 128, 128) grid with an
-// MXU dot per tile would waste 120 of 128 rows at this M.
+// multiply-adds, far below the ~295 operations a byte at which the tensor
+// cores would become the limit; the least time is the int8 weight over the
+// HBM rate. On the CUDA cores the work per weight (a conversion, 8 FMAs)
+// would need ~80 % of the card's float32 FMA rate and ~80 % of its
+// conversion rate at that byte rate, so bf16 x goes to the tensor cores.
 //
-// Design:
-//  * One block owns a strip of BN = 32 output columns for MT = 8 rows (the
-//    whole decode batch) and walks all of K: no cross-block reduction and
-//    no workspace. A grid row of blocks takes each further 8 rows of x.
-//  * 256 threads = 8 column threads x 32 k lanes. A column thread loads 4
-//    neighbouring int8 weights as one 32-bit word, so a warp reads four
-//    full 32-byte sectors per instruction; it dequantizes them in registers
-//    against the 4 scales it loaded once, and accumulates 8 x 4 partial
-//    sums. The x tile (8 rows x 128 k) is staged in shared memory as
-//    float32 and read as broadcasts.
-//  * The 32 k lanes are summed by two warp shuffles and one pass through
-//    shared memory; each of the 256 threads then writes one output.
-//  * Ragged edges: rows beyond M and k beyond K read zeros; columns beyond
-//    N are neither loaded nor written. When N is not a multiple of 4 (or
-//    the weight is not 4-byte aligned) the loads are single bytes.
-//
-// Not yet: tensor cores (int8 -> bf16 dequant feeding wgmma), TMA, split-K
-// to give the card more than N / 32 blocks at small N.
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design (the skeleton of skinny_mma.cuh, shared with K4):
+//  * A block owns a strip of 16, 32 or 64 output columns for 8, 16 or 64
+//    rows of x and one K-chunk of whole k16 steps; the S chunks of a strip
+//    are a thread-block cluster, reduced through distributed shared memory
+//    into rank 0 in rank order (deterministic). S gives one block an SM
+//    (kWave) and chunks of at most 128 steps (split_for).
+//  * Strip width: for bf16 x at M <= 16, the widest of 64, 32 and 16
+//    columns (4, 2 or 1 m16 tiles) that still gives kWave blocks. A wide
+//    strip reads whole 64-byte runs of each weight row, and x from L2 once
+//    per 64 columns instead of per 16. Blocks a decode shape: qwen3-0.6b's
+//    q and gate/up 160 and 144 (64 columns), k, v, o and down 160 (32);
+//    falcon-mamba-7b's in_proj 512, out_proj 256, LM head 2032 (64), x_proj
+//    (K 8192, N 288) 18 strips x 8 = 144 (16; narrow strips, not clusters
+//    of 16, give it its blocks), dt_proj 512 (float32, 16).
+//  * Staging by cp.async, 16 bytes a copy: a piece is 128 k rows of the
+//    strip's int8 weights and of x (bf16 as it lies), in a ring of up to
+//    48 KB (8 slots of a 16-column strip at M = 8, 3 of a 64-column one):
+//    all but one piece in flight ahead of the one computed. Copies past
+//    the chunk, K or M write zeros and read nothing.
+//  * bf16 x, tensor cores: a warp takes 2 k16 steps of a piece. One
+//    ldmatrix.x4.trans of the staged (k, n) int8 rows, read as b16 pairs,
+//    gives lane (g, t) the bytes of columns 2g and 2g + 1 at k rows 2t and
+//    2t + 1: the A fragment of W^T with its row g standing for column 2g and
+//    row g + 8 for column 2g + 1 (the epilogue maps them back). The bytes
+//    become bf16 exactly by i8x4_to_bf16x2. Instructions per warp and k16
+//    step (256 weights): 22 for the conversion, half an ldmatrix, and per
+//    n-tile 2 loads and 1 mma, ~26 at M = 8, or 0.10 a weight. At 4 warp
+//    instructions a clock an SM that is ~39 weights a clock an SM, 2.7x
+//    the ~14.5 that the HBM rate delivers (3.35e12 B/s over 132 SMs at
+//    1.755 GHz): issue is not the limit. B is x's rows, two 32-bit loads a
+//    step and n-tile.
+//  * float32 x (falcon-mamba-7b's dt_proj, the tests): the CUDA cores over
+//    the same stage, a thread a column and 16 of the piece's rows, one
+//    conversion and MB FMAs a weight; no TF32.
+//  * The scale is applied once per output column after the k-sum,
+//    y = s_n (sum_k x_k q_kn); quant_matmul_tolerance covers the difference
+//    from the plain version's rounded q * s (see its docstring).
+//  * Ragged edges: when N is not a multiple of 16 or w_q not 16-byte
+//    aligned, the weights are staged by single-byte loads, columns past N
+//    as zeros; when K is not a multiple of 16 bytes of x or x is not
+//    16-byte aligned, x is staged by single loads. The wrapper decides by
+//    alignment, never by a failure.
+//  * Launch latency: launched with programmatic stream serialization (see
+//    pdl_enter), as K3 is; only back-to-back K2 launches overlap.
+#include "skinny_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 32;   // output columns per block
-constexpr int kMT = 8;    // rows of x per block
-constexpr int kBK = 128;  // k depth of one staged x tile
-constexpr int kLanes = 32;  // k lanes
+using namespace skinny;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// bytes of a staged weight row: 16 MT int8 columns, padded when MT > 1 so
+// that the 8 rows of an ldmatrix matrix fall on distinct banks
+__host__ __device__ constexpr int w_pitch(int MT) {
+  return MT == 1 ? 16 : 16 * MT + 16;
 }
+// x row pitch in the stage, in elements: 128 k plus 16 bytes, so that the
+// 8 rows of a B-fragment load fall on distinct banks (bf16: 68 words)
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__host__ __device__ constexpr int x_pitch() {
+  return kPieceRows + 16 / static_cast<int>(sizeof(T));
 }
 
-template <typename T, bool kVec>
+template <typename T, int NT, int MT>
+__host__ __device__ constexpr int slot_bytes() {
+  return kPieceRows * w_pitch(MT) +
+         8 * NT * x_pitch<T>() * static_cast<int>(sizeof(T));
+}
+
+template <typename T, int NT, int MT>
+constexpr size_t smem_bytes(int split) {
+  constexpr int slot = slot_bytes<T, NT, MT>();
+  return static_cast<size_t>(ring_for(slot)) * slot +
+         static_cast<size_t>(kWarps + split) * 8 * NT * 16 * MT *
+             sizeof(float);
+}
+
+template <typename T, int NT, int MT>
 __global__ void __launch_bounds__(kThreads)
 qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
            const float* __restrict__ scales, T* __restrict__ y, int M, int K,
-           int N) {
-  __shared__ float xs[kMT][kBK];
-  __shared__ float red[kThreads / 32][kMT][kBN];
+           int N, int chunk_steps, int flags) {
+  constexpr int MB = 8 * NT;
+  constexpr int BN = 16 * MT;                 // columns of the strip
+  constexpr int WP = w_pitch(MT);
+  constexpr int XP = x_pitch<T>();
+  constexpr int kWBytes = kPieceRows * WP;
+  constexpr int kSlot = slot_bytes<T, NT, MT>();
+  constexpr int kRing = ring_for(kSlot), kAhead = kRing - 1;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // x a copy
+  constexpr bool kMma = sizeof(T) == 2;
+  static_assert(kMma || MT == 1, "the CUDA-core body takes 16 columns");
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* red = reinterpret_cast<float*>(smem + kRing * kSlot);
+  float* gathered = red + kWarps * MB * BN;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int cx = lane & 7;                  // column thread
-  const int kl = warp * 4 + (lane >> 3);    // k lane, 0..31
-  const int n0 = blockIdx.x * kBN + cx * 4;
-  const int m0 = blockIdx.y * kMT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = (static_cast<int>(blockIdx.x) / split) * BN;
+  const int m0 = blockIdx.y * MB;
+  const int k_lo = min(K, rank * chunk_steps * kStep);
+  const int k_hi = min(K, k_lo + chunk_steps * kStep);
+  const int n_pieces = (k_hi - k_lo + kPieceRows - 1) / kPieceRows;
+  const bool wvec = flags & 1, xvec = flags & 2;
 
-  float sc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) sc[j] = (n0 + j < N) ? scales[n0 + j] : 0.f;
+  pdl_enter();
 
-  float acc[kMT][4];
-#pragma unroll
-  for (int m = 0; m < kMT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int kt = 0; kt < K; kt += kBK) {
-    for (int i = tid; i < kMT * kBK; i += kThreads) {
-      const int r = i / kBK, c = i % kBK;
-      const int m = m0 + r, kk = kt + c;
-      xs[r][c] = (m < M && kk < K)
-                     ? to_f32(x[static_cast<int64_t>(m) * K + kk])
-                     : 0.f;
-    }
-    __syncthreads();
-    const int kend = min(kBK, K - kt);
-    for (int c = kl; c < kend; c += kLanes) {
-      const int8_t* wr = w + static_cast<int64_t>(kt + c) * N + n0;
-      float wv[4];
-      if (kVec) {
-        // N % 4 == 0, so n0 < N implies all four columns are in range
-        if (n0 < N) {
-          const char4 q = *reinterpret_cast<const char4*>(wr);
-          wv[0] = static_cast<float>(q.x) * sc[0];
-          wv[1] = static_cast<float>(q.y) * sc[1];
-          wv[2] = static_cast<float>(q.z) * sc[2];
-          wv[3] = static_cast<float>(q.w) * sc[3];
-        } else {
-          wv[0] = wv[1] = wv[2] = wv[3] = 0.f;
+  auto issue = [&](int p) {
+    if (p < n_pieces) {
+      uint8_t* slot = smem + (p % kRing) * kSlot;
+      int8_t* ws = reinterpret_cast<int8_t*>(slot);
+      T* xs = reinterpret_cast<T*>(slot + kWBytes);
+      const int kb = k_lo + p * kPieceRows;
+      if (wvec) {   // MT 16-byte copies a row
+        for (int i = tid; i < kPieceRows * MT; i += kThreads) {
+          const int r = i / MT, h = i % MT, k = kb + r, n = n0 + 16 * h;
+          const bool in = k < k_hi && n < N;
+          cp_async16(ws + r * WP + 16 * h,
+                     in ? w + static_cast<int64_t>(k) * N + n : w, in);
         }
       } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wv[j] = (n0 + j < N) ? static_cast<float>(wr[j]) * sc[j] : 0.f;
+        for (int i = tid; i < kPieceRows * BN; i += kThreads) {
+          const int r = i / BN, c = i % BN, k = kb + r, n = n0 + c;
+          ws[r * WP + c] = (k < k_hi && n < N)
+                               ? w[static_cast<int64_t>(k) * N + n]
+                               : int8_t{0};
+        }
       }
-#pragma unroll
-      for (int m = 0; m < kMT; ++m) {
-        const float xv = xs[m][c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
+      if (xvec) {
+        constexpr int kWords = kPieceRows / kPer;
+        for (int i = tid; i < MB * kWords; i += kThreads) {
+          const int m = i / kWords, k = kb + (i % kWords) * kPer;
+          const bool in = m0 + m < M && k < k_hi;
+          cp_async16(xs + m * XP + (i % kWords) * kPer,
+                     in ? x + static_cast<int64_t>(m0 + m) * K + k : x, in);
+        }
+      } else {
+        for (int i = tid; i < MB * kPieceRows; i += kThreads) {
+          const int m = i / kPieceRows, c = i % kPieceRows, k = kb + c;
+          xs[m * XP + c] = (m0 + m < M && k < k_hi)
+                               ? x[static_cast<int64_t>(m0 + m) * K + k]
+                               : from_f32<T>(0.f);
+        }
       }
     }
+    cp_async_commit();   // an empty group past the last piece
+  };
+
+  // bf16: acc[j * NT + nt][e], the C fragment of m-tile j and n-tile nt;
+  // float32: acc[0][m] for this thread's column over its rows
+  constexpr int kAccRows = kMma ? MT * NT : 1;
+  constexpr int kAccCols = kMma ? 4 : MB;
+  float acc[kAccRows][kAccCols];
+#pragma unroll
+  for (int i = 0; i < kAccRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kAccCols; ++j) acc[i][j] = 0.f;
+
+  const int g = lane >> 2, t = lane & 3;
+  for (int p = 0; p < kAhead; ++p) issue(p);
+  for (int p = 0; p < n_pieces; ++p) {
+    cp_async_wait<kAhead - 1>();
     __syncthreads();
+    issue(p + kAhead);   // refills the slot computed in the last iteration
+    const uint8_t* slot = smem + (p % kRing) * kSlot;
+    const int8_t* ws = reinterpret_cast<const int8_t*>(slot);
+    const T* xs = reinterpret_cast<const T*>(slot + kWBytes);
+    const int kb = k_lo + p * kPieceRows;
+    if constexpr (kMma) {
+      const int r0 = 32 * warp;   // this warp's 2 steps of the piece
+      const int steps = kb + r0 >= k_hi ? 0 : kb + r0 + kStep >= k_hi ? 1 : 2;
+      // x's B fragments of both steps, for every n-tile
+      uint32_t b[2][NT][2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const T* xr = xs + (8 * nt + g) * XP + r0 + kStep * s + 2 * t;
+          b[s][nt][0] = *reinterpret_cast<const uint32_t*>(xr);
+          b[s][nt][1] = *reinterpret_cast<const uint32_t*>(xr + 8);
+        }
+      if (steps > 0) {
+#pragma unroll
+        for (int j = 0; j < MT; ++j) {
+          uint32_t q[4];
+          ldsm_x4_trans(q, smem_u32(ws + (r0 + lane) * WP + 16 * j));
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            if (s >= steps) break;
+            uint32_t a[4];
+            i8x4_to_bf16x2(q[2 * s], a[0], a[1]);
+            i8x4_to_bf16x2(q[2 * s + 1], a[2], a[3]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma_bf16(acc[j * NT + nt], a, b[s][nt][0], b[s][nt][1]);
+          }
+        }
+      }
+    } else {
+      const int c = tid % 16, L = tid / 16;
+#pragma unroll 4
+      for (int i = 0; i < kPieceRows / 8; ++i) {
+        const int r = L + 8 * i;
+        if (kb + r >= k_hi) break;
+        const float wv = static_cast<float>(ws[r * WP + c]);
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+          acc[0][m] = fmaf(to_f32(xs[m * XP + r]), wv, acc[0][m]);
+      }
+    }
   }
 
-  // sum the 4 k lanes of a warp (lane bits 3 and 4), then the 8 warps
+  // each warp's partial sums into red[warp][m][c]
+  float* mine = red + warp * MB * BN;
+  if constexpr (kMma) {
+    // C row g of m-tile j stands for column 16 j + 2 g, row g + 8 for
+    // column 16 j + 2 g + 1
 #pragma unroll
-  for (int m = 0; m < kMT; ++m)
+    for (int j = 0; j < MT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][j] = v;
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mine[(8 * nt + 2 * t + (e & 1)) * BN + 16 * j + 2 * g + (e >> 1)] =
+              acc[j * NT + nt][e];
+  } else {
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      const float v = acc[0][m] + __shfl_xor_sync(0xffffffffu, acc[0][m], 16);
+      if (lane < 16) mine[m * BN + lane] = v;
     }
-  if ((lane >> 3) == 0) {
-#pragma unroll
-    for (int m = 0; m < kMT; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[warp][m][cx * 4 + j] = acc[m][j];
   }
-  __syncthreads();
-  const int m = tid / kBN, c = tid % kBN;   // kMT * kBN == kThreads
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) sum += red[i][m][c];
-  const int gm = m0 + m, gn = blockIdx.x * kBN + c;
-  if (gm < M && gn < N) y[static_cast<int64_t>(gm) * N + gn] = from_f32<T>(sum);
+  cluster_reduce<MB, BN>(red, gathered, [&](int m, int c, float sum) {
+    if (m0 + m < M && n0 + c < N)
+      y[static_cast<int64_t>(m0 + m) * N + n0 + c] =
+          from_f32<T>(scales[n0 + c] * sum);
+  });
+}
+
+// grid of (strips x split, m_tiles) blocks for strips of 16 MT columns
+struct Grid {
+  int strips, m_tiles, split, chunk;
+};
+inline Grid grid_for(int M, int K, int N, int MB, int MT) {
+  Grid gr;
+  gr.strips = (N + 16 * MT - 1) / (16 * MT);
+  gr.m_tiles = (M + MB - 1) / MB;
+  const int steps = (K + kStep - 1) / kStep;
+  gr.split = split_for(gr.strips, gr.m_tiles, steps);
+  gr.chunk = (steps + gr.split - 1) / gr.split;
+  return gr;
+}
+
+template <typename T, int NT, int MT>
+int launch_mt(const void* x, const void* w, const void* scales, void* y,
+              int M, int K, int N, int flags, const Grid& gr, void* stream) {
+  static bool allowed = false;
+  const int rc = allow_smem(qmm_kernel<T, NT, MT>,
+                            smem_bytes<T, NT, MT>(kMaxSplit), allowed);
+  if (rc != 0) return rc;
+  return launch_clustered(qmm_kernel<T, NT, MT>, gr.strips, gr.split,
+                          gr.m_tiles, smem_bytes<T, NT, MT>(gr.split), stream,
+                          static_cast<const T*>(x),
+                          static_cast<const int8_t*>(w),
+                          static_cast<const float*>(scales),
+                          static_cast<T*>(y), M, K, N, gr.chunk, flags);
+}
+
+// Strip width: for bf16 x at M <= 16 the widest of 64, 32 and 16 columns
+// that still fills a wave of kWave blocks; 16 otherwise.
+template <typename T, int NT>
+int launch_nt(const void* x, const void* w, const void* scales, void* y,
+              int M, int K, int N, int flags, void* stream) {
+  if constexpr (sizeof(T) == 2 && NT <= 2) {
+    for (int MT = 4; MT >= 2; MT /= 2) {
+      const Grid gr = grid_for(M, K, N, 8 * NT, MT);
+      if (gr.strips * gr.m_tiles * gr.split < kWave) continue;
+      return MT == 4
+                 ? launch_mt<T, NT, 4>(x, w, scales, y, M, K, N, flags, gr,
+                                       stream)
+                 : launch_mt<T, NT, 2>(x, w, scales, y, M, K, N, flags, gr,
+                                       stream);
+    }
+  }
+  return launch_mt<T, NT, 1>(x, w, scales, y, M, K, N, flags,
+                             grid_for(M, K, N, 8 * NT, 1), stream);
 }
 
 template <typename T>
 int launch(const void* x, const void* w, const void* scales, void* y, int M,
-           int K, int N, int vec, void* stream) {
+           int K, int N, int flags, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kMT - 1) / kMT);
-  auto s = static_cast<cudaStream_t>(stream);
-  const T* xp = static_cast<const T*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const float* sp = static_cast<const float*>(scales);
-  T* yp = static_cast<T*>(y);
-  if (vec)
-    qmm_kernel<T, true><<<grid, kThreads, 0, s>>>(xp, wp, sp, yp, M, K, N);
-  else
-    qmm_kernel<T, false><<<grid, kThreads, 0, s>>>(xp, wp, sp, yp, M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  switch (n_tiles_for(M)) {
+    case 1:
+      return launch_nt<T, 1>(x, w, scales, y, M, K, N, flags, stream);
+    case 2:
+      return launch_nt<T, 2>(x, w, scales, y, M, K, N, flags, stream);
+    default:
+      return launch_nt<T, 8>(x, w, scales, y, M, K, N, flags, stream);
+  }
 }
 
 }  // namespace
 
 // x (M, K), w (K, N) int8, scales (N,) float32, y (M, N): all contiguous on
-// the current device. vec != 0 requires N % 4 == 0 and a 4-byte aligned w.
-// Returns the CUDA error of the launch (0 on success).
+// the current device. flags bit 0: N % 16 == 0 and w 16-byte aligned (the
+// weights are staged by 16-byte copies); bit 1: K a multiple of the x
+// values in 16 bytes and x 16-byte aligned. quant_matmul_bf16 takes the
+// tensor-core body, quant_matmul_f32 the CUDA-core body. Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int quant_matmul_f32(const void* x, const void* w,
                                 const void* scales, void* y, int M, int K,
-                                int N, int vec, void* stream) {
-  return launch<float>(x, w, scales, y, M, K, N, vec, stream);
+                                int N, int flags, void* stream) {
+  return launch<float>(x, w, scales, y, M, K, N, flags, stream);
 }
 
 extern "C" int quant_matmul_bf16(const void* x, const void* w,
                                  const void* scales, void* y, int M, int K,
-                                 int N, int vec, void* stream) {
-  return launch<__nv_bfloat16>(x, w, scales, y, M, K, N, vec, stream);
+                                 int N, int flags, void* stream) {
+  return launch<__nv_bfloat16>(x, w, scales, y, M, K, N, flags, stream);
 }

@@ -3,7 +3,9 @@
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel and
 nowhere else, so a run can show that its path went through the kernel.
 ``LAUNCHES["flash_attention_wgmma"]`` counts, in addition, the launches of
-K5 that took its wgmma body (bf16 at head_dim 64, 128 or 256).
+K5 that took its wgmma body (bf16 at head_dim 64, 128, 192 or 256);
+``LAUNCHES["quant_matmul_mma"]`` and ``LAUNCHES["block_sparse_matmul_mma"]``
+those of K2 and K4 that took their tensor-core (``mma.sync``) body (bf16 x).
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "quant_matmul": 0,
                              "flash_attention": 0,
                              "flash_attention_wgmma": 0, "ssm_scan": 0,
                              "clustered_matmul": 0,
-                             "block_sparse_matmul": 0}
+                             "block_sparse_matmul": 0,
+                             "quant_matmul_mma": 0,
+                             "block_sparse_matmul_mma": 0}
 
 
 def reset_launches() -> None:

@@ -4,8 +4,13 @@
 `block_sparse_matmul` launches the kernel for CUDA tensors (counted in
 ``repro_torch.kernels.LAUNCHES["block_sparse_matmul"]``) or raises; only for
 CPU tensors does it run the plain version `block_sparse_matmul_ref`. The
-kernel walks only the live k-tiles of each column strip and reads no weight
-of a dead tile; M need not be a block multiple (the kernel masks its rows).
+kernel shares each 16-column strip's live k16 steps among the blocks of a
+thread-block cluster, reads no weight of a dead tile and reduces the partial
+sums in a fixed order inside the one launch; M need not be a block multiple
+(the kernel masks its rows). bf16 takes its tensor-core body (``mma.sync``,
+counted also in ``LAUNCHES["block_sparse_matmul_mma"]``), float32 its
+CUDA-core body. Whether the weights and x are staged by 16-byte copies
+follows from the tile and the alignment, never from a failure.
 """
 from __future__ import annotations
 
@@ -94,16 +99,21 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     if max(M, K, N) >= 2 ** 31 or M > 8 * 65535:
         raise ValueError(f"block_sparse_matmul: shape {(M, K, N)} too large")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    # four neighbouring weights in one load
-    vec = int(N % 4 == 0 and w.data_ptr() % (4 * w.element_size()) == 0)
+    # 16-byte copies: each lies in one mask column when block_n is a
+    # multiple of the values in 16 bytes
+    per = 16 // w.element_size()
+    w16 = block_n % per == 0 and N % per == 0 and w.data_ptr() % 16 == 0
+    x16 = K % per == 0 and x.data_ptr() % 16 == 0
     rc = _kernel(x.dtype, block_mask.dtype)(
         x.data_ptr(), w.data_ptr(), block_mask.data_ptr(), y.data_ptr(),
-        M, K, N, block_k, block_n, vec,
+        M, K, N, block_k, block_n, int(w16) | int(x16) << 1,
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"block_sparse_matmul kernel launch failed: CUDA "
                            f"error {rc}")
     LAUNCHES["block_sparse_matmul"] += 1
+    if x.dtype == torch.bfloat16:
+        LAUNCHES["block_sparse_matmul_mma"] += 1
     return y
 
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``src/repro_torch/_build/`` (listed in ``.gitignore``), then loaded with
-``ctypes``. The library's name carries a hash of the source and flags, so an
-edited kernel is rebuilt and a stale one is never loaded. No ``nvcc`` on a
-machine that asks for a kernel is an error.
+``ctypes``. The library's name carries a hash of the source, of every shared
+header ``csrc/*.cuh`` and of the flags, so an edited kernel or header is
+rebuilt and a stale library is never loaded. No ``nvcc`` on a machine that
+asks for a kernel is an error.
 """
 from __future__ import annotations
 
@@ -46,9 +47,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    # every header, included or not: a header edit rebuilds all kernels
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_many(names: Iterable[str]) -> Dict[str, Path]:

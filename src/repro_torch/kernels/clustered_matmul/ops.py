@@ -65,12 +65,12 @@ def _check(x: torch.Tensor, idx: torch.Tensor,
 def clustered_matmul(x: torch.Tensor, idx: torch.Tensor,
                      codebook: torch.Tensor) -> torch.Tensor:
     """y = x @ W, W[k, n] = codebook[k, idx[k, n]]: x (M, K) float32/bf16,
-    idx (K, N) int8/int32 with values in [0, C), codebook (K, C) float32
-    -> (M, N) in x's dtype, accumulated in float32.
+    idx (K, N) int8/int32, codebook (K, C) float32 -> (M, N) in x's dtype,
+    accumulated in float32.
 
-    The index range is the caller's contract and is not checked on the
-    card (that would need a sync): the kernel clamps an index outside
-    [0, C) into it, where the plain version raises."""
+    An index outside [0, C) gives weight 0 in the kernel and in the plain
+    version alike, as in the Pallas kernel; nothing is checked on the host
+    (that would need a sync)."""
     _check(x, idx, codebook)
     if x.device.type == "cpu":
         return clustered_matmul_ref(x, idx, codebook)

@@ -4,15 +4,22 @@ import torch
 
 
 def _weight(idx: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """W[k, n] = codebook[k, idx[k, n]] in float32."""
-    return torch.gather(codebook.float(), 1, idx.long())
+    """W[k, n] = codebook[k, idx[k, n]] in float32, and 0 where idx[k, n]
+    lies outside [0, C), as in the Pallas kernel (its one-hot against
+    iota(C) matches no entry there)."""
+    C = codebook.shape[1]
+    i = idx.long()
+    inside = (i >= 0) & (i < C)
+    w = torch.gather(codebook.float(), 1, i.clamp(0, C - 1))
+    return torch.where(inside, w, torch.zeros((), dtype=w.dtype,
+                                              device=w.device))
 
 
 def clustered_matmul_ref(x: torch.Tensor, idx: torch.Tensor,
                          codebook: torch.Tensor) -> torch.Tensor:
-    """x (M, K) float, idx (K, N) int in [0, C), codebook (K, C) float32
-    -> (M, N) in x's dtype: W gathered from the codebooks, the product in
-    float32. An index outside [0, C) raises (in ``gather``)."""
+    """x (M, K) float, idx (K, N) int, codebook (K, C) float32 -> (M, N) in
+    x's dtype: W gathered from the codebooks, the product in float32. An
+    index outside [0, C) gives weight 0."""
     return (x.float() @ _weight(idx, codebook)).to(x.dtype)
 
 

@@ -11,7 +11,7 @@ broadcast. Only for CPU tensors does it run the plain version
 does and calls `flash_attention_ref`.
 
 The kernel has two bodies (see the note in the source). bf16 inputs at
-head_dim 64, 128 or 256 whose tensors TMA can read (`takes_wgmma`) go
+head_dim 64, 128, 192 or 256 whose tensors TMA can read (`takes_wgmma`) go
 through the wgmma body, counted also in ``LAUNCHES["flash_attention_wgmma"]``;
 it rounds P to bf16 before P @ v, which `flash_attention_tolerance` covers
 for bf16. Everything else goes through the CUDA-core body. The choice
@@ -29,8 +29,8 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_tolerance)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 _FNS: Dict[str, object] = {}
 
 
@@ -66,8 +66,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def takes_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether the wgmma body serves these inputs: bf16, head_dim 64, 128 or
-    256, and what TMA needs of each tensor, every (b, t, head) stride a
+    """Whether the wgmma body serves these inputs: bf16, head_dim 64, 128,
+    192 or 256, and what TMA needs of each tensor, every (b, t, head) stride a
     multiple of 16 bytes (the stride of an extent-1 dimension is never
     used) and a 16-byte aligned start."""
     return (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS

@@ -5,6 +5,13 @@
 ``repro_torch.kernels.LAUNCHES["quant_matmul"]``) or raises; only for CPU
 tensors does it run the plain version `quant_matmul_ref`. The reference's
 padding to (128, 128, 128) blocks is gone: the kernel masks its ragged edges.
+
+The kernel splits K over a thread-block cluster and reduces the partial
+sums in a fixed order inside the one launch. bf16 x takes its tensor-core
+body (``mma.sync``, counted also in ``LAUNCHES["quant_matmul_mma"]``),
+float32 x its CUDA-core body; both apply the scale once per output column
+after the k-sum. Whether the weights and x are staged by 16-byte copies
+follows from their alignment, never from a failure.
 """
 from __future__ import annotations
 
@@ -49,6 +56,16 @@ def _check(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor) -> None:
         raise ValueError("x, w_q and scales lie on different devices")
 
 
+def _flags(x: torch.Tensor, w_q: torch.Tensor) -> int:
+    """Bit 0: the weights' rows of a 16-column strip are 16-byte copies (N
+    a multiple of 16, w_q 16-byte aligned); bit 1: x's rows are staged by
+    16-byte copies (K a multiple of the values in 16 bytes, x aligned)."""
+    w16 = w_q.shape[1] % 16 == 0 and w_q.data_ptr() % 16 == 0
+    x16 = (x.shape[1] % (16 // x.element_size()) == 0
+           and x.data_ptr() % 16 == 0)
+    return int(w16) | int(x16) << 1
+
+
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
                  scales: torch.Tensor) -> torch.Tensor:
     """y = x @ (w_q * scales[None, :]): x (M, K) float32/bf16, w_q (K, N)
@@ -68,14 +85,15 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     if max(M, K, N) >= 2 ** 31 or M > 8 * 65535:
         raise ValueError(f"quant_matmul: shape {(M, K, N)} too large")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    vec = int(N % 4 == 0 and w_q.data_ptr() % 4 == 0)
     rc = _kernel(x.dtype)(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                          y.data_ptr(), M, K, N, vec,
+                          y.data_ptr(), M, K, N, _flags(x, w_q),
                           torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES["quant_matmul"] += 1
+    if x.dtype == torch.bfloat16:
+        LAUNCHES["quant_matmul_mma"] += 1
     return y
 
 

@@ -294,3 +294,147 @@ def test_block_sparse_matmul_rejects(case):
     exc, args = BSMM_BAD[case]
     with pytest.raises(exc):
         TBS.block_sparse_matmul(**args)
+
+
+# ---------------------------------------------------------------------------
+# fault F2 (repaired): an index outside [0, C) weighs 0, as in the Pallas
+# kernel; reference defect C5: the JAX oracle gives NaN there
+# ---------------------------------------------------------------------------
+
+
+def _out_of_range_inputs():
+    """(128, 128, 128) with C = 4, column 0 holding C + 1 on even rows and
+    -1 on odd rows: no index of column 0 lies in [0, C)."""
+    r = np.random.default_rng(16)
+    x = r.normal(size=(128, 128)).astype(np.float32)
+    idx = r.integers(0, 4, (128, 128)).astype(np.int32)
+    idx[::2, 0] = 4 + 1
+    idx[1::2, 0] = -1
+    cb = r.normal(size=(128, 4)).astype(np.float32)
+    return x, idx, cb
+
+
+@pytest.mark.parametrize("idx_dtype", sorted(IDX))
+def test_clustered_matmul_out_of_range_index_weighs_zero(idx_dtype):
+    """The plain version (and the wrapper on the CPU) gives an index outside
+    [0, C) weight 0 and matches the Pallas kernel, whose one-hot against
+    iota(C) matches no entry there; the clamped weight of the kernel before
+    the repair gives another answer."""
+    x, idx, cb = _out_of_range_inputs()
+    idx = idx.astype(IDX[idx_dtype][0])
+    xt, it, cbt = (torch.from_numpy(a) for a in (x, idx, cb))
+    got = TCM.clustered_matmul(xt, it, cbt)
+    assert torch.equal(got, TCM.clustered_matmul_ref(xt, it, cbt))
+    assert torch.count_nonzero(got[:, 0]) == 0
+    pallas = jax_cmm(jnp.asarray(x), jnp.asarray(idx), jnp.asarray(cb),
+                     block_m=32, block_n=32, block_k=32)
+    np.testing.assert_allclose(_np(got), _np(pallas), rtol=TOL["float32"],
+                               atol=TOL["float32"])
+    _within(got, pallas, TCM.clustered_matmul_tolerance(xt, it, cbt, got))
+    clamped = xt @ torch.gather(cbt, 1, it.long().clamp(0, 3))
+    assert float((clamped[:, 0] - got[:, 0]).abs().max()) > 1.0
+
+
+def test_clustered_matmul_oracle_gives_nan_out_of_range():
+    """Reference defect C5: the JAX oracle gathers with take_along_axis,
+    which fills an index past C with NaN (and wraps -1 to C - 1), so column
+    0 comes out NaN where the Pallas kernel and the port give 0."""
+    x, idx, cb = _out_of_range_inputs()
+    oracle = _np(jax_cref(jnp.asarray(x), jnp.asarray(idx), jnp.asarray(cb)))
+    assert np.isnan(oracle[:, 0]).all()
+    assert np.isfinite(oracle[:, 1:]).all()
+    pallas = _np(jax_cmm(jnp.asarray(x), jnp.asarray(idx), jnp.asarray(cb),
+                         block_m=32, block_n=32, block_k=32))
+    assert np.isfinite(pallas).all() and not np.any(pallas[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# K4's arithmetic on the card: live k16 steps, zero-filled rows
+# ---------------------------------------------------------------------------
+
+
+def _bsmm_kernel_order(x, w, bm, bk, bn, split):
+    """The sums of K4's CUDA body (``csrc/block_sparse_matmul.cu``) in plain
+    PyTorch: per 16-column strip, the k16 steps with any live row are
+    numbered in k order and rank r of ``split`` takes steps r, r + split,
+    ...; rows of a dead tile inside a live step are zero-filled; a rank's
+    steps form pieces of 8, warp w taking entries 2w and 2w + 1 of each
+    piece and summing their float32 products in order; the 4 warps, then
+    the ranks, are added in order."""
+    M, K = x.shape
+    N = w.shape[1]
+    live = (bm > 0)[:, None, :, None].expand(K // bk, bk, N // bn, bn)
+    wl = w.float() * live.reshape(K, N)
+    xf = x.float()
+    y = torch.zeros((M, N))
+    steps = (K + 15) // 16
+    for n0 in range(0, N, 16):
+        cols = slice(n0, min(N, n0 + 16))
+        live_steps = [s for s in range(steps)
+                      if bool(live.reshape(K, N)[16 * s:16 * s + 16,
+                                                 cols].any())]
+        ranks = []
+        for r in range(split):
+            mine = live_steps[r::split]
+            warps = [torch.zeros((M, cols.stop - n0)) for _ in range(4)]
+            for j, s in enumerate(mine):
+                part = xf[:, 16 * s:16 * s + 16] @ wl[16 * s:16 * s + 16,
+                                                      cols]
+                warps[(j % 8) // 2] = warps[(j % 8) // 2] + part
+            ranks.append(((warps[0] + warps[1]) + warps[2]) + warps[3])
+        total = ranks[0]
+        for part in ranks[1:]:
+            total = total + part
+        y[:, cols] = total
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("bk", [8, 16, 128])
+@pytest.mark.parametrize("split", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_matmul_tolerance_covers_zero_filled_steps(bk, split,
+                                                               dtype):
+    """K4's order of sums over live k16 steps (bk 8: a step spans two tiles
+    and a dead one's rows are zero-filled) stays within
+    `block_sparse_matmul_tolerance` of the plain version, and a strip with
+    no live tile comes out exactly zero."""
+    r = np.random.default_rng(bk + split)
+    K, N, bn = 512, 256, 128 if bk == 128 else 32
+    x = torch.from_numpy(r.normal(size=(8, K)).astype(np.float32))
+    w = torch.from_numpy(r.normal(size=(K, N)).astype(np.float32))
+    if dtype == "bfloat16":
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    bm = torch.from_numpy(r.random((K // bk, N // bn)) < 0.5)
+    bm[:, -1] = False
+    ref = TBS.block_sparse_matmul_ref(x, w, bm, block_k=bk, block_n=bn)
+    got = _bsmm_kernel_order(x, w, bm, bk, bn, split)
+    assert torch.count_nonzero(got[:, N - bn:]) == 0
+    _within(got, ref, TBS.block_sparse_matmul_tolerance(
+        x, w, bm, ref, block_k=bk, block_n=bn))
+
+
+# ---------------------------------------------------------------------------
+# the build: a shared header is part of every library's hash
+# ---------------------------------------------------------------------------
+
+
+def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """K2 and K4 include ``csrc/skinny_mma.cuh``: an edit of it must give
+    every kernel a new library name, so no stale library is loaded."""
+    from repro_torch.kernels import build
+    for src in build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    for name in ("quant_matmul", "block_sparse_matmul"):
+        assert '#include "skinny_mma.cuh"' in (
+            tmp_path / f"{name}.cu").read_text()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in build.KERNELS}
+    assert before == {n: build.library_path(n) for n in build.KERNELS}
+    header = tmp_path / "skinny_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in build.KERNELS}
+    assert all(before[n] != after[n] for n in build.KERNELS)
+    src = tmp_path / "quant_matmul.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert build.library_path("quant_matmul") != after["quant_matmul"]
+    assert build.library_path("ssm_scan") == after["ssm_scan"]

@@ -694,3 +694,181 @@ def test_compressed_wrappers_never_fall_back_on_cuda(card, monkeypatch):
         CM.clustered_matmul(x, idx, cb)
     with pytest.raises(RuntimeError, match="nvcc"):
         BS.block_sparse_matmul(x, w, bm, block_k=32, block_n=32)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4 redesigned: split-K clusters, cp.async staging, mma.sync for bf16
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16, 33])
+@pytest.mark.parametrize("shape", QMM_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quant_matmul_split_k_at_decode_rows(card, M, shape, dtype):
+    """Every (K, N) of QMM_SHAPES at M = 1, 8, 16 and 33 (one, two and
+    eight n-tiles of 8 rows a block): within the bound, the tensor-core
+    body for bf16, and two calls equal bit for bit (a fixed summation
+    order across the cluster)."""
+    _, K, N = shape
+    g = torch.Generator(device=card).manual_seed(M + 3 * K + N)
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    w = torch.randint(-127, 128, (K, N), generator=g, device=card,
+                      dtype=torch.int8)
+    s = (torch.rand((N,), generator=g, device=card) + 0.1) * 0.01
+    reset_launches()
+    got = QM.quant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_matmul"] == 1
+    assert LAUNCHES["quant_matmul_mma"] == int(dtype == "bfloat16")
+    ref = QM.quant_matmul_ref(x, w, s)
+    tol = QM.quant_matmul_tolerance(x, w, s, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    assert torch.equal(got, QM.quant_matmul(x, w, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16, 33])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quant_matmul_unaligned_weight_and_x_views(card, M, dtype):
+    """w_q and x views that start off a 16-byte boundary are staged by
+    single loads and agree with the plain version."""
+    g = torch.Generator(device=card).manual_seed(M + 11)
+    K, N = 1024, 1024
+    flat_w = torch.randint(-127, 128, (K * N + 1,), generator=g, device=card,
+                           dtype=torch.int8)
+    w = flat_w[1:].view(K, N)
+    flat_x = torch.randn((M * K + 1,), generator=g, device=card).to(
+        DTYPES[dtype])
+    x = flat_x[1:].view(M, K)
+    assert w.data_ptr() % 16 != 0 and x.data_ptr() % 16 != 0
+    s = (torch.rand((N,), generator=g, device=card) + 0.1) * 0.01
+    got = QM.quant_matmul(x, w, s)
+    ref = QM.quant_matmul_ref(x, w, s)
+    tol = QM.quant_matmul_tolerance(x, w, s, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+def _bsmm_mask(g, K, N, bk, bn, live, device):
+    """A (K/bk, N/bn) mask: uniform at a live share, or "skewed" (the first
+    quarter of the column strips fully live, the rest at 1/6, about 37%
+    live), always with the last strip all dead."""
+    kt, nt = K // bk, N // bn
+    if live == "skewed":
+        bm = torch.rand((kt, nt), generator=g, device=device) < 1 / 6
+        bm[:, :max(1, nt // 4)] = True
+    else:
+        bm = torch.rand((kt, nt), generator=g, device=device) < live
+    bm[:, -1] = False
+    return bm
+
+
+# (M, K, N, (bk, bn), live): every tile at M = 8 and four live shares, the
+# other M at two tiles, M = 4096 at two tiles
+BSMM_SPLIT_CASES = [(8, 1024, 1024, t, live)
+                    for t in ((128, 128), (32, 32), (16, 16), (8, 128))
+                    for live in (1.0, 0.5, 0.1, "skewed")] + [
+    (M, 1024, 1024, t, 0.5) for M in (1, 16, 33)
+    for t in ((128, 128), (16, 16))] + [
+    (4096, 1024, 1024, (128, 128), 0.5), (4096, 1024, 1024, (8, 128), 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BSMM_SPLIT_CASES, ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_block_sparse_matmul_split_live_steps(card, case, dtype):
+    """The live k16 steps shared across a cluster: within the bound, an
+    all-dead strip of non-zero weights exactly zero, the tensor-core body
+    for bf16, and two calls equal bit for bit."""
+    M, K, N, (bk, bn), live = case
+    g = torch.Generator(device=card).manual_seed(M + bk + bn)
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    w = torch.randn((K, N), generator=g, device=card).to(DTYPES[dtype])
+    bm = _bsmm_mask(g, K, N, bk, bn, live, card)
+    reset_launches()
+    got = BS.block_sparse_matmul(x, w, bm, block_k=bk, block_n=bn)
+    torch.cuda.synchronize()
+    assert LAUNCHES["block_sparse_matmul"] == 1
+    assert LAUNCHES["block_sparse_matmul_mma"] == int(dtype == "bfloat16")
+    ref = BS.block_sparse_matmul_ref(x, w, bm, block_k=bk, block_n=bn)
+    assert torch.count_nonzero(got[:, N - bn:]) == 0
+    tol = BS.block_sparse_matmul_tolerance(x, w, bm, ref, block_k=bk,
+                                           block_n=bn)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    again = BS.block_sparse_matmul(x, w, bm, block_k=bk, block_n=bn)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(8, 8), (24, 4), (2, 3)], ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_block_sparse_matmul_tiles_off_the_copy_width(card, tile, dtype):
+    """Tiles whose rows are not whole 16-byte pieces (bn of 3 or 4 bf16)
+    or not whole k16 steps (bk 8, 24 or 2) take the single-load staging
+    or zero-filled rows inside a step, and agree with the plain version."""
+    bk, bn = tile
+    K, N = 48 * bk, 40 * bn
+    g = torch.Generator(device=card).manual_seed(bk * 100 + bn)
+    x = torch.randn((8, K), generator=g, device=card).to(DTYPES[dtype])
+    w = torch.randn((K, N), generator=g, device=card).to(DTYPES[dtype])
+    bm = _bsmm_mask(g, K, N, bk, bn, 0.3, card)
+    got = BS.block_sparse_matmul(x, w, bm, block_k=bk, block_n=bn)
+    ref = BS.block_sparse_matmul_ref(x, w, bm, block_k=bk, block_n=bn)
+    tol = BS.block_sparse_matmul_tolerance(x, w, bm, ref, block_k=bk,
+                                           block_n=bn)
+    assert torch.count_nonzero(got[:, N - bn:]) == 0
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+# ---------------------------------------------------------------------------
+# repaired faults: F2 (K3's out-of-range index), F3 (K5 at head_dim 192)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", ["int8", "int32"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_clustered_matmul_out_of_range_index_weighs_zero(card, idx_dtype,
+                                                        dtype):
+    """Indices C and -1 give weight 0 in the kernel, as in the plain version
+    and the Pallas kernel."""
+    g = torch.Generator(device=card).manual_seed(7)
+    M, K, N, C = 8, 256, 128, 4
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    idx = torch.randint(0, C, (K, N), generator=g, device=card)
+    idx[::3, 0] = C
+    idx[1::3, 0] = -1
+    idx[::5, 7] = C + 1
+    idx = idx.to(getattr(torch, idx_dtype))
+    cb = torch.randn((K, C), generator=g, device=card)
+    got = CM.clustered_matmul(x, idx, cb)
+    ref = CM.clustered_matmul_ref(x, idx, cb)
+    keep = (idx >= 0) & (idx < C)
+    dense = torch.gather(cb, 1, idx.long().clamp(0, C - 1)) * keep
+    assert torch.equal(ref, (x.float() @ dense).to(x.dtype))
+    tol = CM.clustered_matmul_tolerance(x, idx, cb, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_len", [512, 333])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_head_dim_192(card, T_len, dtype):
+    """nemotron-4-340b's head_dim 192 at its head counts (96 q, 8 KV),
+    causal, T = 512 and a ragged 333: bf16 through the wgmma body (3 TMA
+    boxes of 64 a row), float32 through the CUDA-core body."""
+    g = torch.Generator(device=card).manual_seed(T_len)
+    dt = DTYPES[dtype]
+    q = torch.randn((1, T_len, 96, 192), generator=g, device=card).to(dt)
+    k = torch.randn((1, T_len, 8, 192), generator=g, device=card).to(dt)
+    v = torch.randn((1, T_len, 8, 192), generator=g, device=card).to(dt)
+    wgmma = dt == torch.bfloat16
+    assert FA.takes_wgmma(q, k, v) == wgmma
+    reset_launches()
+    got = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["flash_attention"],
+            LAUNCHES["flash_attention_wgmma"]) == (1, int(wgmma))
+    ref = FA.flash_attention_plain(q, k, v)
+    tol = FA.flash_attention_bound(q, k, v, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())

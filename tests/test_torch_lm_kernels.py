@@ -308,3 +308,72 @@ def test_attend_cases_off_the_kernel_stay_plain(k5_spy):
     assert k5_spy == []
     TA.attend(q, k, v, causal=True, window=3, softcap=20.0)
     assert k5_spy[0][2] == {"causal": True, "window": 3, "softcap": 20.0}
+
+
+# ---------------------------------------------------------------------------
+# K2's arithmetic on the card: the scale factored out of the k-sum
+# ---------------------------------------------------------------------------
+
+
+def _factored(x, q, s, split):
+    """K2's CUDA body (``csrc/quant_matmul.cu``) in plain PyTorch: float32
+    sums of x q over ``split`` K-chunks of whole k16 steps, added in chunk
+    order, then y = s (sum), rounded to x's type. bf16 x times an int8
+    weight is exact in float32, as in the tensor cores."""
+    K = x.shape[1]
+    steps = (K + 15) // 16
+    chunk = 16 * ((steps + split - 1) // split)
+    acc = None
+    for k0 in range(0, K, chunk):
+        part = x[:, k0:k0 + chunk].float() @ q[k0:k0 + chunk].float()
+        acc = part if acc is None else acc + part
+    return (s[None, :] * acc).to(x.dtype)
+
+
+# (K, N, K-chunks): qwen3-0.6b's 7 decode shapes and falcon-mamba-7b's
+# in_proj, x_proj, dt_proj and out_proj, with the kernel's chunk counts
+# (the LM head, 4096 x 65024, is left out for the CPU's memory)
+QMM_CARD_SHAPES = [(1024, 2048, 5), (1024, 1024, 5), (2048, 1024, 5),
+                   (1024, 3072, 3), (3072, 1024, 5), (4096, 16384, 2),
+                   (8192, 288, 8), (256, 8192, 1), (8192, 4096, 4)]
+
+
+@pytest.mark.parametrize("K,N,split", QMM_CARD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_tolerance_covers_the_factored_scale(K, N, split,
+                                                          dtype):
+    """y = s (x @ q) in float32, the card's order, against the plain
+    version's x @ (q s): `quant_matmul_tolerance` holds at every decode
+    shape, K up to 8192, with the scale applied once per column."""
+    r = np.random.default_rng(K + N)
+    x = torch.from_numpy(r.normal(size=(8, K)).astype(np.float32))
+    if dtype == "bfloat16":
+        x = x.to(torch.bfloat16)
+    q = torch.from_numpy(r.integers(-127, 128, (K, N)).astype(np.int8))
+    s = torch.from_numpy(((r.random(N) + 0.1) * 0.01).astype(np.float32))
+    ref = TQM.quant_matmul_ref(x, q, s)
+    tol = TQM.quant_matmul_tolerance(x, q, s, ref)
+    for chunks in (1, split):
+        got = _factored(x, q, s, chunks)
+        diff = (got.float() - ref.float()).abs()
+        assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+def test_flash_attention_takes_every_served_head_dim():
+    """Fault F3 (repaired): every architecture whose layers the port serves
+    with attention has its head_dim among the kernel's (nemotron-4-340b's
+    192 among them), so no served prefill raises on the card."""
+    from repro_torch.kernels.flash_attention import ops as TFAO
+    served = {}
+    for name, cfg in ARCHS.items():
+        try:
+            for spec in cfg.layer_specs():
+                TT._unsupported(cfg, spec)
+        except NotImplementedError:
+            continue
+        if any(spec.mixer in ("attn", "local") for spec in cfg.layer_specs()):
+            served[name] = cfg.resolved_head_dim
+    assert served["nemotron-4-340b"] == 192 and "qwen3-0.6b" in served
+    for name, hd in served.items():
+        assert hd in TFAO.HEAD_DIMS, (name, hd)
+        assert hd in TFAO.WGMMA_HEAD_DIMS, (name, hd)

@@ -12,14 +12,19 @@ Phases, each fatal on failure, each with its seconds printed:
 3. K1 (netlist_sim) against its plain PyTorch version and the numpy oracle
    on the card, bit for bit (a real mixed-size WhiteWine population
    compiled by the port, a many-level population, an int64-lane
-   population, batches that are not a block multiple);
+   population, batches that are not a tile multiple, all through the
+   shared-memory body, and a population past 227 KB through the
+   global-scratch body); each case checks the body it took;
 4. the paper's main path through its user entry point: the hardware-aware
    search on WhiteWine (11-10-7, population 8, 3 generations, 60 epochs) on
-   CUDA, with every kernel's launch count read just after it; then the
-   chosen point compiled and checked (netlist-exact accuracy == integer
-   forward, structural == analytic cost);
-5. K1's time on the card (CUDA events) and its plain version's at the main
-   path's shapes, beside the least time the card could take, and the
+   CUDA, with every kernel's launch count read just after it (every K1
+   launch through the shared-memory body); then the chosen point compiled
+   and checked (netlist-exact accuracy == integer forward, structural ==
+   analytic cost);
+5. K1's time on the card at the main path's shapes (device time from a
+   CUDA graph, an eager loop beside it) and its plain version's, beside the
+   least time the card could take; the global-scratch body's and the plain
+   version's on phase 3's population past a block's shared memory; the
    device's busy share during the largest population finetune;
 6. K2 (quant_matmul) against its plain version on the card: qwen3-0.6b's 7
    weight shapes at M = 1, 8 (the decode batch) and 16 and a ragged shape,
@@ -50,8 +55,9 @@ Phases, each fatal on failure, each with its seconds printed:
    yardstick only), and their bounds; K5 and SDPA also as device times
    from CUDA graphs;
 12. K6 (ssm_scan) against its plain version on the card: falcon-mamba-7b's
-   prefill shape, a ragged T, a ragged d, a state of 4, bf16 and float32,
-   within the bound stated beside the plain version;
+   prefill shape, a ragged T, a ragged d, a state of 4, states of 1, 3 and
+   5 at T = 1, 63 and 65, bf16 and float32, within the bound stated beside
+   the plain version;
 13. K2 at falcon-mamba-7b's decode shapes (in_proj, x_proj, dt_proj on its
    float32 input, out_proj, the untied LM head) at M = 1, 8 and 16 against
    its plain version, each case's body checked;
@@ -67,9 +73,12 @@ Phases, each fatal on failure, each with its seconds printed:
 16. falcon-mamba-7b dense ``ServeEngine`` (batch 4) answering 6 requests of
    16 prompt and 16 new tokens over the recurrent caches; tokens/s and the
    busy share;
-17. K6's and K2's times at falcon-mamba-7b's shapes, their plain versions'
-   and their bounds; K2's and cuBLAS's per shape and for a decode step as
-   device times from CUDA graphs, the eager loops' beside them;
+17. K6's and K2's times at falcon-mamba-7b's shapes, their plain
+   versions' and their bounds, K6's the largest of its bytes, its float32
+   operations and its exp floor (its exps at the special-function units'
+   rate and the card's highest SM clock), each printed; K2's and
+   cuBLAS's per shape and for a decode step as device times from CUDA
+   graphs, the eager loops' beside them;
 18. K3 (clustered_matmul) against its plain version on the card: qwen3-0.6b's
    7 decode shapes at C = 16 with int8 indices, a ragged shape, int32
    indices (C = 16 and 300), M = 4096, bf16 and float32; indices C, C + 1
@@ -119,6 +128,19 @@ SCALAR_OPS_PER_S = 67e12
 BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor-core rate
 TF32_TENSOR_FLOPS = 495e12     # dense TF32 rate: the most a float32 product
                                # could reach, so a lower bound on its time
+# exp2 results a clock on one SM at compute capability 9.0 (CUDA C++
+# Programming Guide, throughput of native arithmetic instructions)
+EXP2_PER_CLOCK_PER_SM = 16
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def fail(msg: str) -> None:
@@ -761,13 +783,17 @@ def mamba_serving(card: str, dev):
             "ragged_d_1000": (2, 256, 1000, N),
             "state_4": (2, 256, 2048, 4),
         }
+        # states the lanes split unevenly, short and ragged chunks, a d no
+        # multiple of the block's channels (odd: one element a copy)
+        cases.update({f"state_{n}_t{t}": (2, t, 1000 + 16 * n + t, n)
+                      for n in (1, 3, 5) for t in (1, 63, 65)})
         for name, (B, Tq, dd, n) in cases.items():
             for dname, dt in dtypes.items():
                 args = ssm_inputs(gen, B, Tq, dd, n, dt, dev)
-                got = SS.ssm_scan(*args)
-                torch.cuda.synchronize()
                 ref = SS.ssm_scan_ref(*args)
                 tol = SS.ssm_scan_tolerance(*args, ref)
+                got = SS.ssm_scan(*args)
+                torch.cuda.synchronize()
                 diff = (got.float() - ref.float()).abs()
                 err = float(diff.max())
                 ssm_err = max(ssm_err, err)
@@ -775,10 +801,11 @@ def mamba_serving(card: str, dev):
                 print(f"[12] ssm_scan {name} B={B} T={Tq} d={dd} N={n} "
                       f"{dname}: max abs err {err:.3e}, tolerance at that "
                       f"element {float(tol.flatten()[diff.argmax()]):.3e}, "
-                      f"smallest tolerance {float(tol.min()):.3e}, "
+                      f"largest share of the tolerance "
+                      f"{float((diff / tol.clamp_min(1e-30)).max()):.3f}, "
                       f"within={ok}")
                 check(ok, f"ssm_scan disagrees on {name} {dname}")
-                del args, got, ref, tol, diff
+                del args, ref, tol, got, diff
 
     # -- 13. K2 at this model's shapes -----------------------------------
     qmm_err = 0.0
@@ -995,23 +1022,35 @@ def mamba_serving(card: str, dev):
         B, Tq = 4, 1024
         sets = [ssm_inputs(gen, B, Tq, di, N, torch.bfloat16, dev)
                 for _ in range(3)]              # 3 x 269 MB, past the L2
-        ssm_ms = _rotating_ms(SS.ssm_scan, sets, reps=30)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        ssm_ms = _rotating_ms(SS.ssm_scan, sets, reps=60)
         ssm_plain_ms = _rotating_ms(SS.ssm_scan_ref, sets, reps=3)
         ssm_bytes = sum(a.numel() * a.element_size() for a in sets[0]) \
             + B * Tq * di * 2                    # + y, bf16
         # N state updates of 5 operations (dt A, da h, dt u, its product
         # with B, the add) and N multiply-adds into y per (b, t, c), plus
-        # D u; the N exps run on the special-function units, whose rate is
-        # not in the data sheet, and are not counted
+        # D u, on the CUDA cores
         ssm_ops = B * Tq * di * (7 * N + 2)
         ssm_bytes_ms = ssm_bytes / HBM_BYTES_PER_S * 1e3
         ssm_ops_ms = ssm_ops / SCALAR_OPS_PER_S * 1e3
-        ssm_bound = max(ssm_bytes_ms, ssm_ops_ms)
+        # and N exps per (b, t, c) on the special-function units: 16 exp2
+        # results a clock per SM at compute capability 9.0 (CUDA C++
+        # Programming Guide, throughput of native arithmetic instructions),
+        # at the card's highest SM clock; operations too, at their own rate
+        clock_hz = max_sm_clock_hz()
+        ssm_exps = B * Tq * di * N
+        exp_floor_ms = ssm_exps / (EXP2_PER_CLOCK_PER_SM * sms * clock_hz) \
+            * 1e3
+        ssm_bound = max(ssm_bytes_ms, ssm_ops_ms, exp_floor_ms)
+        ssm_bound_by = "bytes" if ssm_bound == ssm_bytes_ms else "operations"
         print(f"[17] {card}: ssm_scan B={B} T={Tq} d={di} N={N} bf16: "
               f"kernel {ssm_ms:.4f} ms, plain {ssm_plain_ms:.4f} ms, bound "
-              f"{ssm_bound:.5f} ms ({ssm_bytes} bytes: "
-              f"{ssm_bytes_ms:.5f} ms; {ssm_ops} operations: "
-              f"{ssm_ops_ms:.5f} ms); {ssm_ms / ssm_bound:.1f}x the bound")
+              f"{ssm_bound:.5f} ms, the largest of: {ssm_bytes} bytes "
+              f"{ssm_bytes_ms:.5f} ms; {ssm_ops} float32 operations "
+              f"{ssm_ops_ms:.5f} ms; exp floor {exp_floor_ms:.5f} ms "
+              f"({ssm_exps} exps at {EXP2_PER_CLOCK_PER_SM} a clock on {sms} "
+              f"SMs at {clock_hz / 1e9:.3f} GHz); {ssm_ms / ssm_bound:.2f}x "
+              f"the bound, {ssm_ms / ssm_bytes_ms:.2f}x the bytes alone")
         del sets
 
         # device times from CUDA graphs (`_graph_ms`: at a few us a product
@@ -1063,15 +1102,16 @@ def mamba_serving(card: str, dev):
     ssm_entry = {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
-        "body": "CUDA cores: one thread per (batch, channel) walking T",
+        "body": "CUDA cores: a channel's state split over 4 lanes with a "
+                "shuffle tree for y, time in chunks of 32 steps through a "
+                "cp.async ring, ex2.approx.ftz",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:51",
         "launches": k6_launches, "max_abs_err": ssm_err,
         "tolerance": "ssm_scan_tolerance (16 eps32 sum|C| E + 2 (N+2) "
                      "eps32 (sum|C h| + |D u|) + 2^-7 |y| for bf16)",
         "shapes": f"prefill B={B} T={Tq} d={di} N={N} bf16 u, float32 dt",
         "ms": ssm_ms, "plain_ms": ssm_plain_ms, "bound_ms": ssm_bound,
-        "bound_by": "bytes" if ssm_bytes_ms >= ssm_ops_ms else "operations",
-        "library_ms": None}
+        "bound_by": ssm_bound_by, "library_ms": None}
     qmm = {"launches": k2_launches, "max_abs_err": qmm_err,
            "falcon_mamba_step_ms": k2["ms"],
            "falcon_mamba_step_plain_ms": k2["plain_ms"],
@@ -1641,19 +1681,32 @@ def main() -> None:
                 MZ, (11, 10, 7), 8, seed=4, clusters=4))]
         ragged = [circuit.compile_netlist(synth_compiled(
             MZ, (11, 6, 7), 5, seed=5, sparsity=0.3))]
+        # 15100 int64 slots: over 227 KB at one sample a block
+        past_smem = [circuit.compile_netlist(synth_compiled(
+            MZ, (16, 40, 40, 10), 8, seed=9))]
         rng = np.random.default_rng(0)
-        cases = {
-            "real_mixed_whitewine": ([n for n, _ in real], xq_real),
-            "many_levels": (deep, rng.integers(0, 256, (1000, 11))),
-            "int64_lanes": (wide, rng.integers(0, 256, (513, 11))),
-            "ragged_batch_197": (ragged, rng.integers(0, 256, (197, 11))),
-            "ragged_batch_1": (ragged, rng.integers(0, 256, (1, 11))),
+        cases = {  # name: (netlists, x, the body the shape takes)
+            "real_mixed_whitewine": ([n for n, _ in real], xq_real, "smem"),
+            "many_levels": (deep, rng.integers(0, 256, (1000, 11)), "smem"),
+            "int64_lanes": (wide, rng.integers(0, 256, (513, 11)), "smem"),
+            "ragged_batch_197": (ragged, rng.integers(0, 256, (197, 11)),
+                                 "smem"),
+            "ragged_batch_1": (ragged, rng.integers(0, 256, (1, 11)), "smem"),
+            "past_smem": (past_smem, rng.integers(0, 256, (300, 16)),
+                          "global"),
         }
         max_err = 0
-        for name, (nets, x) in cases.items():
+        limits = NSO.device_limits(dev)
+        for name, (nets, x, body) in cases.items():
             pop = NS.pack_population(nets)
+            lane = 4 if NSO.lane_dtype(pop) == torch.int32 else 8
+            tile = NSO.smem_tile(pop.n_candidates, pop.n_slots, x.shape[-2],
+                                 lane, *limits)
+            reset_launches()
             got = NS.simulate_population(pop, x, engine="cuda", device=dev)
             torch.cuda.synchronize()
+            took = "smem" if LAUNCHES["netlist_sim_smem"] else "global"
+            check(LAUNCHES["netlist_sim"] == 1, f"{name}: not one launch")
             plain = NS.simulate_population(pop, x, engine="levels", device=dev)
             oracle = NS.simulate_population_ref(pop, x)
             err = int(np.abs(got["amx"] - plain["amx"]).max())
@@ -1664,12 +1717,15 @@ def main() -> None:
                      and np.array_equal(got["argmax"], oracle["argmax"]))
             print(f"[3] netlist_sim {name}: P={pop.n_candidates} "
                   f"N={pop.n_slots} levels={int(pop.n_levels.max())} "
-                  f"B={x.shape[-2]} lanes={NSO.lane_dtype(pop)} "
-                  f"bit_exact={exact}")
+                  f"B={x.shape[-2]} lanes={NSO.lane_dtype(pop)} body={took} "
+                  f"tile={tile} bit_exact={exact}")
             check(exact, f"netlist_sim kernel disagrees on {name}")
+            check(took == body, f"netlist_sim {name} took the {took} body, "
+                  f"not the {body} body")
         check(NSO.lane_dtype(NS.pack_population(wide)) == torch.int64,
               "int64 case did not take int64 lanes")
         check(len(xq_real[0]) % NSO.BLOCK != 0, "whitewine batch is a multiple")
+        check(len(xq_real[0]) % 16 != 0, "whitewine batch is a tile multiple")
 
     # -- 4. the main path: the paper's search on whitewine, on cuda ------
     with Phase(4, "whitewine search"):
@@ -1735,6 +1791,9 @@ def main() -> None:
         check(launches["netlist_sim"] >= generations,
               f"netlist_sim launched {launches['netlist_sim']} times in "
               f"{generations} generations")
+        check(launches["netlist_sim_smem"] == launches["netlist_sim"],
+              f"{launches['netlist_sim'] - launches['netlist_sim_smem']} "
+              f"netlist_sim launches of the search took the global body")
         check(len(res["pareto_front"]) > 0, "empty Pareto front")
         check(np.isfinite(res["combined_gain_at_5pct"]), "gain not finite")
         for acc, area, delay, _ in res["pareto_front"]:
@@ -1758,9 +1817,30 @@ def main() -> None:
         pop, x = seen["pop"], seen["x"]
         P, B = x.shape[0], x.shape[1]
         staged = NSO.StagedLaunch(pop, x)
-        ms = event_ms(staged.launch, reps=50)
+        check(staged.tile is not None, "the search's largest launch does "
+              "not take the shared-memory body")
+        # the global-scratch body where its shape takes it: phase 3's
+        # population past the shared memory of a block
+        big_pop = NS.pack_population(past_smem)
+        big_x = torch.as_tensor(np.broadcast_to(
+            cases["past_smem"][1], (big_pop.n_candidates,)
+            + cases["past_smem"][1].shape).copy(), device=dev)
+        staged_global = NSO.StagedLaunch(big_pop, big_x)
+        check(staged_global.tile is None, "the population past the shared "
+              "memory of a block does not take the global body")
+        # device times from CUDA graphs of 50 launches (an eager loop reads
+        # the host's cost of each call once the kernel is shorter), the
+        # eager loops' beside them
+        ms = _graph_ms(staged.launch, [()], reps=50)
+        global_ms = _graph_ms(staged_global.launch, [()], reps=50)
+        eager_ms = event_ms(staged.launch, reps=50)
+        global_eager_ms = event_ms(staged_global.launch, reps=50)
         plain_ms = event_ms(lambda: NSO.simulate_levels(pop, x), reps=5,
                             warmup=1)
+        global_plain_ms = event_ms(
+            lambda: NSO.simulate_levels(big_pop, big_x), reps=3, warmup=1)
+        big_shape = (f"P={big_pop.n_candidates} N={big_pop.n_slots} "
+                     f"B={big_x.shape[1]} {NSO.lane_dtype(big_pop)}")
         lane = 4 if NSO.lane_dtype(pop) == torch.int32 else 8
         n = pop.n_nodes.astype(np.int64)
         valid = np.arange(pop.n_slots)[None, :] < n[:, None]
@@ -1768,15 +1848,24 @@ def main() -> None:
             (pop.op != int(circuit.Op.ARGMAX))
         ops = int(comp.sum()) * B
         nbytes = (pop.op.size * 4 * 4 + pop.op.size * lane + P * 4
+                  + pop.level_ptr.size * 4 + P * 4
                   + pop.input_pos.size * 4 + pop.argmax_pos.size * 4
                   + x.numel() * lane + P * B * pop.n_classes * lane + P * B * 8)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / SCALAR_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         print(f"[5] {card}: netlist_sim at P={P} N={pop.n_slots} B={B} "
-              f"lanes={NSO.lane_dtype(pop)}: kernel {ms:.4f} ms, plain levels "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} bytes, "
-              f"{ops} integer ops)")
+              f"levels={int(pop.n_levels.max())} "
+              f"lanes={NSO.lane_dtype(pop)}: kernel (shared-memory body, "
+              f"tile {staged.tile}) {ms:.4f} ms on the device (eager "
+              f"{eager_ms:.4f}), plain levels {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({nbytes} bytes, {ops} integer ops); "
+              f"{ms / bound_ms:.0f}x the bound")
+        print(f"[5] {card}: netlist_sim global-scratch body at {big_shape} "
+              f"(phase 3's population past a block's shared memory): "
+              f"{global_ms:.4f} ms on the device (eager "
+              f"{global_eager_ms:.4f}), plain levels {global_plain_ms:.4f} "
+              f"ms")
         print(f"[5] {card}: pretrain {pretrain_s:.3f} s; per-generation "
               f"finetune " + ", ".join(f"P={p}: {s:.3f} s"
                                        for p, s in finetune_s))
@@ -1791,11 +1880,21 @@ def main() -> None:
     netlist_entry = {
         "name": "netlist_sim", "route": "cuda",
         "source": "src/repro_torch/csrc/netlist_sim.cu",
-        "body": "CUDA cores: one thread per (candidate, sample)",
+        "body": "CUDA cores: level-parallel walk of a (candidate, tile of "
+                "samples) block in shared memory, one barrier a level; "
+                "populations past 227 KB: one thread per (candidate, "
+                "sample) through device memory",
         "replaces": "src/repro/kernels/netlist_sim/kernel.py:80",
-        "launches": launches["netlist_sim"], "max_abs_err": max_err,
-        "tolerance": 0, "bit_exact": max_err == 0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "launches": launches["netlist_sim"],
+        "launches_smem_body": launches["netlist_sim_smem"],
+        "max_abs_err": max_err, "tolerance": 0, "bit_exact": max_err == 0,
+        "shapes": f"P={P} N={pop.n_slots} B={B} {NSO.lane_dtype(pop)}, "
+                  f"tile {staged.tile}",
+        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+        "global_body": {"shapes": big_shape, "ms": global_ms,
+                        "eager_ms": global_eager_ms,
+                        "plain_ms": global_plain_ms},
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None}
 

@@ -13,32 +13,61 @@
 // Where it runs: every layer of the prefill forward (64 launches a call for
 // falcon-mamba-7b), at B 4, T 1024, d 8192, N 16.
 //
-// What bounds it on this card: bytes. Each (b, t, c) reads u (2 bytes) and
-// dt (4 bytes) and writes y (2 bytes) once: about 269 MB at the prefill
-// shape, 0.080 ms at 3.35 TB/s. The arithmetic (7 N + 2 operations per
-// (b, t, c): N state updates of 5 and N multiply-adds into y) is 0.057 ms
-// at the float32 rate, besides N exps on the special-function units, whose
-// rate the card's data sheet does not give.
+// What bounds it on this card: not the bytes. Each (b, t, c) reads u (2
+// bytes) and dt (4 bytes) and writes y (2 bytes) once: about 269 MB at the
+// prefill shape, 0.080 ms at 3.35 TB/s. It also takes N exps, B*T*d*N =
+// 537 M at that shape, on the special-function units: 16 results a clock on
+// each SM for exp2 at compute capability 9.0 (CUDA C++ Programming Guide,
+// throughput of native arithmetic instructions), 0.128 ms on 132 SMs at
+// 1.98 GHz, the floor. Around each exp the scan issues four float32
+// operations (dt A, the product with B, the state's fma, the fma into y),
+// and a lane-step adds its loads and its share of the reduction, so the
+// instruction stream of the scan, at 64 registers a thread (four blocks of
+// 256 an SM), sets the time: the staging alone runs near the bytes bound.
 //
 // Design:
 //  * The TPU kernel keeps a (bd, N) state in VMEM across a sequential time
 //    grid. Blocks here run in no order, so nothing carries between them:
-//    one thread owns one (batch, channel), holds its N state values and its
-//    row of A in registers, and walks all of T in a loop inside the kernel.
-//  * Neighbouring threads take neighbouring channels, so the loads of u and
-//    dt and the store of y are coalesced, one element a thread per step.
-//  * B_t and C_t are shared by every channel of a batch row: a chunk of
-//    kTC time steps of both is staged in shared memory as float32 and read
-//    as broadcasts.
-//  * Ragged edges are masked in the kernel (channels beyond d idle, the
-//    last chunk is short, state slots beyond N hold A = B = C = 0 and stay
-//    0), so the wrapper pads and copies nothing.
-//  * exp is the accurate expf (no fast math), as the plain version's exp.
-//  * Parallelism is B * d threads: 32768 at the prefill shape, 256 blocks
-//    of 128, two a SM, so the loop is bound by latency more than by the
-//    HBM rate. A later version would split N across lanes of a warp with a
-//    shuffle reduction for y, or chunk T with a second pass that carries
-//    the state between chunks, to put more threads in flight.
+//    a block owns a batch row and a run of channels and walks all of T in a
+//    loop inside the kernel.
+//  * The state of a channel is split over a group of kG = 4 neighbouring
+//    lanes: each lane holds N/4 state values and its slice of A in
+//    registers, so a channel has 4 lanes in flight where it had one. At
+//    the prefill shape 4 lanes ran faster than 8, which issue over twice
+//    the reduction's shuffles an element (7 to 3).
+//  * y is reduced kG steps at a time: the group's 4 x 4 partial sums go
+//    through two rounds of __shfl_xor_sync (recursive halving), after
+//    which lane j holds step j's sum and writes it. Every add is one of the
+//    fixed xor tree's, y_t = (p_0 + p_1) + (p_2 + p_3) over the lanes'
+//    partial sums, so the result does not depend on the schedule.
+//  * Time is cut into chunks of kTC steps. u and dt of a chunk x the
+//    block's channels are staged in shared memory through a ring of
+//    kStages buffers filled by 16-byte cp.async copies: the next chunk's
+//    copies are in flight while this one is scanned, and a step reads only
+//    shared memory. B_t and C_t of the chunk (shared by every channel of a
+//    batch row) are loaded into registers one chunk ahead and stored there
+//    as float32, read by each lane as one vector of its N/G values.
+//  * y_t overwrites u_t in the staged chunk once the group has read it, and
+//    the whole chunk of y is written from shared memory in 16-byte stores.
+//  * Choice of sizes: kTC = 32 steps and kStages = 2 give 32 KB (bf16) to
+//    40 KB (float32) of static shared memory a block of 256 threads, so the
+//    four blocks an SM that the registers allow fit, and the grid at the
+//    prefill shape (512 blocks) is resident at once; a chunk's scan
+//    outlasts a memory latency many times, so two stages suffice.
+//  * exp is 2^(dt (A log2 e)) by ex2.approx.ftz.f32, with A log2 e taken
+//    once a lane: within 2 ulp (the programming guide's exp2f, and its
+//    __expf, which is this instruction on x log2 e), subnormal results
+//    flushed to 0. ssm_scan_tolerance's derivation counts the extra
+//    roundings and the flush; its bound is unchanged.
+//  * The order of every rounding is written out (__fmul_rn, fmaf,
+//    __fadd_rn) so that no contraction choice of the compiler changes it,
+//    and a CPU emulation (tests/test_torch_ssm.py) repeats it.
+//  * Ragged edges are masked in the kernel (channels beyond d compute on
+//    zeros and store nothing, the last chunk is short, state slots beyond N
+//    hold A = B = C = 0 and stay 0), so the wrapper pads and copies
+//    nothing. Where d or a pointer is not 16-byte aligned the staging and
+//    the y stores fall back to one element a copy (chosen by shape, the
+//    same arithmetic).
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -46,9 +75,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // channels per block
-constexpr int kTC = 64;        // time steps of B_ and C_ staged at a time
-constexpr int kMaxN = 16;      // state size held in registers
+constexpr int kThreads = 256;  // threads a block: kThreads / kG channels
+constexpr int kG = 4;          // lanes a channel
+constexpr int kTC = 32;        // time steps a chunk
+constexpr int kStages = 2;     // ring depth
+constexpr int kMaxN = 16;      // state values a channel
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -63,60 +95,208 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// 2^x on the special-function unit; subnormal results flush to 0
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// a lane's 4 consecutive float32 values of a state row
+__device__ __forceinline__ void load_state_row(float* v, const float* row) {
+  const float4 r = *reinterpret_cast<const float4*>(row);
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copies rows [t0, t0 + kTC) x channels [c0, c0 + CH) of a (batch, L, d)
+// tensor into dst[kTC][CH], zeros outside [0, L) x [0, d).
+template <typename E, int CH>
+__device__ __forceinline__ void stage_rows(E* dst, const E* __restrict__ src,
+                                           int64_t row0, int t0, int c0,
+                                           int L, int d, bool vec) {
+  if (vec) {   // 16-byte copies: d and the pointer 16-byte aligned
+    constexpr int kEl = 16 / sizeof(E);
+    constexpr int kSeg = CH / kEl;             // copies a row
+    for (int i = threadIdx.x; i < kTC * kSeg; i += kThreads) {
+      const int tt = i / kSeg, c = c0 + (i % kSeg) * kEl;
+      const bool ok = t0 + tt < L && c < d;
+      const E* s = ok ? src + (row0 + t0 + tt) * d + c : src;
+      cp_async16(dst + tt * CH + (i % kSeg) * kEl, s, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kTC * CH; i += kThreads) {
+      const int tt = i / CH, c = c0 + i % CH;
+      dst[i] = (t0 + tt < L && c < d) ? src[(row0 + t0 + tt) * d + c]
+                                      : E(0.f);
+    }
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 ssm_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                 const T* __restrict__ bm, const T* __restrict__ cm,
                 const float* __restrict__ A, const float* __restrict__ D,
-                T* __restrict__ y, int L, int d, int N) {
-  __shared__ float bs[kTC][kMaxN];
-  __shared__ float cs[kTC][kMaxN];
+                T* __restrict__ y, int L, int d, int N, bool vec) {
+  constexpr int G = kG;
+  constexpr int CH = kThreads / G;     // channels a block
+  constexpr int S = kMaxN / G;         // state values a lane
+  constexpr int kBC = kTC * kMaxN / kThreads;   // B_, C_ values a thread
+  static_assert(S == 4, "a lane holds 4 state values");
+  __shared__ __align__(16) unsigned char
+      u_raw[kStages * kTC * CH * sizeof(T)];
+  __shared__ __align__(16) float dts[kStages][kTC][CH];
+  __shared__ __align__(16) float bs[kStages][kTC][kMaxN];
+  __shared__ __align__(16) float cs[kStages][kTC][kMaxN];
+  T* us = reinterpret_cast<T*>(u_raw);   // [kStages][kTC][CH]
 
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const int g = threadIdx.x / G;       // channel of the block
+  const int j = threadIdx.x % G;       // lane of the group
+  const int c0 = blockIdx.x * CH;
+  const int c = c0 + g;
   const bool live = c < d;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * L;
 
-  float a[kMaxN], h[kMaxN];
+  float a2[S], h[S];
 #pragma unroll
-  for (int n = 0; n < kMaxN; ++n) {
-    a[n] = (live && n < N) ? A[static_cast<int64_t>(c) * N + n] : 0.f;
-    h[n] = 0.f;
+  for (int k = 0; k < S; ++k) {
+    const int n = j * S + k;
+    a2[k] = (live && n < N)
+                ? __fmul_rn(A[static_cast<int64_t>(c) * N + n], kLog2e)
+                : 0.f;
+    h[k] = 0.f;
   }
   const float dd = live ? D[c] : 0.f;
-  const int64_t row0 = static_cast<int64_t>(b) * L;  // first time row
 
-  for (int t0 = 0; t0 < L; t0 += kTC) {
-    const int tc = min(kTC, L - t0);
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = threadIdx.x; i < kTC * kMaxN; i += kThreads) {
-      const int tt = i / kMaxN, n = i % kMaxN;
-      float bv = 0.f, cv = 0.f;
-      if (tt < tc && n < N) {
-        const int64_t off = (row0 + t0 + tt) * N + n;
-        bv = to_f32(bm[off]);
-        cv = to_f32(cm[off]);
-      }
-      bs[tt][n] = bv;
-      cs[tt][n] = cv;
-    }
-    __syncthreads();
-    if (live) {
-#pragma unroll 4
-      for (int tt = 0; tt < tc; ++tt) {
-        const int64_t off = (row0 + t0 + tt) * d + c;
-        const float ut = to_f32(u[off]);
-        const float dtt = dt[off];
-        const float dtu = dtt * ut;
-        float acc = 0.f;
+  float pb[kBC], pc[kBC];              // the next chunk's B_, C_
+  auto load_bc = [&](int t0) {
 #pragma unroll
-        for (int n = 0; n < kMaxN; ++n) {
-          h[n] = expf(dtt * a[n]) * h[n] + dtu * bs[tt][n];
-          acc += h[n] * cs[tt][n];
+    for (int i = 0; i < kBC; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int tt = idx / kMaxN, n = idx % kMaxN;
+      const bool ok = t0 + tt < L && n < N;
+      const int64_t off = (row0 + t0 + tt) * N + n;
+      pb[i] = ok ? to_f32(bm[off]) : 0.f;
+      pc[i] = ok ? to_f32(cm[off]) : 0.f;
+    }
+  };
+  auto store_bc = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < kBC; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      bs[st][idx / kMaxN][idx % kMaxN] = pb[i];
+      cs[st][idx / kMaxN][idx % kMaxN] = pc[i];
+    }
+  };
+  auto stage = [&](int t0, int st) {
+    stage_rows<T, CH>(us + st * kTC * CH, u, row0, t0, c0, L, d, vec);
+    stage_rows<float, CH>(&dts[st][0][0], dt, row0, t0, c0, L, d, vec);
+    cp_async_commit();
+  };
+
+  const int chunks = (L + kTC - 1) / kTC;
+  stage(0, 0);
+  load_bc(0);
+  store_bc(0);
+  for (int k = 0; k < chunks; ++k) {
+    const int st = k % kStages, t0 = k * kTC;
+    cp_async_wait_all();
+    __syncthreads();   // chunk k visible; the other stage's y is stored
+    const bool more = k + 1 < chunks;
+    if (more) {
+      stage(t0 + kTC, (k + 1) % kStages);
+      load_bc(t0 + kTC);
+    }
+    T* ur = us + st * kTC * CH;
+    const int tc = min(kTC, L - t0);
+    // one time step: the lane's S state values, and its partial sum of y
+    const T* up = ur + g;
+    const float* dp = &dts[st][0][g];
+    const float* bp = &bs[st][0][j * S];
+    const float* cp = &cs[st][0][j * S];
+    auto step = [=, &h](int tt) -> float {
+      const float ut = to_f32(up[tt * CH]);
+      const float dtt = dp[tt * CH];
+      float bv[S], cv[S];
+      load_state_row(bv, bp + tt * kMaxN);
+      load_state_row(cv, cp + tt * kMaxN);
+      const float dtu = __fmul_rn(dtt, ut);
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < S; ++q) {
+        const float e = ex2_ftz(__fmul_rn(dtt, a2[q]));
+        h[q] = fmaf(e, h[q], __fmul_rn(dtu, bv[q]));
+        acc = fmaf(h[q], cv[q], acc);
+      }
+      return acc;
+    };
+    // G steps at a time: the group's G x G partial sums are reduced by
+    // recursive halving, so that lane j ends with step tt0 + j's sum:
+    // in the round of offset o a lane keeps the half of its sums whose
+    // step has bit o equal to its own, sends the other half to lane j ^ o
+    // and adds what it receives. Each add is the xor tree's, so y_t =
+    // (p_0 + p_1) + (p_2 + p_3) over the lanes' partial sums p.
+    for (int tt0 = 0; tt0 < tc; tt0 += G) {
+      float p[G];
+      if (tt0 + G <= tc) {
+#pragma unroll
+        for (int q = 0; q < G; ++q) p[q] = step(tt0 + q);
+      } else {   // the chunk's ragged end: steps past it change nothing
+#pragma unroll
+        for (int q = 0; q < G; ++q) p[q] = tt0 + q < tc ? step(tt0 + q) : 0.f;
+      }
+#pragma unroll
+      for (int o = 1, n = G; o < G; o <<= 1, n >>= 1) {
+        const bool hi = j & o;
+#pragma unroll
+        for (int i = 0; i < n / 2; ++i) {
+          const float keep = hi ? p[2 * i + 1] : p[2 * i];
+          const float send = hi ? p[2 * i] : p[2 * i + 1];
+          p[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
         }
-        y[off] = from_f32<T>(acc + dd * ut);
+      }
+      if (tt0 + j < tc) {
+        T* yt = ur + (tt0 + j) * CH + g;
+        *yt = from_f32<T>(fmaf(dd, to_f32(*yt), p[0]));
+      }
+    }
+    if (more) store_bc((k + 1) % kStages);
+    __syncthreads();   // the chunk's y is in ur
+    if (vec) {
+      constexpr int kEl = 16 / sizeof(T);
+      constexpr int kSeg = CH / kEl;
+      for (int i = threadIdx.x; i < kTC * kSeg; i += kThreads) {
+        const int tt = i / kSeg, cc = c0 + (i % kSeg) * kEl;
+        if (t0 + tt < L && cc < d) {
+          *reinterpret_cast<int4*>(y + (row0 + t0 + tt) * d + cc) =
+              *reinterpret_cast<const int4*>(ur + tt * CH + (i % kSeg) * kEl);
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < kTC * CH; i += kThreads) {
+        const int tt = i / CH, cc = c0 + i % CH;
+        if (t0 + tt < L && cc < d) y[(row0 + t0 + tt) * d + cc] = ur[i];
       }
     }
   }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
@@ -125,12 +305,16 @@ int launch(const void* u, const void* dt, const void* bm, const void* cm,
            int N, void* stream) {
   if (N < 1 || N > kMaxN || batch > 65535) return cudaErrorInvalidValue;
   if (batch <= 0 || L <= 0 || d <= 0) return 0;
-  const dim3 grid((d + kThreads - 1) / kThreads, batch);
-  ssm_scan_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool vec = aligned16(u) && aligned16(dt) && aligned16(y) &&
+                   d % (16 / sizeof(T)) == 0 && d % 4 == 0;
+  constexpr int ch = kThreads / kG;
+  const dim3 grid((d + ch - 1) / ch, batch);
+  ssm_scan_kernel<T><<<grid, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(u), static_cast<const float*>(dt),
       static_cast<const T*>(bm), static_cast<const T*>(cm),
       static_cast<const float*>(A), static_cast<const float*>(D),
-      static_cast<T*>(y), L, d, N);
+      static_cast<T*>(y), L, d, N, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,13 +5,16 @@ nowhere else, so a run can show that its path went through the kernel.
 ``LAUNCHES["flash_attention_wgmma"]`` counts, in addition, the launches of
 K5 that took its wgmma body (bf16 at head_dim 64, 128, 192 or 256);
 ``LAUNCHES["quant_matmul_mma"]`` and ``LAUNCHES["block_sparse_matmul_mma"]``
-those of K2 and K4 that took their tensor-core (``mma.sync``) body (bf16 x).
+those of K2 and K4 that took their tensor-core (``mma.sync``) body (bf16 x);
+``LAUNCHES["netlist_sim_smem"]`` those of K1 that took its shared-memory
+body (every population whose table fits in 227 KB at one sample a block).
 """
 from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "quant_matmul": 0,
+LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
+                             "quant_matmul": 0,
                              "flash_attention": 0,
                              "flash_attention_wgmma": 0, "ssm_scan": 0,
                              "clustered_matmul": 0,

@@ -10,9 +10,12 @@ Three engines over one packing (`pack.py`) and one oracle (`ref.py`):
   l, so lanes inside a wave are independent. Padding lanes carry
   ``op = NOP`` and scatter to a dummy slot.
 * ``"cuda"`` — `netlist_sim`, the wrapper of the hand-written CUDA kernel
-  (``csrc/netlist_sim.cu``): one thread per (candidate, sample) walking its
-  candidate's slots in topological order. On a CUDA tensor it launches the
-  kernel or raises; only for a tensor on the CPU does it run ``levels``.
+  (``csrc/netlist_sim.cu``). It has two bodies, chosen by shape
+  (`smem_tile`): a level-parallel walk with a tile of samples' slot values
+  in shared memory, and, for a population too large for that, one thread
+  per (candidate, sample) walking its slots through device memory. On a
+  CUDA tensor it launches the kernel or raises; only for a tensor on the
+  CPU does it run ``levels``.
 
 Lanes are int32 when the verifier's per-node width bound over the population
 is <= 32, int64 otherwise, in every engine; all are bit-exact against the
@@ -45,14 +48,60 @@ _SUB = int(ir.Op.SUB)
 _NEG = int(ir.Op.NEG)
 _RELU = int(ir.Op.RELU)
 _ARGMAX = int(ir.Op.ARGMAX)
+_TRUNC = int(ir.Op.TRUNC)
 
-# threads per block of the CUDA kernel: small blocks spread one
+# threads per block of the global-scratch body: small blocks spread one
 # generation's few hundred warps over all 132 SMs
 BLOCK = 64
+# the tiles of samples a block of the shared-memory body may take
+TILES = (16, 8, 4, 2, 1)
 
 
 def lane_dtype(pop: PackedPopulation) -> torch.dtype:
     return torch.int32 if pop.max_width <= 32 else torch.int64
+
+
+def smem_bytes(N: int, bt: int, lane_bytes: int) -> int:
+    """Shared memory of one block of the shared-memory body: a 16-byte
+    descriptor and ``bt`` lane values a slot."""
+    return N * (16 + bt * lane_bytes)
+
+
+def smem_tile(P: int, N: int, B: int, lane_bytes: int, sms: int,
+              smem_max: int) -> Optional[int]:
+    """The samples a block of the shared-memory body takes, or None for the
+    global-scratch body, from the population's shape and the card's
+    ``sms`` SMs and ``smem_max`` bytes of shared memory a block
+    (`device_limits`; 132 and 227 KB on the H100).
+
+    The largest tile of `TILES` that fits twice in ``smem_max`` (two
+    blocks an SM) and gives a grid of at least two blocks an SM; where no
+    tile gives that many blocks, the largest that fits twice; else the
+    largest that fits once. None where even one sample's table exceeds
+    ``smem_max``."""
+    fits = [bt for bt in TILES if smem_bytes(N, bt, lane_bytes) <= smem_max]
+    if not fits:
+        return None
+    twice = [bt for bt in fits
+             if 2 * smem_bytes(N, bt, lane_bytes) <= smem_max]
+    full = [bt for bt in twice if P * -(-B // bt) >= 2 * sms]
+    return (full or twice or fits)[0]
+
+
+def device_limits(device: torch.device) -> Tuple[int, int]:
+    """(SMs, the most shared memory a block can take) of a CUDA device, the
+    latter as the kernel's library reads it."""
+    from repro_torch.kernels import build
+    fn = build.load("netlist_sim").netlist_sim_smem_limit
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    smem = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"netlist_sim_smem_limit failed: CUDA error {rc}")
+    return (torch.cuda.get_device_properties(device).multi_processor_count,
+            smem.value)
 
 
 # ---------------------------------------------------------------------------
@@ -189,37 +238,79 @@ def _check_tables(pop: PackedPopulation) -> None:
         a = getattr(pop, name)
         if np.any((a < 0) | (a >= n[:, None])):
             raise ValueError(f"{name} points outside its candidate's slots")
+    check_levels(pop)
+
+
+def check_levels(pop: PackedPopulation) -> None:
+    """The order the shared-memory body's level barriers rely on: each
+    candidate's levels tile its slots [0, n_nodes) in order, and every
+    operand of a computed slot lies in a strictly earlier level."""
+    P, N = pop.op.shape
+    ptr = pop.level_ptr.astype(np.int64)
+    nl = pop.n_levels.astype(np.int64)
+    L = ptr.shape[1] - 1
+    if np.any(nl < 0) or np.any(nl > L) or np.any(ptr[:, 0] != 0) or \
+            np.any(np.diff(ptr, axis=1) < 0) or \
+            np.any(ptr[np.arange(P), nl] != pop.n_nodes):
+        raise ValueError("level_ptr does not tile each candidate's slots")
+    n = pop.n_nodes.astype(np.int64)
+    lvl = np.zeros((P, N), np.int64)
+    for p in range(P):
+        lvl[p, :n[p]] = np.repeat(np.arange(L), np.diff(ptr[p]))
+    real = np.arange(N)[None, :] < n[:, None]
+    rows = np.arange(P)[:, None]
+    two = (pop.op == _ADD) | (pop.op == _SUB)
+    one = two | (pop.op == _SHL) | (pop.op == _NEG) | (pop.op == _RELU) | \
+        (pop.op == _TRUNC)
+    for args, used in ((pop.arg_a, one), (pop.arg_b, two)):
+        late = real & used & (lvl[rows, args] >= lvl)
+        if np.any(late):
+            raise ValueError("an operand does not lie in an earlier level "
+                             "than its slot")
 
 
 class StagedLaunch:
     """One kernel launch with its inputs staged on the card: the op tables,
-    x in the lane type, and the scratch and outputs allocated with
-    ``torch.empty``. `launch` enqueues the kernel on the current stream
-    without synchronising; calling it again recomputes the same outputs."""
+    x in the lane type, and the outputs (and, for the global-scratch body,
+    its scratch) allocated with ``torch.empty``. The body follows from the
+    shape (`smem_tile`; ``tile`` is None for the global body). `launch`
+    enqueues the kernel on the current stream without synchronising;
+    calling it again recomputes the same outputs."""
 
     def __init__(self, pop: PackedPopulation, x: torch.Tensor):
         from repro_torch.kernels import build
         _check_tables(pop)
         dev, dt = x.device, lane_dtype(pop)
         P, N = pop.op.shape
-        self.dims = (P, N, x.shape[1], pop.n_inputs, pop.n_classes)
+        B, C = x.shape[1], pop.n_classes
+        self.tile = smem_tile(P, N, B, torch.iinfo(dt).bits // 8,
+                              *device_limits(dev))
 
         def t(a, dtype=torch.int32):
             return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(
                 dtype).contiguous()
 
-        self.inputs = [t(pop.op), t(pop.arg_a), t(pop.arg_b), t(pop.shift),
-                       t(pop.val, dt), t(pop.n_nodes), t(pop.input_pos),
-                       t(pop.argmax_pos), x.to(dt).contiguous()]
-        B, C = self.dims[2], self.dims[4]
-        self.scratch = torch.empty((P, N, B), dtype=dt, device=dev)
+        tables = [t(pop.op), t(pop.arg_a), t(pop.arg_b), t(pop.shift),
+                  t(pop.val, dt), t(pop.n_nodes)]
         self.amx = torch.empty((P, B, C), dtype=dt, device=dev)
         self.cls = torch.empty((P, B), dtype=torch.int64, device=dev)
         lib = build.load("netlist_sim")
-        self.fn = lib.netlist_sim_i32 if dt == torch.int32 \
-            else lib.netlist_sim_i64
-        self.fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p]
+        suffix = "i32" if dt == torch.int32 else "i64"
+        if self.tile is None:
+            self.scratch = torch.empty((P, N, B), dtype=dt, device=dev)
+            self.inputs = tables + [t(pop.input_pos), t(pop.argmax_pos),
+                                    x.to(dt).contiguous(), self.scratch]
+            self.dims = (P, N, B, pop.n_inputs, C, BLOCK)
+            self.fn = getattr(lib, f"netlist_sim_{suffix}")
+        else:
+            self.inputs = tables + [t(pop.level_ptr), t(pop.n_levels),
+                                    t(pop.input_pos), t(pop.argmax_pos),
+                                    x.to(dt).contiguous()]
+            self.dims = (P, N, pop.level_ptr.shape[1] - 1, B, pop.n_inputs,
+                         C, self.tile.bit_length() - 1)
+            self.fn = getattr(lib, f"netlist_sim_smem_{suffix}")
+        self.fn.argtypes = [ctypes.c_void_p] * (len(self.inputs) + 2) + \
+            [ctypes.c_int] * len(self.dims) + [ctypes.c_void_p]
         self.fn.restype = ctypes.c_int
         self.device = dev
 
@@ -227,12 +318,14 @@ class StagedLaunch:
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
             rc = self.fn(*(a.data_ptr() for a in self.inputs),
-                         self.scratch.data_ptr(), self.amx.data_ptr(),
-                         self.cls.data_ptr(), *self.dims, BLOCK, stream)
+                         self.amx.data_ptr(), self.cls.data_ptr(),
+                         *self.dims, stream)
         if rc != 0:
             raise RuntimeError(f"netlist_sim kernel launch failed: CUDA "
                                f"error {rc}")
         LAUNCHES["netlist_sim"] += 1
+        if self.tile is not None:
+            LAUNCHES["netlist_sim_smem"] += 1
 
 
 def netlist_sim(pop: PackedPopulation, x: torch.Tensor, *,
@@ -241,8 +334,9 @@ def netlist_sim(pop: PackedPopulation, x: torch.Tensor, *,
     -> (amx (P, B, C) int64, cls (P, B) int64) on x's device.
 
     A CUDA tensor launches the kernel (counted in
-    ``repro_torch.kernels.LAUNCHES["netlist_sim"]``) or raises; a CPU tensor
-    takes the plain version `simulate_levels`."""
+    ``repro_torch.kernels.LAUNCHES["netlist_sim"]``, and in
+    ``LAUNCHES["netlist_sim_smem"]`` where it took the shared-memory body)
+    or raises; a CPU tensor takes the plain version `simulate_levels`."""
     if x.dim() != 3 or x.shape[0] != pop.n_candidates \
             or x.shape[2] != pop.n_inputs:
         raise ValueError(f"x shape {tuple(x.shape)} vs population "
@@ -300,5 +394,5 @@ def population_accuracy(pop: PackedPopulation, x: np.ndarray,
 
 
 __all__ = ["simulate_population", "population_accuracy", "netlist_sim",
-           "simulate_levels", "pack_netlist", "pack_population",
-           "simulate_population_ref"]
+           "simulate_levels", "smem_tile", "device_limits", "check_levels",
+           "pack_netlist", "pack_population", "simulate_population_ref"]

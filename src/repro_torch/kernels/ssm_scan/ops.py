@@ -20,7 +20,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-MAX_STATE = 16          # the state values a thread holds in registers
+MAX_STATE = 16          # the state values a channel holds in registers
 _FNS: Dict[str, object] = {}
 
 

@@ -61,7 +61,26 @@ def ssm_scan_tolerance(u, dt, B_, C_, A, D, ref: torch.Tensor
     y_t sums N products and adds D u: 2 (N + 2) eps (sum_n |C h| + |D u|)
     for the two sides' sums, plus sum_n |C_n| 16 eps E_t,n carried from
     the state. A bf16 output adds one rounding on each side, at most 2^-8
-    of the value each (1% slack for the rounding of ``ref`` itself)."""
+    of the value each (1% slack for the rounding of ``ref`` itself).
+
+    The card's kernel takes exp(dt A) as 2^(dt (A log2 e)) by
+    ex2.approx.ftz.f32: log2 e rounded to float32, A log2 e and its
+    product with dt each rounded, so the argument moves by at most
+    1.5 eps |dt A| relative (three roundings of eps/2), which moves exp by
+    at most 1.5 eps |dt A| exp(dt A) <= 1.5 eps / e < 0.6 eps; the
+    instruction is within 2 ulp, at most 2 eps relative (CUDA C++
+    Programming Guide: exp2f, and __expf's 2 + floor(|1.173 x|) ulp, which
+    is this instruction on x log2 e), and a result below 2^-126 flushes to
+    0, an error under 2^-126 |h|, far inside eps |h|. Its step then adds
+    at most (2.6 + 0.5) eps |h_{t-1}| (the exp, then one fma for the
+    product with h and the sum) and 1.5 eps |dt u B| (dt u, its product
+    with B, the sum in that fma): inside the 8 eps (|h_{t-1}| + |dt u B|)
+    counted above, so the bound holds unchanged. Its y sums each of 4
+    lanes' N/4 products by fma and the lanes' partial sums in a fixed tree,
+    which is one order of N + 1 additions among those the 2 (N + 2) eps
+    term covers. A CPU emulation of those roundings, with the exp's error pushed
+    2 ulp either way and the flush, stays inside the bound
+    (tests/test_torch_ssm.py)."""
     eps = torch.finfo(torch.float32).eps
     Bsz, T, d = u.shape
     N = A.shape[1]

@@ -64,15 +64,31 @@ def _net(dims, bits, seed, sparsity=0.0, clusters=None):
     return circuit.compile_netlist(c)
 
 
+# name: (netlists, B, n_in, the body the shape takes): every population
+# whose table fits in 227 KB takes the shared-memory body; "whitewine"
+# is the search's shape (eight 11-10-7 candidates, 1223 test samples,
+# tiles of 16 with a ragged last one), "ragged_batch" a tile of 16 with 3
+# samples in the last, "one_sample" a tile of one live sample; "past_smem"
+# (15100 int64 slots) is over 227 KB at one sample and takes the
+# global-scratch body
 CASES = {
     "mixed": (lambda: [_net(d, 5, i) for i, d in enumerate(
-        [(7, 3, 3), (7, 28, 3), (7, 14, 14, 3)])], 300, 7),
+        [(7, 3, 3), (7, 28, 3), (7, 14, 14, 3)])], 300, 7, "smem"),
     "many_levels": (lambda: [_net((11,) + (10,) * 6 + (7,), 2, s,
-                                  sparsity=0.2) for s in (1, 2)], 129, 11),
+                                  sparsity=0.2) for s in (1, 2)], 129, 11,
+                    "smem"),
     "int64": (lambda: [_net((11, 12, 12, 7), 8, 3),
-                       _net((11, 10, 7), 8, 4, clusters=4)], 77, 11),
-    "ragged_batch": (lambda: [_net((5, 6, 3), 4, 2)], NSO.BLOCK + 3, 5),
-    "one_sample": (lambda: [_net((5, 6, 3), 4, 2)], 1, 5),
+                       _net((11, 10, 7), 8, 4, clusters=4)], 77, 11, "smem"),
+    "ragged_batch": (lambda: [_net((5, 6, 3), 4, 2)], NSO.BLOCK + 3, 5,
+                     "smem"),
+    "one_sample": (lambda: [_net((5, 6, 3), 4, 2)], 1, 5, "smem"),
+    "whitewine": (lambda: [_net((11, 10, 7), b, i, sparsity=sp)
+                           for i, (b, sp) in enumerate(
+                               [(8, 0.0), (6, 0.2), (4, 0.4), (3, 0.1),
+                                (8, 0.5), (5, 0.0), (2, 0.3), (7, 0.6)])],
+                  1223, 11, "smem"),
+    "past_smem": (lambda: [_net((16, 40, 40, 10), 8, 9)], 100, 16,
+                  "global"),
 }
 
 
@@ -81,15 +97,22 @@ CASES = {
 def test_netlist_sim_kernel_matches_plain_and_oracle(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    make, B, n_in = CASES[case]
+    make, B, n_in, body = CASES[case]
     pop = NS.pack_population(make())
-    if case == "int64":
+    if case in ("int64", "past_smem"):
         assert NSO.lane_dtype(pop) == torch.int64
+    lane = 4 if NSO.lane_dtype(pop) == torch.int32 else 8
+    tile = NSO.smem_tile(pop.n_candidates, pop.n_slots, B, lane,
+                         *NSO.device_limits(torch.device("cuda")))
+    assert (tile is not None) == (body == "smem")
+    if case in ("whitewine", "ragged_batch"):
+        assert B % tile != 0                      # a ragged last tile
     x = np.random.default_rng(B).integers(0, 2 ** 4, (B, n_in))
     reset_launches()
     got = NS.simulate_population(pop, x, engine="cuda", device="cuda")
     torch.cuda.synchronize()
     assert LAUNCHES["netlist_sim"] == 1
+    assert LAUNCHES["netlist_sim_smem"] == int(body == "smem")
     plain = NS.simulate_population(pop, x, engine="levels", device="cuda")
     oracle = NS.simulate_population_ref(pop, x)
     for out in (plain, oracle):
@@ -99,26 +122,35 @@ def test_netlist_sim_kernel_matches_plain_and_oracle(case):
 
 @pytest.mark.cuda
 def test_netlist_sim_wrapper_never_falls_back_on_cuda(monkeypatch):
-    """On a CUDA tensor the wrapper launches the kernel or raises; it never
-    runs the plain version instead."""
+    """On a CUDA tensor the wrapper launches one of the kernel's two
+    bodies, as the shape says, or raises; it never runs the plain version
+    instead."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    pop = NS.pack_population([_net((5, 6, 3), 4, 2)])
-    x = torch.zeros((1, 4, 5), dtype=torch.int64, device="cuda")
+    small = NS.pack_population([_net((5, 6, 3), 4, 2)])
+    large = NS.pack_population([_net((16, 40, 40, 10), 8, 9)])
+    xs = torch.zeros((1, 4, 5), dtype=torch.int64, device="cuda")
+    xl = torch.zeros((1, 4, 16), dtype=torch.int64, device="cuda")
 
     def forbidden(*a, **k):
         raise AssertionError("plain version ran on a CUDA tensor")
 
     monkeypatch.setattr(NSO, "simulate_levels", forbidden)
-    amx, cls = NS.netlist_sim(pop, x)
-    assert amx.is_cuda and cls.is_cuda
+    for pop, x, smem in ((small, xs, 1), (large, xl, 0)):
+        reset_launches()
+        amx, cls = NS.netlist_sim(pop, x)
+        torch.cuda.synchronize()
+        assert amx.is_cuda and cls.is_cuda
+        assert (LAUNCHES["netlist_sim"], LAUNCHES["netlist_sim_smem"]) == \
+            (1, smem)
 
     def broken(name):
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr("repro_torch.kernels.build.load", broken)
-    with pytest.raises(RuntimeError, match="nvcc"):
-        NS.netlist_sim(pop, x)
+    for pop, x in ((small, xs), (large, xl)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            NS.netlist_sim(pop, x)
 
 
 # ---------------------------------------------------------------------------
@@ -291,8 +323,11 @@ def ssm_inputs(g, B, T, d, N, dtype, device):
 
 
 # name: (B, T, d, N, dtype): falcon-mamba-7b's prefill shape, a ragged T
-# (not a multiple of the 64 staged steps), a ragged d (not a multiple of the
-# 128-channel block), a smaller state, one step
+# (not a multiple of the 32 staged steps), a ragged d (not a multiple of the
+# block's 64 channels), a smaller state, one step; then every state
+# that the lanes split unevenly (N 1, 3, 5) at T 1, 63 and 65, each at a d
+# that is no multiple of the block's channels (odd ones take the staging of
+# one element a copy), in both types
 SSM_CASES = {
     "prefill_bf16": (4, 1024, 8192, 16, "bfloat16"),
     "prefill_f32": (1, 1024, 8192, 16, "float32"),
@@ -301,6 +336,10 @@ SSM_CASES = {
     "state_4": (3, 130, 256, 4, "float32"),
     "one_step": (2, 1, 300, 16, "bfloat16"),
 }
+SSM_CASES.update({
+    f"state_{N}_t{T}_{dtype}": (2, T, 200 + 40 * N + T, N, dtype)
+    for N in (1, 3, 5) for T in (1, 63, 65)
+    for dtype in ("bfloat16", "float32")})
 
 
 @pytest.mark.cuda

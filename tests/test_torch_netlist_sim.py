@@ -12,6 +12,8 @@ if not hasattr(jax.experimental, "enable_x64"):
     # from jax.experimental (circuit/simulate.py, kernels/netlist_sim/ops.py)
     jax.experimental.enable_x64 = jax.enable_x64
 
+import dataclasses  # noqa: E402
+
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
@@ -21,6 +23,7 @@ from repro.core import minimize as RMZ  # noqa: E402
 from repro.kernels import netlist_sim as RNS  # noqa: E402
 from repro_torch import circuit as TCIRC  # noqa: E402
 from repro_torch.circuit import ir as TIR  # noqa: E402
+from repro_torch.configs.printed_mlp import PRINTED_MLPS  # noqa: E402
 from repro_torch.core import minimize as TMZ  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels import netlist_sim as TNS  # noqa: E402
@@ -162,3 +165,106 @@ def test_kernel_wrapper_validates_inputs():
     with pytest.raises(ValueError, match="unknown engine"):
         TNS.simulate_population(pop, np.zeros((3, 5), np.int64),
                                 engine="pallas", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# what the CUDA kernel's shared-memory body relies on, checked on the CPU
+# ---------------------------------------------------------------------------
+
+# a GA population's spread of specs: (bits, sparsity, clusters)
+SPECS = [(8, 0.0, None), (6, 0.2, None), (4, 0.4, 8), (3, 0.1, None),
+         (2, 0.3, None), (5, 0.6, 4)]
+
+
+@pytest.mark.parametrize("dataset", sorted(PRINTED_MLPS))
+def test_operands_lie_in_strictly_earlier_levels(dataset):
+    """Netlists at each dataset's published topology, packed by both
+    packages into the same tables: every operand of a computed slot lies in
+    a strictly earlier level than the slot, the order that the kernel's
+    per-level barrier relies on, and the wrapper's check agrees."""
+    dims = PRINTED_MLPS[dataset].layer_dims
+    nets = [synth(dims, b, sparsity=sp, clusters=k, seed=i)
+            for i, (b, sp, k) in enumerate(SPECS)]
+    rpop = RNS.pack_population([n[0] for n in nets])
+    tpop = TNS.pack_population([n[1] for n in nets])
+    for f in ("op", "arg_a", "arg_b", "level_ptr", "n_levels", "n_nodes"):
+        np.testing.assert_array_equal(getattr(tpop, f), getattr(rpop, f))
+    one = {int(o) for o in (TIR.Op.SHL, TIR.Op.NEG, TIR.Op.RELU,
+                            TIR.Op.TRUNC, TIR.Op.ADD, TIR.Op.SUB)}
+    two = {int(TIR.Op.ADD), int(TIR.Op.SUB)}
+    checked = 0
+    for p in range(tpop.n_candidates):
+        ptr = tpop.level_ptr[p]
+        level = np.searchsorted(ptr, np.arange(tpop.n_nodes[p]),
+                                side="right") - 1
+        for s in range(tpop.n_nodes[p]):
+            o = int(tpop.op[p, s])
+            if o in one:
+                assert level[tpop.arg_a[p, s]] < level[s]
+                checked += 1
+            if o in two:
+                assert level[tpop.arg_b[p, s]] < level[s]
+    assert checked > 100
+    TNS.ops.check_levels(tpop)
+
+
+def test_check_levels_refuses_an_operand_in_its_own_level():
+    _, tnet, _ = synth((7, 5, 3), 4, seed=3)
+    pop = TNS.pack_population([tnet])
+    TNS.ops.check_levels(pop)
+    ptr = pop.level_ptr[0]
+    adds = (int(TIR.Op.ADD), int(TIR.Op.SUB))
+    lo, s = next((ptr[l], s) for l in range(pop.n_levels[0])
+                 for s in range(ptr[l], ptr[l + 1])
+                 if pop.op[0, s] in adds and ptr[l + 1] - ptr[l] > 1)
+    bad = pop.arg_b.copy()
+    bad[0, s] = lo if s != lo else lo + 1          # a slot of its own level
+    with pytest.raises(ValueError, match="earlier level"):
+        TNS.ops.check_levels(dataclasses.replace(pop, arg_b=bad))
+    ptr = pop.level_ptr.copy()
+    ptr[0, 1] = ptr[0, 2] + 1                        # not monotone
+    with pytest.raises(ValueError, match="tile"):
+        TNS.ops.check_levels(dataclasses.replace(pop, level_ptr=ptr))
+
+
+# the H100's SMs and the most shared memory a block can take (227 KB)
+H100_SMS, H100_SMEM = 132, 232448
+
+
+def test_smem_tile_rule():
+    """The body and tile follow from (P, N, B, lane bytes) and the card's
+    SMs and shared memory alone: the shared-memory body at the search's
+    shapes, with bt = 16 int32 lanes for eight WhiteWine candidates; the
+    global body once one sample's table passes 227 KB."""
+    ops = TNS.ops
+
+    def tile(P, N, B, lane, sms=H100_SMS):
+        return ops.smem_tile(P, N, B, lane, sms, H100_SMEM)
+
+    nets = [synth(PRINTED_MLPS["whitewine"].layer_dims, b, sparsity=sp,
+                  clusters=k, seed=i)[1]
+            for i, (b, sp, k) in enumerate(SPECS + SPECS[:2])]
+    pop = TNS.pack_population(nets)
+    N = pop.n_slots
+    assert ops.lane_dtype(pop) == torch.int32
+    bt = tile(8, N, 1223, 4)
+    assert bt == 16
+    assert 2 * ops.smem_bytes(N, bt, 4) <= H100_SMEM
+    assert 8 * -(-1223 // bt) >= 2 * H100_SMS
+    # a small grid keeps the largest tile that fits twice
+    assert tile(1, N, 1, 4) == 16
+    assert tile(1, 100, 5, 4) == 16
+    # a table too large to fit twice at 16 samples takes a smaller tile
+    big = H100_SMEM // (2 * (16 + 16 * 4)) + 1
+    assert tile(8, big, 1223, 4) == 8
+    # the largest table: one sample of int32 (int64) lanes in 227 KB
+    for lane in (4, 8):
+        edge = H100_SMEM // (16 + lane)
+        assert ops.smem_bytes(edge, 1, lane) <= H100_SMEM
+        assert tile(8, edge, 1223, lane) == 1
+        assert tile(8, edge + 1, 1223, lane) is None
+    # many candidates: the tile shrinks no further than two blocks an SM
+    assert tile(64, N, 1223, 4) == 16
+    assert tile(1, N, 1223, 4) == 4
+    # a card of fewer SMs fills at a larger tile
+    assert tile(1, N, 1223, 4, sms=32) == 16

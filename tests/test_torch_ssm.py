@@ -350,3 +350,97 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     out = launch_serve.main(["--arch", NAME, "--device", "cpu",
                              "--requests", "2", "--max-new-tokens", "3"])
     assert out["device"] == "cpu" and out["tokens"] == 6
+
+
+# ---------------------------------------------------------------------------
+# K6's order of sums, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _fma(a, b, c):
+    """float32 fma: the exact product and sum in float64, rounded once
+    more to float32 (a double rounding, far inside the bound)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _ex2_ftz(x, ulps):
+    """exp2 of float32 x, correctly rounded, then ``ulps`` units in the
+    last place off, and subnormal results flushed to 0: the card's
+    ex2.approx.ftz.f32, within 2 ulp (CUDA C++ Programming Guide: exp2f,
+    and __expf's 2 + floor(|1.173 x|) ulp, which is ex2.approx on
+    x log2 e)."""
+    e = np.exp2(x.double().numpy()).astype(np.float32)
+    e = e + ulps * np.spacing(e)
+    e[e < np.finfo(np.float32).tiny] = 0.0
+    return torch.from_numpy(e)
+
+
+def emulate_k6(u, dt, B_, C_, A, D, ulps):
+    """The card's kernel step by step in float32: A log2 e once a lane,
+    e = ex2.approx.ftz(dt (A log2 e)), h = fma(e, h, (dt u) B), each of a
+    channel's 4 lanes' partial sum of its MAX_STATE / 4 products by fma,
+    the xor-shuffle tree over the lanes (offsets 1, 2), then
+    fma(D, u, acc); slots past N hold A = B = C = 0."""
+    Bsz, T, d = u.shape
+    N, M = A.shape[1], SS.ops.MAX_STATE
+    lanes = 4                    # a channel's lanes (csrc/ssm_scan.cu, kG)
+    S = M // lanes
+    pad = (0, M - N)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    a2 = torch.nn.functional.pad(A, pad) * log2e             # (d, M)
+    bf = torch.nn.functional.pad(B_.float(), pad)            # (B, T, M)
+    cf = torch.nn.functional.pad(C_.float(), pad)
+    h = torch.zeros((Bsz, d, M), dtype=torch.float32)
+    lane = torch.arange(lanes)
+    ys = []
+    for t in range(T):
+        ut, dtt = u[:, t].float(), dt[:, t]
+        dtu = dtt * ut
+        e = _ex2_ftz(dtt[..., None] * a2[None], ulps)
+        h = _fma(e, h, dtu[..., None] * bf[:, t, None, :])
+        prod = h.reshape(Bsz, d, lanes, S)
+        c = cf[:, t, None, :].reshape(Bsz, 1, lanes, S)
+        acc = torch.zeros((Bsz, d, lanes), dtype=torch.float32)
+        for q in range(S):
+            acc = _fma(prod[..., q], c[..., q], acc)
+        o = 1
+        while o < lanes:
+            acc = acc + acc[..., lane ^ o]
+            o *= 2
+        ys.append(_fma(D[None], ut, acc[..., 0]))
+    return torch.stack(ys, dim=1).to(u.dtype)
+
+
+# name: (B, T, d, N, dtype): the falcon-mamba-7b state, the states that
+# the lanes split unevenly (1, 3, 5), a step of one and ragged chunks
+EMULATION_CASES = {
+    "state_16": (2, 70, 24, 16, "float32"),
+    "state_16_bf16": (2, 70, 24, 16, "bfloat16"),
+    "state_1": (1, 40, 16, 1, "float32"),
+    "state_3": (2, 33, 12, 3, "bfloat16"),
+    "state_5": (1, 65, 20, 5, "float32"),
+    "state_5_bf16": (2, 37, 12, 5, "bfloat16"),
+    "one_step": (2, 1, 16, 16, "float32"),
+}
+
+
+@pytest.mark.parametrize("ulps", (-2, 2))
+@pytest.mark.parametrize("case", sorted(EMULATION_CASES))
+def test_k6_order_of_sums_within_the_unchanged_tolerance(case, ulps):
+    """K6's new order of roundings (per-lane partial sums, the shuffle
+    tree, exp2 with its error pushed 2 ulp either way and subnormal results
+    flushed to 0) stays inside
+    `ssm_scan_tolerance` against the port's plain version and the JAX
+    package's reference on the same inputs."""
+    B, T, d, N, dtype = EMULATION_CASES[case]
+    (ju, jdt, jb, jc, ja, jd), targs = both(scan_inputs(B, T, d, N, T + N),
+                                            dtype)
+    ref = SS.ssm_scan_ref(*targs)
+    tol = SS.ssm_scan_tolerance(*targs, ref)
+    jref = torch.from_numpy(np.array(f32(jax_scan_ref(ju, jdt, jb, jc, ja,
+                                                      jd))))
+    got = emulate_k6(*targs, ulps=ulps)
+    assert got.dtype == targs[0].dtype and got.shape == (B, T, d)
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+    assert bool(((got.float() - jref).abs() <= tol).all())

@@ -100,7 +100,24 @@ Phases, each fatal on failure, each with its seconds printed:
    ``benchmarks/kernel_bench.py``'s shape, with K2's at the same shapes,
    their plain versions', cuBLAS's on the dense weight and their bounds;
    K4 at the gate's decode shape with a skewed mask beside a uniform one,
-   and at 10% live against 100%.
+   and at 10% live against 100%;
+22. K1 on approximated netlists against its plain version, the numpy oracle
+   and the port's ``Simulator`` on the card, bit for bit: WhiteWine specs
+   compiled by the port and approximated at five knob vectors (CSD drops
+   up to 6, accumulator truncation at the clamp, comparator truncation
+   that ties), exact and approximated netlists in one population, int64
+   lanes, hand-built TRUNCs at the clamp of int32 (shift 31) and int64
+   (shift 61) lanes, batches that are not a tile multiple; the tied
+   comparator inputs counted (> 0); K1's device time on the approximated
+   population beside the exact one of the same specs;
+23. the search with the approximation genes through its entry point
+   (``paper.run(..., approx=True)``, WhiteWine, population 8, 3
+   generations, 60 epochs) on CUDA, K1's launches split into packed exact
+   launches and one per approximated candidate; then ``fit_budget`` on the
+   chosen point at 1% of its logit range, its measured max logit error
+   (the ``Simulator`` on the card) held under the proven bound;
+24. the Fig. 1 sweeps (``paper.fig1(["whitewine"], epochs=60)``, 6 + 5 + 5
+   specs and the baseline) on CUDA, each technique's gain at <=5% loss.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -1602,6 +1619,328 @@ def compressed_products(card: str, dev):
     ]
 
 
+def clamp_net(ir, width: int):
+    """A hand-built classifier whose three logits are TRUNCs at the clamp
+    (shift ``width - 1``) of ``width``-bit words: each logit is 0 or
+    -2^(width-1), so the comparator sees ties on most samples (int32 lanes
+    at width 32, int64 at 62)."""
+    s = width - 9                           # 8-bit ADC lanes: 9 signed bits
+    net = ir.Netlist(in_bits=8, w_bits=[8])
+    x0, x1, x2 = (net.input(i) for i in range(3))
+    a = net.neg(net.shl(x0, s))
+    b = net.sub(net.shl(x1, s), net.shl(x2, s))
+    c = net.sub(net.shl(x2, s), net.shl(x0, s))
+    logits = [net.trunc(v, width - 1) for v in (a, b, c)]
+    check(all(net.nodes[v].width == width for v in (a, b, c)),
+          f"clamp net of width {width} is not {width} bits wide")
+    net.layer_pre_ids = [logits]
+    net.output_ids = list(logits)
+    net.argmax(logits)
+    net.validate()
+    return net
+
+
+def comparator_operands(net, logits):
+    """The argmax comparator's operands computed from the Simulator's
+    logits: a logit itself, or its TRUNC where the approximation passes
+    narrowed the comparator."""
+    import numpy as np
+    from repro_torch.circuit.ir import Op
+    pos = {nid: i for i, nid in enumerate(net.output_ids)}
+    cols = []
+    for a in net.nodes[net.argmax_id].args:
+        n = net.nodes[a]
+        if a in pos:
+            cols.append(logits[:, pos[a]])
+        else:
+            check(n.op == Op.TRUNC and n.args[0] in pos,
+                  f"comparator operand {a} is neither a logit nor its TRUNC")
+            v = logits[:, pos[n.args[0]]]
+            cols.append((v >> n.shift) << n.shift)
+    return np.stack(cols, axis=1)
+
+
+def approximation_path(card: str, dev):
+    """Phases 22-24: K1 on approximated netlists against its plain version,
+    the numpy oracle and the Simulator on the card; the hardware-aware
+    search with the approximation genes through its entry point, then
+    `fit_budget` on its chosen point; the Fig. 1 sweeps. Returns K1's
+    launches on the two paths and its times on phase 22's population."""
+    import numpy as np
+    import torch
+    from repro_torch import approx, circuit, paper
+    from repro_torch.configs.printed_mlp import PRINTED_MLPS
+    from repro_torch.core import batch_eval as BE
+    from repro_torch.core import minimize as MZ
+    from repro_torch.core.compression_spec import ModelMin
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import netlist_sim as NS
+    from repro_torch.kernels.netlist_sim import ops as NSO
+
+    t_start = time.perf_counter()
+    cfg = PRINTED_MLPS["whitewine"]
+    _, _, xte, yte = MZ.dataset_for(cfg)
+    out = {}
+
+    # -- 22. K1 on approximated netlists ---------------------------------
+    with Phase(22, "netlist_sim on approximated netlists"):
+        specs = [ModelMin.uniform(2, bits=8),
+                 ModelMin.uniform(2, bits=4, sparsity=0.4, clusters=8),
+                 ModelMin.uniform(2, bits=6, sparsity=0.3)]
+        real = [circuit.compile_spec(cfg, s, epochs=20, device=dev)
+                for s in specs]
+        # (csd_drop, lsb, argmax_lsb) per layer: coefficient rounding down
+        # to one CSD digit (6), accumulator truncation at the clamp (16 ->
+        # each product's width - 1), comparator truncation that ties
+        knobs = [(1, 2, 0), (6, 0, 0), (0, 16, 0), (1, 2, 8), (2, 3, 12)]
+
+        def ax(net, k):
+            return approx.approximate(net, approx.ApproxParams(
+                (k[0],) * net.n_layers, (k[1],) * net.n_layers, k[2]))
+
+        anets = [ax(n, k) for n, _ in real for k in knobs]
+        axq = np.stack([MZ.quantize_inputs(c, xte) for _, c in real
+                        for _ in knobs])
+        exact_nets = [n for n, _ in real]
+        xq = np.stack([MZ.quantize_inputs(c, xte) for _, c in real])
+        wide = [ax(circuit.compile_netlist(synth_compiled(
+            MZ, (11, 12, 12, 7), 8, seed=3)), (0, 0, 4)),
+            ax(circuit.compile_netlist(synth_compiled(
+                MZ, (11, 10, 7), 8, seed=4, clusters=4)), (1, 2, 6))]
+        rng = np.random.default_rng(22)
+        cases = {  # name: (netlists, x (P, B, n_in))
+            "approx_whitewine": (anets, axq),
+            "mixed_exact_and_approx": (exact_nets + anets[::2],
+                                       np.concatenate([xq, axq[::2]])),
+            "int64_lanes": (wide, rng.integers(0, 256, (2, 513, 11))),
+            "clamp_int32_ragged_197": ([clamp_net(circuit.ir, 32)],
+                                       rng.integers(0, 256, (1, 197, 3))),
+            "clamp_int64": ([clamp_net(circuit.ir, 62)],
+                            rng.integers(0, 256, (1, 300, 3))),
+            "approx_ragged_batch_1": (anets[3:4], axq[3:4, :1]),
+        }
+        ties_total, max_shift = 0, {torch.int32: 0, torch.int64: 0}
+        for name, (nets, x) in cases.items():
+            pop = NS.pack_population(nets)
+            lanes = NSO.lane_dtype(pop)
+            reset_launches()
+            got = NS.simulate_population(pop, x, engine="cuda", device=dev)
+            torch.cuda.synchronize()
+            took = "smem" if LAUNCHES["netlist_sim_smem"] else "global"
+            check(LAUNCHES["netlist_sim"] == 1, f"{name}: not one launch")
+            plain = NS.simulate_population(pop, x, engine="levels",
+                                           device=dev)
+            oracle = NS.simulate_population_ref(pop, x)
+            exact = all(np.array_equal(got[k], o[k]) for o in (plain, oracle)
+                        for k in ("amx", "argmax"))
+            sim_ok = True
+            for p, net in enumerate(nets):
+                r = circuit.Simulator(net, device=dev).run(x[p])
+                sim_ok &= np.array_equal(r["argmax"], got["argmax"][p])
+                sim_ok &= np.array_equal(
+                    comparator_operands(net, r["logits"]), got["amx"][p])
+            amx = oracle["amx"]
+            ties = int(((amx == amx.max(axis=-1, keepdims=True)).sum(axis=-1)
+                        > 1).sum())
+            ties_total += ties
+            trunc = pop.op == int(circuit.Op.TRUNC)
+            shift = int(pop.shift[trunc].max()) if trunc.any() else 0
+            max_shift[lanes] = max(max_shift[lanes], shift)
+            print(f"[22] netlist_sim {name}: P={pop.n_candidates} "
+                  f"N={pop.n_slots} B={x.shape[-2]} lanes={lanes} "
+                  f"body={took} TRUNC slots={int(trunc.sum())} max shift "
+                  f"{shift} tied comparator inputs={ties} "
+                  f"bit_exact={exact} simulator_agrees={sim_ok}")
+            check(exact, f"netlist_sim kernel disagrees on {name}")
+            check(sim_ok, f"the Simulator on the card disagrees with K1 on "
+                  f"{name}")
+            check(took == "smem", f"netlist_sim {name} took the {took} body")
+        check(NSO.lane_dtype(NS.pack_population(wide)) == torch.int64,
+              "the int64 case did not take int64 lanes")
+        print(f"[22] tied comparator inputs over all cases: {ties_total}; "
+              f"largest TRUNC shift: int32 lanes {max_shift[torch.int32]}, "
+              f"int64 lanes {max_shift[torch.int64]}")
+        check(ties_total > 0, "no tie at the comparator in any case")
+        check(max_shift[torch.int32] == 31 and max_shift[torch.int64] == 61,
+              "the TRUNC shifts did not reach the lane widths' clamps")
+        check(any(n.op == circuit.Op.TRUNC
+                  and n.shift == a.nodes[n.args[0]].width - 1
+                  for a in anets for n in a.nodes),
+              "no accumulator TRUNC at its clamp (width - 1)")
+
+        # K1's device time on the approximated population, beside the
+        # exact population of the same specs at the same batch
+        xt = torch.as_tensor(axq, device=dev)
+        exact15 = [n for n in exact_nets for _ in knobs]
+        apop, epop = NS.pack_population(anets), NS.pack_population(exact15)
+        staged = NSO.StagedLaunch(apop, xt)
+        staged_exact = NSO.StagedLaunch(epop, xt)
+        check(staged.tile is not None and staged_exact.tile is not None,
+              "phase 22's timed populations do not take the shared-memory "
+              "body")
+        approx_ms = _graph_ms(staged.launch, [()], reps=50)
+        exact_ms = _graph_ms(staged_exact.launch, [()], reps=50)
+        print(f"[22] {card}: netlist_sim on the device at P={len(anets)} "
+              f"B={axq.shape[1]}: approximated N={apop.n_slots} levels="
+              f"{int(apop.n_levels.max())} {approx_ms:.4f} ms, exact "
+              f"N={epop.n_slots} levels={int(epop.n_levels.max())} "
+              f"{exact_ms:.4f} ms (the same specs, tile {staged.tile} and "
+              f"{staged_exact.tile})")
+        out["approx_population"] = {
+            "shapes": f"P={len(anets)} N={apop.n_slots} B={axq.shape[1]} "
+                      f"{NSO.lane_dtype(apop)}",
+            "ms": approx_ms, "exact_same_specs_ms": exact_ms,
+            "exact_shapes": f"P={len(exact15)} N={epop.n_slots}"}
+
+    # -- 23. the approximation path through its entry point --------------
+    with Phase(23, "whitewine search with approximation genes"):
+        # each approximated candidate's scoring is counted and timed (its
+        # passes, structural price and one K1 launch), as are the batched
+        # finetune and the compile-and-price step around it
+        scorer = approx.evaluate_netlist
+        finetune, compile_price = BE._population_finetune, \
+            BE._compile_and_price
+        deltas, scoring_s, finetune_s, compile_price_s = [], [], [], []
+
+        def counted(*a, **kw):
+            before = LAUNCHES["netlist_sim"]
+            t = time.perf_counter()
+            r = scorer(*a, **kw)
+            scoring_s.append(time.perf_counter() - t)
+            deltas.append(LAUNCHES["netlist_sim"] - before)
+            return r
+
+        def timed_finetune(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = finetune(*a, **kw)
+            torch.cuda.synchronize()
+            finetune_s.append(time.perf_counter() - t)
+            return out
+
+        def timed_compile_price(*a, **kw):
+            t = time.perf_counter()
+            out = compile_price(*a, **kw)
+            compile_price_s.append(time.perf_counter() - t)
+            return out
+
+        approx.evaluate_netlist = counted
+        BE._population_finetune = timed_finetune
+        BE._compile_and_price = timed_compile_price
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = paper.run("whitewine", population=8, generations=3,
+                            epochs=60, approx=True, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            approx.evaluate_netlist = scorer
+            BE._population_finetune = finetune
+            BE._compile_and_price = compile_price
+        search_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        n_approx = len(deltas)
+        n_exact = launches["netlist_sim"] - sum(deltas)
+        n_unique = sum(ModelMin.from_json(k).has_approx
+                       for k in res["evaluations"])
+        print(f"[23] search with approximation genes on {res['device']}: "
+              f"{search_s:.3f} s, {res['n_evaluations']} evaluations "
+              f"({n_unique} approximated); netlist_sim launches "
+              f"{launches['netlist_sim']}: {n_exact} packed exact (the "
+              f"baseline's, and one for each batch that held an exact "
+              f"candidate), {n_approx} approximated at P = 1 (one per "
+              f"approximated candidate); shared-memory body "
+              f"{launches['netlist_sim_smem']}")
+        split = {"finetune": sum(finetune_s),
+                 "compile_and_price": sum(compile_price_s) - sum(scoring_s),
+                 "approximated_scoring": sum(scoring_s)}
+        split["rest"] = search_s - sum(split.values())
+        print(f"[23] where the search's {search_s:.3f} s went: batched "
+              f"finetune {split['finetune']:.3f} s in {len(finetune_s)} "
+              f"calls; approximated scoring (passes, structural price, one "
+              f"K1 launch each) {split['approximated_scoring']:.3f} s for "
+              f"{n_approx} candidates; the rest of compile and price "
+              f"(bespoke compile, the packed exact launches, pricing) "
+              f"{split['compile_and_price']:.3f} s; baseline, GA and host "
+              f"glue {split['rest']:.3f} s")
+        print(f"[23] combined gain at <=5% loss: "
+              f"{res['combined_gain_at_5pct']}x")
+        for acc, area, delay, spec in res["pareto_front"]:
+            print(f"[23]   front: acc={acc} area={area} mm2 delay={delay} "
+                  f"{spec}")
+        check(res["device"].startswith("cuda"), "search did not run on cuda")
+        check(launches["netlist_sim"] > 0, "netlist_sim never launched")
+        check(n_approx > 0 and n_approx >= n_unique,
+              f"{n_approx} approximated scorings for {n_unique} "
+              "approximated candidates")
+        check(all(d == 1 for d in deltas), "an approximated candidate was "
+              f"not scored by exactly one K1 launch: {deltas}")
+        check(launches["netlist_sim_smem"] == launches["netlist_sim"],
+              "a search launch took the global body")
+        check(len(res["pareto_front"]) > 0, "empty Pareto front")
+        for acc, area, delay, _ in res["pareto_front"]:
+            check(0.0 <= acc <= 1.0 and area > 0 and delay > 0,
+                  "front point out of range")
+
+        # step 6 of the example: the chosen point approximated under 1% of
+        # its logit range, its error measured by the Simulator on the card
+        t1 = time.perf_counter()
+        chosen = paper.chosen_point(res)
+        net, compiled = circuit.compile_spec(cfg, ModelMin.from_json(chosen),
+                                             epochs=60, device=dev)
+        budget = approx.logit_budget(net, 0.01)
+        params, anet, rep = approx.fit_budget(net, budget)
+        measured = approx.measured_max_logit_error(anet, compiled, xte,
+                                                   device=dev)
+        acc_exact = circuit.netlist_accuracy(net, compiled, xte, yte,
+                                             device=dev)
+        acc_approx = circuit.netlist_accuracy(anet, compiled, xte, yte,
+                                              device=dev)
+        fit_s = time.perf_counter() - t1
+        print(f"[23] chosen {chosen}: fit_budget at 1% ({budget} LSB): "
+              f"{params}, proven decision bound {rep.bound}, proven logit "
+              f"bound {rep.logit_bound}, measured max logit error "
+              f"{measured} (Simulator on {dev}); area gain "
+              f"{rep.area_gain:.3f}x; accuracy {acc_exact:.4f} exact, "
+              f"{acc_approx:.4f} approximated [{fit_s:.3f} s]")
+        check(rep.bound <= budget, "fit_budget exceeded its budget")
+        check(measured <= rep.logit_bound,
+              f"measured logit error {measured} over the proven bound "
+              f"{rep.logit_bound}")
+        out["search"] = {"seconds": search_s, "launches": launches,
+                         "exact": n_exact, "approximated": n_approx,
+                         "split_s": split}
+
+    # -- 24. the Fig. 1 sweeps ---------------------------------------------
+    with Phase(24, "fig1 sweeps"):
+        reset_launches()
+        t0 = time.perf_counter()
+        fig = paper.fig1(["whitewine"], epochs=60, device=dev)
+        torch.cuda.synchronize()
+        fig_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        r = fig["whitewine"]
+        print(f"[24] fig1 on whitewine (60 epochs): {fig_s:.3f} s, "
+              f"netlist_sim launches {launches['netlist_sim']}; baseline "
+              f"acc={r['baseline_acc']} area={r['baseline_area_mm2']} mm2")
+        for tech, row in r["techniques"].items():
+            print(f"[24]   {tech}: gain at <=5% loss "
+                  f"{row['gain_at_5pct']}x, points {row['points']}")
+        check([len(r["techniques"][t]["points"]) for t in
+               ("quantization", "pruning", "clustering")] == [6, 5, 5],
+              "fig1 sweep sizes")
+        check(all(np.isfinite(row["gain_at_5pct"])
+                  for row in r["techniques"].values()), "gain not finite")
+        # one K1 launch per point and the baseline's
+        check(launches["netlist_sim"] == 17,
+              f"fig1 launched netlist_sim {launches['netlist_sim']} times")
+        out["fig1"] = {"seconds": fig_s, "launches": launches}
+    total = time.perf_counter() - t_start
+    print(f"[22-24] phases 22 to 24: {total:.3f} s")
+    out["seconds"] = total
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1918,6 +2257,21 @@ def main() -> None:
     for key in ("ms", "plain_ms", "library_ms"):
         qmm_entry["eager_" + key] = qmm_entry[key]
         qmm_entry[key] = k2_device["qwen3_layer"][key]
+    gc.collect()
+    torch.cuda.empty_cache()        # the compressed products are gone
+    paper_track = approximation_path(card, dev)
+    netlist_entry["launches_by_path"] = {
+        "whitewine search (phase 4)": netlist_entry["launches"],
+        "whitewine search with approximation genes (phase 23)":
+            paper_track["search"]["launches"]["netlist_sim"],
+        "fig1 sweeps on whitewine (phase 24)":
+            paper_track["fig1"]["launches"]["netlist_sim"]}
+    netlist_entry["launches"] = sum(netlist_entry["launches_by_path"].values())
+    netlist_entry["launches_smem_body"] += (
+        paper_track["search"]["launches"]["netlist_sim_smem"]
+        + paper_track["fig1"]["launches"]["netlist_sim_smem"])
+    netlist_entry["approximated_population"] = \
+        paper_track["approx_population"]
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
                                   bsmm_entry, fa_entry, ssm_entry]}))
     print(json.dumps({"ok": True, "device": {

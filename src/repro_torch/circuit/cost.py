@@ -15,7 +15,7 @@ path in adder stages (`ir.Netlist.depths`), which the coefficient
 statistics cannot see — it depends on how deep the shift-add chains and
 adder trees actually compose.
 
-The pricing is also *approximation-aware* (`repro.approx`, not ported yet): a ``TRUNC``
+The pricing is also *approximation-aware* (`repro_torch.approx`): a ``TRUNC``
 node is free wiring, and an adder/comparator whose operands provably carry
 k zeroed low bits (only an explicit TRUNC chain establishes this — never
 structural trailing zeros, so exact netlists price exactly as before)

@@ -23,7 +23,7 @@ Ops
 ``ARGMAX``  comparator tree over the class logits -> class index
 ``TRUNC``   drop the ``shift`` low bits: (a >> k) << k. Free wiring (the low
             wires are simply not connected); downstream adders narrow by k.
-            Only the approximation passes (`repro.approx`, not ported yet) emit it.
+            Only the approximation passes (`repro_torch.approx`) emit it.
 
 Approximation bookkeeping: a node may carry a *local* error interval
 ``[err_lo, err_hi]`` — the worst-case deviation a rewrite pass introduced AT

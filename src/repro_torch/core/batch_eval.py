@@ -45,6 +45,8 @@ from repro_torch.core import hw_model as HW
 from repro_torch.core import minimize as MZ
 from repro_torch.core.compression_spec import ModelMin
 from repro_torch.nn import mlp as M
+from repro_torch.obs import metrics as MT
+from repro_torch.obs import trace as TR
 
 # Padded k-means slot count: must cover every cluster count the GA can emit
 # (core.ga.CLUSTER_CHOICES tops out at 16).
@@ -445,9 +447,17 @@ def _compile_and_price(params_pop, specs, masks_serial, xte, yte, *,
     leading population axis. Every candidate is lowered to its bespoke
     netlist (`repro_torch.circuit`) for the critical-path delay; with
     ``netlist=True`` (the default objective) the accuracy is the
-    netlist-exact simulation of the printed datapath, all candidates in ONE
-    `netlist_sim` launch on ``device``; per-candidate node tables are cached
-    under ``pack_key(spec)``, so a GA revisiting genomes repacks nothing.
+    netlist-exact simulation of the printed datapath, all exact candidates
+    in ONE `netlist_sim` launch on ``device``; per-candidate node tables
+    are cached under ``pack_key(spec)``, so a GA revisiting genomes repacks
+    nothing.
+
+    Candidates carrying approximation genes (`ModelMin.has_approx`) are
+    scored by `approx.evaluate_netlist` — the one shared policy with the
+    serial path: bit-exact simulation of the *approximated* netlist (one
+    K1 launch each, on ``device``) for accuracy, approximation-aware
+    structural pricing for area/power (the analytic model cannot see
+    truncated circuits).
 
     Per-candidate fault isolation: a candidate whose compile/score raises
     (or whose accuracy comes back NaN) is retried once and then quarantined
@@ -455,10 +465,11 @@ def _compile_and_price(params_pop, specs, masks_serial, xte, yte, *,
     ``quarantine``. If the batched launch itself faults, every candidate is
     scored on its own under the same retry-once-then-quarantine contract.
     """
+    from repro_torch import approx as AX               # lazy: imports us
     from repro_torch import circuit as CIRC            # lazy: imports us
     from repro_torch.kernels import netlist_sim as NS
 
-    full: Dict[int, MZ.EvalResult] = {}   # quarantined
+    full: Dict[int, MZ.EvalResult] = {}   # approx-scored or quarantined
     compiled: Dict[int, MZ.CompiledMLP] = {}
     nets: Dict[int, object] = {}          # netlist-exact scoring, deferred
     accs: Dict[int, float] = {}
@@ -467,6 +478,9 @@ def _compile_and_price(params_pop, specs, masks_serial, xte, yte, *,
     def quarantine_(p: int, stage: str, err: BaseException) -> None:
         rec = QuarantineRecord(specs[p].to_json(), stage, type(err).__name__,
                                str(err), attempts=2)
+        MT.counter(f"eval.quarantine.{stage}").inc()
+        TR.event("eval.quarantine", stage=stage, error=rec.error,
+                 message=rec.message, spec=rec.spec_json)
         if quarantine is not None:
             quarantine.append(rec)
         else:
@@ -488,11 +502,21 @@ def _compile_and_price(params_pop, specs, masks_serial, xte, yte, *,
                 c = MZ.compile_bespoke(params_p, spec, masks_serial[p])
                 net = CIRC.compile_netlist(c)
                 stage = "score"
-                if netlist:
-                    # accuracy deferred: every candidate joins ONE packed
-                    # population launch after this loop (an integer argmax
-                    # cannot come back NaN)
+                if spec.has_approx:
+                    r = AX.evaluate_netlist(net, c, spec, xte, yte,
+                                            device=device)
+                    if math.isnan(float(r.accuracy)):
+                        raise FloatingPointError(
+                            "NaN accuracy out of approximated-netlist "
+                            "simulation (diverged QAT finetune?)")
+                    full[p] = r
+                elif netlist:
+                    # accuracy deferred: every exact candidate joins ONE
+                    # packed population launch after this loop (an integer
+                    # argmax cannot come back NaN)
                     nets[p] = net
+                    compiled[p] = c
+                    delays[p] = net.critical_path_levels()
                 else:
                     acc = MZ.compiled_accuracy(c, xte, yte)
                     if math.isnan(float(acc)):
@@ -500,8 +524,8 @@ def _compile_and_price(params_pop, specs, masks_serial, xte, yte, *,
                             "NaN accuracy out of compiled forward "
                             "(diverged QAT finetune?)")
                     accs[p] = float(acc)
-                compiled[p] = c
-                delays[p] = net.critical_path_levels()
+                    compiled[p] = c
+                    delays[p] = net.critical_path_levels()
                 err = None
                 break
             except (KeyboardInterrupt, SystemExit):
@@ -544,7 +568,9 @@ def _compile_and_price(params_pop, specs, masks_serial, xte, yte, *,
                     del compiled[p]
 
     # stack per-layer integer weights / codebooks and price the whole
-    # population in one hw_model call (pad codebooks to the layer's max k)
+    # population in one hw_model call (pad codebooks to the layer's max k).
+    # Only cleanly-compiled exact candidates take part; approx-scored and
+    # quarantined ones already carry their full EvalResult.
     ok = sorted(compiled)
     cost = None
     if ok:
@@ -595,16 +621,25 @@ def evaluate_population(cfg: PrintedMLPConfig, specs: Sequence[ModelMin], *,
     are evaluated once. Drop-in for ``[evaluate_spec(cfg, s) for s in
     specs]``; ``netlist=False`` scores the float emulation instead.
 
+    Specs with approximation genes are always scored on their simulated
+    approximated netlist and priced structurally, whatever ``netlist``
+    says; they live in the netlist keyspace (their genes are part of the
+    spec JSON, so they can never collide with an exact entry).
+
     A candidate whose compile/score fails is retried once, then quarantined
     with worst-case fitness (never cached) and a :class:`QuarantineRecord`
-    appended to ``quarantine``. Specs with approximation genes need
-    `repro.approx`, which is not ported yet, and raise.
+    appended to ``quarantine``. Under ``REPRO_VERIFY`` the specs are
+    linted (`verify.spec.check_specs`) before any QAT.
     """
     specs = list(specs)
     dev = resolve_device(device)
-    if any(s.has_approx for s in specs):
-        raise NotImplementedError(
-            "approximation genes are not supported by repro_torch yet")
+    from repro_torch.verify.diagnostics import verify_enabled
+    if specs and verify_enabled():
+        # static spec lint before any costly QAT: gene-range/arch
+        # legality + serialize->parse->serialize byte-stability (a
+        # non-round-tripping spec would fracture the cache keyspace)
+        from repro_torch.verify.spec import check_specs
+        check_specs(specs, cfg)
     results: Dict[str, MZ.EvalResult] = {}
     todo: List[ModelMin] = []
     queued = set()
@@ -613,14 +648,21 @@ def evaluate_population(cfg: PrintedMLPConfig, specs: Sequence[ModelMin], *,
         k = s.to_json()
         if k in results or k in queued:
             continue
-        hit = cache.get(cfg.name, seed, epochs, s, netlist=netlist) \
-            if cache else None
+        hit = (cache.get(cfg.name, seed, epochs, s,
+                         netlist=netlist or s.has_approx)
+               if cache else None)
         n_hits += hit is not None
         if hit is not None and hit.delay_levels is not None:
             results[k] = hit
         else:
             todo.append(s)
             queued.add(k)
+
+    MT.counter("eval.specs_requested").inc(len(specs))
+    MT.counter("eval.specs_cached").inc(n_hits)
+    MT.counter("eval.specs_evaluated").inc(len(todo))
+    TR.event("eval.batch", dataset=cfg.name, requested=len(specs),
+             hits=n_hits, evaluated=len(todo))
 
     if todo:
         params0, (xtr, ytr, xte, yte) = MZ.pretrain(cfg, seed=seed,
@@ -646,7 +688,8 @@ def evaluate_population(cfg: PrintedMLPConfig, specs: Sequence[ModelMin], *,
             results[r.spec.to_json()] = r
             if cache is not None and \
                     all(q.spec_json != r.spec.to_json() for q in recs):
-                cache.put(cfg.name, seed, epochs, r, netlist=netlist)
+                cache.put(cfg.name, seed, epochs, r,
+                          netlist=netlist or r.spec.has_approx)
         if recs:
             if quarantine is not None:
                 quarantine.extend(recs)
@@ -681,7 +724,9 @@ def make_batch_evaluator(cfg: PrintedMLPConfig, *, epochs: int = 150,
     circuit's critical path as a third minimized objective. ``record``, if
     given, collects every EvalResult by spec json — callers (fig2, the
     example) read Pareto-front delay out of it without re-evaluating.
-    ``quarantine``, if given, collects
+    Specs carrying approximation genes are handled per candidate by
+    `evaluate_population` (simulated approximate netlist + structural
+    pricing) whatever ``netlist`` says. ``quarantine``, if given, collects
     the `QuarantineRecord`s of failing specs — share the list with
     `run_nsga2(quarantine=...)` / the island runtime so quarantined specs
     surface on the final result.

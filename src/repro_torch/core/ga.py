@@ -12,7 +12,7 @@ adds the compiled circuit's critical-path delay as a third objective,
 which the analytic cost model cannot express.
 
 With ``csd_drop_choices`` / ``lsb_choices`` widened past ``(0,)`` the
-genome also carries circuit-approximation genes (`repro.approx`, not ported yet): the GA
+genome also carries circuit-approximation genes (`repro_torch.approx`): the GA
 then trades bounded arithmetic error inside the bespoke netlist for area,
 on top of the paper's quant/prune/cluster axes. Approximated candidates
 are priced structurally and scored on the simulated approximate circuit
@@ -32,7 +32,7 @@ from repro_torch.core.pareto import crowding_distance, non_dominated_sort
 BITS_CHOICES = (2, 3, 4, 5, 6, 7, 8)
 SPARSITY_CHOICES = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7)
 CLUSTER_CHOICES = (None, 2, 3, 4, 6, 8, 12, 16)
-# circuit-approximation genes (repro.approx, not ported yet). Off by default: the single
+# circuit-approximation genes (repro_torch.approx). Off by default: the single
 # (0,) choice draws nothing from the RNG, so exact searches reproduce
 # their historical trajectories bit-for-bit.
 CSD_DROP_CHOICES = (0, 1, 2, 3)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -299,11 +299,10 @@ def evaluate_spec(cfg: PrintedMLPConfig, spec: ModelMin, *,
     `batch_eval.evaluate_population`: accuracy defaults to the bit-exact
     simulation of the compiled netlist (the printed datapath); pass
     ``netlist=False`` for the analytic float-emulation opt-out.
-    Area/power stay on the analytic pricing either way. Specs with
-    approximation genes need `repro.approx`, which is not ported yet."""
-    if spec.has_approx:
-        raise NotImplementedError(
-            "approximation genes are not supported by repro_torch yet")
+    Area/power stay on the analytic pricing either way, except for specs
+    with approximation genes: those are scored by
+    `approx.evaluate_netlist` on their approximated netlist (simulated
+    accuracy, structural pricing), whatever ``netlist`` says."""
     dev = resolve_device(device)
     params0, (xtr, ytr, xte, yte) = pretrain(cfg, seed=seed, device=dev)
     masks = make_masks(params0, spec)
@@ -312,6 +311,11 @@ def evaluate_spec(cfg: PrintedMLPConfig, spec: ModelMin, *,
     compiled = compile_bespoke(params, spec, masks)
     from repro_torch.circuit import compile as CC  # lazy: circuit imports us
     net = CC.compile_netlist(compiled)
+    if spec.has_approx:
+        # the printed circuit is the approximated netlist — one shared
+        # scoring policy with the batched path (`approx.evaluate_netlist`)
+        from repro_torch import approx as AX
+        return AX.evaluate_netlist(net, compiled, spec, xte, yte, device=dev)
     if netlist:
         from repro_torch import circuit as CIRC
         acc = CIRC.netlist_accuracy(net, compiled, xte, yte, device=dev)
@@ -323,9 +327,50 @@ def evaluate_spec(cfg: PrintedMLPConfig, spec: ModelMin, *,
                       delay_levels=net.critical_path_levels())
 
 
+def evaluate_specs(cfg: PrintedMLPConfig, specs: Sequence[ModelMin], *,
+                   epochs: int = 150, seed: int = 0, cache=None,
+                   device: DeviceLike = None) -> List[EvalResult]:
+    """Batched counterpart of `evaluate_spec`: the whole list is QAT-
+    finetuned in one batched call on ``device`` and priced in one
+    vectorized hw_model call (see `core.batch_eval`). `cache` is an
+    optional `batch_eval.EvalCache` for cross-run persistence."""
+    from repro_torch.core import batch_eval as BE  # lazy: avoids a cycle
+    return BE.evaluate_population(cfg, specs, epochs=epochs, seed=seed,
+                                  cache=cache, device=device)
+
+
 def baseline(cfg: PrintedMLPConfig, *, seed: int = 0,
              device: DeviceLike = None) -> EvalResult:
     """MICRO'20 un-minimized bespoke MLP: dense 8-bit fixed point."""
     n = len(cfg.layer_dims) - 1
     return evaluate_spec(cfg, ModelMin.uniform(n, bits=8), epochs=60,
                          seed=seed, device=device)
+
+
+# The standalone-technique sweeps of the paper's Fig. 1: one serial
+# `evaluate_spec` per point, as the reference runs them.
+
+
+def quant_sweep(cfg, bits_range=None, *, epochs=150, seed=0,
+                device: DeviceLike = None):
+    if bits_range is None:
+        bits_range = range(2, 8)
+    n = len(cfg.layer_dims) - 1
+    return [evaluate_spec(cfg, ModelMin.uniform(n, bits=b), epochs=epochs,
+                          seed=seed, device=device) for b in bits_range]
+
+
+def prune_sweep(cfg, sparsities=(0.2, 0.3, 0.4, 0.5, 0.6), *, epochs=150,
+                seed=0, device: DeviceLike = None):
+    n = len(cfg.layer_dims) - 1
+    return [evaluate_spec(
+        cfg, ModelMin.uniform(n, bits=8, sparsity=s), epochs=epochs,
+        seed=seed, device=device) for s in sparsities]
+
+
+def cluster_sweep(cfg, ks=(2, 3, 4, 6, 8), *, epochs=150, seed=0,
+                  device: DeviceLike = None):
+    n = len(cfg.layer_dims) - 1
+    return [evaluate_spec(
+        cfg, ModelMin.uniform(n, bits=8, clusters=k), epochs=epochs,
+        seed=seed, device=device) for k in ks]

@@ -1,29 +1,36 @@
-"""The paper's hardware-aware search (Fig. 2) on the port, end to end.
+"""The paper's figures on the port, end to end.
 
-`run` mirrors `benchmarks/fig2_combined.run`: pretrain the baseline, then
-NSGA-II over bits x sparsity x clusters with every generation evaluated by
-`core.batch_eval` (one batched QAT finetune on the card, one netlist-exact
-simulation launch, one vectorized pricing pass), ending in the Pareto front
-and the area gain at <=5% accuracy loss. Running the module mirrors steps
-1-5 of `examples/printed_mlp_minimization.py`:
+`run` mirrors `benchmarks/fig2_combined.run` (Fig. 2): pretrain the
+baseline, then NSGA-II over bits x sparsity x clusters — with
+``approx=True`` also the circuit-approximation genes — with every
+generation evaluated by `core.batch_eval` (one batched QAT finetune on the
+card, one netlist-exact simulation launch for the exact candidates, one
+for each approximated one, one vectorized pricing pass), ending in the
+Pareto front and the area gain at <=5% accuracy loss. `fig1` mirrors
+`benchmarks/fig1_standalone.run` (Fig. 1): the three standalone-technique
+sweeps per dataset. Running the module mirrors
+`examples/printed_mlp_minimization.py`, step 6 (the budgeted circuit
+approximation of the chosen point) included:
 
     PYTHONPATH=src python -m repro_torch.paper --dataset whitewine
 
-(add ``--full`` for the paper-sized budget, ``--device cpu`` to run
-without a card).
+(add ``--full`` for the paper-sized budget, ``--approx`` to search the
+approximation genes too, ``--device cpu`` to run without a card).
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Sequence
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.printed_mlp import PRINTED_MLPS
 from repro_torch.core import batch_eval as BE
 from repro_torch.core import minimize as MZ
 from repro_torch.core.compression_spec import ModelMin
-from repro_torch.core.ga import GAConfig, run_nsga2
+from repro_torch.core.ga import (ARGMAX_LSB_CHOICES, CSD_DROP_CHOICES,
+                                 LSB_CHOICES, GAConfig, run_nsga2)
 from repro_torch.core.pareto import gain_at_loss, pareto_front
 
 
@@ -34,15 +41,22 @@ def cache_path(cache_dir: str, dataset: str) -> str:
 
 def run(dataset: str = "whitewine", *, population=14, generations=7,
         epochs=90, seed=0, cache_dir: Optional[str] = None,
-        netlist: bool = True, device: DeviceLike = None) -> Dict:
+        netlist: bool = True, approx: bool = False,
+        device: DeviceLike = None) -> Dict:
     """Accuracy is scored by default on the bit-exact simulation of each
     candidate's compiled circuit, the whole population per launch through
     `repro_torch.kernels.netlist_sim`; ``netlist=False`` opts out to the
-    float emulation of the bespoke arithmetic."""
+    float emulation of the bespoke arithmetic. ``approx=True`` additionally
+    lets the GA search the circuit-approximation genes
+    (`repro_torch.approx`: truncated-CSD coefficients, accumulator LSB
+    truncation, comparator narrowing) and forces netlist-exact accuracy so
+    exact and approximated candidates compete on the same
+    simulated-datapath objective."""
     dev = resolve_device(device)
     cfg = PRINTED_MLPS[dataset]
     base = MZ.baseline(cfg, seed=seed, device=dev)
     n_layers = len(cfg.layer_dims) - 1
+    netlist = netlist or approx
 
     cache = BE.EvalCache(cache_path(cache_dir, dataset)) if cache_dir \
         else None
@@ -60,6 +74,15 @@ def run(dataset: str = "whitewine", *, population=14, generations=7,
                               input_bits=ib)]
     ga_cfg = GAConfig(population=population, generations=generations,
                       seed=seed, input_bits=cfg.input_bits)
+    if approx:
+        ga_cfg = dataclasses.replace(ga_cfg,
+                                     csd_drop_choices=CSD_DROP_CHOICES,
+                                     lsb_choices=LSB_CHOICES,
+                                     argmax_lsb_choices=ARGMAX_LSB_CHOICES)
+        # warm-start the approximation axis from the minimized seed
+        seeds.append(ModelMin.uniform(n_layers, bits=4, sparsity=0.4,
+                                      clusters=8, csd_drop=1, lsb=2,
+                                      input_bits=ib))
     res = run_nsga2(n_layers, None, ga_cfg, seed_specs=seeds,
                     batch_evaluate=batch_evaluate)
     pts = [(1.0 - o[0], o[1]) for o in res.objectives]
@@ -82,6 +105,44 @@ def run(dataset: str = "whitewine", *, population=14, generations=7,
     }
 
 
+def fig1(datasets: Optional[Sequence[str]] = None, epochs: int = 150, *,
+         device: DeviceLike = None) -> Dict:
+    """Fig. 1: the accuracy-area points of the three STANDALONE techniques
+    (quantization 2-7 bits, pruning 20-60%, clustering 2-8 clusters per
+    input row), each point one serial `evaluate_spec` as in
+    `benchmarks/fig1_standalone.run`, normalized to the un-minimized 8-bit
+    bespoke baseline, with each technique's area gain at <=5% loss.
+    ``datasets`` defaults to all four."""
+    dev = resolve_device(device)
+    out: Dict[str, Dict] = {}
+    for name in datasets or list(PRINTED_MLPS):
+        cfg = PRINTED_MLPS[name]
+        base = MZ.baseline(cfg, device=dev)
+        sweeps = {
+            "quantization": MZ.quant_sweep(cfg, range(2, 8), epochs=epochs,
+                                           device=dev),
+            "pruning": MZ.prune_sweep(cfg, (0.2, 0.3, 0.4, 0.5, 0.6),
+                                      epochs=epochs, device=dev),
+            "clustering": MZ.cluster_sweep(cfg, (2, 3, 4, 6, 8),
+                                           epochs=epochs, device=dev),
+        }
+        rows = {}
+        for tech, results in sweeps.items():
+            pts = [(r.accuracy, r.area_mm2) for r in results]
+            gain = gain_at_loss(pts, baseline_acc=base.accuracy,
+                                baseline_area=base.area_mm2, max_loss=0.05)
+            rows[tech] = {
+                "points": [(round(a, 4), round(ar, 1)) for a, ar in pts],
+                "gain_at_5pct": round(gain, 2),
+            }
+        out[name] = {
+            "baseline_acc": round(base.accuracy, 4),
+            "baseline_area_mm2": round(base.area_mm2, 1),
+            "techniques": rows,
+        }
+    return out
+
+
 def chosen_point(res: Dict) -> str:
     """The cheapest front member within 5% accuracy loss of the baseline
     (the paper's max-gain operating point), else the most accurate one."""
@@ -101,6 +162,8 @@ def main(argv=None):
                     help="paper-sized budget (slower)")
     ap.add_argument("--cache-dir", default=".eval_cache",
                     help="persistent evaluation cache dir")
+    ap.add_argument("--approx", action="store_true",
+                    help="also search the circuit-approximation genes")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -135,7 +198,7 @@ def main(argv=None):
     # -- 3. Fig. 2: hardware-aware GA through the batched engine ----------
     t0 = time.time()
     res = run(args.dataset, cache_dir=args.cache_dir, epochs=epochs,
-              device=dev,
+              approx=args.approx, device=dev,
               **({} if args.full else dict(population=8, generations=3)))
     print(f"GA search: {res['n_evaluations']} unique evaluations in "
           f"{time.time()-t0:.0f}s (cache: {args.cache_dir})")
@@ -162,6 +225,23 @@ def main(argv=None):
     print(f"netlist-exact accuracy: {acc_exact:.3f} "
           f"(float emulation: {MZ.compiled_accuracy(compiled, xte, yte):.3f})")
     print(f"structural cost == analytic hw_model: {cv['ok']}")
+
+    # -- 6. approximate the circuit itself under an error budget ----------
+    # beyond minimization: the approx pass pipeline (truncated-CSD
+    # coefficients, accumulator LSB truncation, comparator narrowing)
+    # greedily trades PROVEN worst-case logit error for area
+    from repro_torch import approx
+    budget = approx.logit_budget(net, 0.01)       # 1% of the logit range
+    _, anet, rep = approx.fit_budget(net, budget)
+    acc_approx = circuit.netlist_accuracy(anet, compiled, xte, yte,
+                                          device=dev)
+    asc = circuit.structural_cost(anet)
+    print(f"\napproximated under a {budget}-LSB logit-error budget "
+          f"(proven bound: {rep.bound}):")
+    print(f"  knobs: {rep.params}")
+    print(f"  area {sc.area_mm2/100:.2f} -> {asc.area_mm2/100:.2f} cm2 "
+          f"({rep.area_gain:.2f}x on top of minimization), "
+          f"accuracy {acc_exact:.3f} -> {acc_approx:.3f}")
     return res
 
 

@@ -9,9 +9,15 @@
   pricing (area, multipliers, delay) is equal: training is a float stage
   whose drift stays far below a quantization step on this fixture.
 * Given the same fitness function, the GA is `repro.core.ga` byte for byte.
+* Specs with approximation genes are scored as the reference scores them
+  (the approximated netlist simulated, structural pricing) in the batched
+  and the serial path, cached in the netlist keyspace under the
+  reference's keys, and quarantined like any other spec; the Fig. 1 sweeps
+  give the reference's points under the same tolerance.
 * Entry points run on CUDA unless asked for the CPU, and raise without a
   card.
 """
+import contextlib
 import zlib
 
 import jax
@@ -42,6 +48,8 @@ from repro_torch.core.compression_spec import ModelMin as TM  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels import netlist_sim as TNS  # noqa: E402
 from repro_torch.nn import mlp as TMLP  # noqa: E402
+from repro_torch.obs import metrics as MT  # noqa: E402
+from repro_torch.obs import trace as TR  # noqa: E402
 
 EPOCHS = 30
 ACC_TOL = 1e-3
@@ -63,9 +71,9 @@ R_SPECS, T_SPECS = _specs(RM, RL), _specs(TM, TL)
 CFG, TCFG = PRINTED_MLPS["seeds"], T_PRINTED_MLPS["seeds"]
 
 
-@pytest.fixture(scope="module")
-def injected():
-    """Both packages start from the reference's pretrained weights."""
+@contextlib.contextmanager
+def reference_pretrain():
+    """The port's pretrain returns the reference's pretrained weights."""
     p0, data = RMZ.pretrain(CFG, seed=0)
     p0 = jax.tree_util.tree_map(np.asarray, p0)
     real = TMZ.pretrain
@@ -76,12 +84,19 @@ def injected():
 
     TMZ.pretrain = fake
     try:
+        yield
+    finally:
+        TMZ.pretrain = real
+
+
+@pytest.fixture(scope="module")
+def injected():
+    """Both packages start from the reference's pretrained weights."""
+    with reference_pretrain():
         serial = [TMZ.evaluate_spec(TCFG, s, epochs=EPOCHS, device="cpu")
                   for s in T_SPECS]
         batched = TBE.evaluate_population(TCFG, T_SPECS, epochs=EPOCHS,
                                           device="cpu")
-    finally:
-        TMZ.pretrain = real
     return serial, batched
 
 
@@ -262,7 +277,160 @@ def _tiny_pop():
     return TNS.pack_population([net])
 
 
-def test_approx_specs_not_supported_yet():
-    spec = TM.uniform(2, bits=4, csd_drop=1)
-    with pytest.raises(NotImplementedError):
-        TBE.evaluate_population(TCFG, [spec], epochs=1, device="cpu")
+def _approx_specs(ModelMin, LayerMin):
+    """Approximated genomes, with one exact spec in the same population."""
+    n = 2
+    return [
+        ModelMin.uniform(n, bits=4, sparsity=0.4, clusters=8, csd_drop=1,
+                         lsb=2),
+        ModelMin.uniform(n, bits=6, csd_drop=2, argmax_lsb=4),
+        ModelMin((LayerMin(5, 0.2, None, csd_drop=3),
+                  LayerMin(8, 0.0, 4, lsb=4)), 8, 2),
+        ModelMin.uniform(n, bits=4, sparsity=0.3),
+        ModelMin.uniform(n, bits=3, argmax_lsb=8),
+    ]
+
+
+RA_SPECS, TA_SPECS = _approx_specs(RM, RL), _approx_specs(TM, TL)
+
+
+@pytest.fixture(scope="module")
+def injected_approx():
+    with reference_pretrain():
+        serial = [TMZ.evaluate_spec(TCFG, s, epochs=EPOCHS, device="cpu")
+                  for s in TA_SPECS]
+        batched = TBE.evaluate_population(TCFG, TA_SPECS, epochs=EPOCHS,
+                                          device="cpu")
+    return serial, batched
+
+
+def test_approx_specs_batched_equal_serial(injected_approx):
+    serial, batched = injected_approx
+    assert [_tuple(a) for a in batched] == [_tuple(a) for a in serial]
+
+
+def test_approx_specs_match_reference_population(injected_approx):
+    """Approximated specs reach the evaluator and are scored as the
+    reference scores them: accuracy within ACC_TOL, the structural pricing
+    and the delay equal."""
+    _, batched = injected_approx
+    ref = RBE.evaluate_population(CFG, RA_SPECS, epochs=EPOCHS)
+    assert [s.has_approx for s in TA_SPECS] == \
+        [True, True, True, False, True]
+    for r, t in zip(ref, batched):
+        assert r.spec.to_json() == t.spec.to_json()
+        assert abs(r.accuracy - t.accuracy) <= ACC_TOL, r.spec
+        assert (r.area_mm2, r.power_mw, r.n_multipliers, r.delay_levels) == \
+            (t.area_mm2, t.power_mw, t.n_multipliers, t.delay_levels), r.spec
+
+
+def test_approx_specs_cache_in_the_netlist_keyspace(tmp_path, monkeypatch):
+    for t, r in zip(TA_SPECS, RA_SPECS):
+        for netlist in (True, False):
+            assert TBE.EvalCache.key("seeds", 0, EPOCHS, t, netlist) == \
+                RBE.EvalCache.key("seeds", 0, EPOCHS, r, netlist)
+    exact, ax = TA_SPECS[3], TA_SPECS[0]
+    cache = TBE.EvalCache(tmp_path / "seeds_torch_evals.json")
+    # the float opt-out: the approximated spec is still scored on its
+    # simulated netlist and lands in the netlist keyspace; its exact twin
+    # takes the float path
+    rs = TBE.evaluate_population(TCFG, [exact, ax], epochs=4, cache=cache,
+                                 netlist=False, device="cpu")
+    assert rs[1].area_mm2 < rs[0].area_mm2 and rs[1].delay_levels > 0
+    assert cache.get("seeds", 0, 4, ax, netlist=True) is not None
+    assert cache.get("seeds", 0, 4, exact, netlist=True) is None
+    assert cache.get("seeds", 0, 4, exact) is not None
+
+    def boom(*a, **k):
+        raise AssertionError("finetune ran on a fully-cached population")
+    monkeypatch.setattr(TBE, "_population_finetune", boom)
+    again = TBE.evaluate_population(TCFG, [exact, ax], epochs=4,
+                                    cache=TBE.EvalCache(cache.path),
+                                    netlist=False, device="cpu")
+    assert [_tuple(r) for r in again] == [_tuple(r) for r in rs]
+
+
+def test_approx_scoring_fault_quarantined_and_counted(monkeypatch,
+                                                      tmp_path):
+    from repro_torch import approx
+
+    def boom(*a, **k):
+        raise RuntimeError("injected approximated-netlist fault")
+
+    monkeypatch.setattr(approx, "evaluate_netlist", boom)
+    specs = [TA_SPECS[3], TA_SPECS[1]]
+    before = MT.counter("eval.quarantine.score").value
+    recs = []
+    with TR.capture(tmp_path / "t.jsonl"):
+        rs = TBE.evaluate_population(TCFG, specs, epochs=4, device="cpu",
+                                     quarantine=recs)
+    assert MT.counter("eval.quarantine.score").value == before + 1
+    assert len(recs) == 1 and recs[0].spec_json == specs[1].to_json()
+    assert (recs[0].stage, recs[0].error, recs[0].attempts) == \
+        ("score", "RuntimeError", 2)
+    assert rs[1].area_mm2 == TBE.QUARANTINE_AREA_MM2
+    assert 0.0 < rs[0].accuracy <= 1.0 and rs[0].area_mm2 < 1e9
+    events, _ = TR.read_trace(tmp_path / "t.jsonl")
+    q = [e for e in events if e.get("name") == "eval.quarantine"]
+    assert [e["attrs"]["stage"] for e in q] == ["score"]
+    batch = [e for e in events if e.get("name") == "eval.batch"]
+    assert batch[0]["attrs"]["requested"] == 2
+
+
+def test_fig1_sweeps_match_reference():
+    """Each sweep point is one serial `evaluate_spec`, as in the
+    reference: with the reference's pretrained weights, accuracy within
+    ACC_TOL and the integer pricing equal."""
+    kw = dict(epochs=EPOCHS)
+    ref = (RMZ.quant_sweep(CFG, (3, 5), **kw)
+           + RMZ.prune_sweep(CFG, (0.3, 0.5), **kw)
+           + RMZ.cluster_sweep(CFG, (3, 6), **kw))
+    with reference_pretrain():
+        got = (TMZ.quant_sweep(TCFG, (3, 5), device="cpu", **kw)
+               + TMZ.prune_sweep(TCFG, (0.3, 0.5), device="cpu", **kw)
+               + TMZ.cluster_sweep(TCFG, (3, 6), device="cpu", **kw))
+        batched = TMZ.evaluate_specs(TCFG, [r.spec for r in got],
+                                     device="cpu", **kw)
+    assert [_tuple(r) for r in batched] == [_tuple(r) for r in got]
+    for r, t in zip(ref, got):
+        assert r.spec.to_json() == t.spec.to_json()
+        assert abs(r.accuracy - t.accuracy) <= ACC_TOL, r.spec
+        assert (r.area_mm2, r.n_multipliers, r.delay_levels) == \
+            (t.area_mm2, t.n_multipliers, t.delay_levels), r.spec
+
+
+def test_paper_run_with_approximation_and_fig1_on_cpu():
+    reset_launches()
+    res = paper.run("seeds", population=4, generations=2, epochs=8,
+                    approx=True, device="cpu")
+    assert res["device"] == "cpu" and LAUNCHES["netlist_sim"] == 0
+    assert res["pareto_front"] and np.isfinite(res["combined_gain_at_5pct"])
+    assert any(TM.from_json(k).has_approx for k in res["evaluations"])
+    fig = paper.fig1(["seeds"], epochs=4, device="cpu")
+    tech = fig["seeds"]["techniques"]
+    assert [len(tech[t]["points"]) for t in
+            ("quantization", "pruning", "clustering")] == [6, 5, 5]
+    assert all(np.isfinite(tech[t]["gain_at_5pct"]) for t in tech)
+    assert LAUNCHES["netlist_sim"] == 0
+
+
+def test_paper_main_approximates_the_chosen_point_on_cpu(tmp_path, capsys):
+    paper.main(["--dataset", "seeds", "--approx", "--device", "cpu",
+                "--cache-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "structural cost == analytic hw_model: True" in out
+    assert "logit-error budget (proven bound:" in out
+
+
+def test_approximation_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: TMZ.evaluate_spec(TCFG, TA_SPECS[0], epochs=1),
+                 lambda: TBE.evaluate_population(TCFG, TA_SPECS[:1],
+                                                 epochs=1),
+                 lambda: TMZ.evaluate_specs(TCFG, TA_SPECS[:1], epochs=1),
+                 lambda: TMZ.quant_sweep(TCFG, (4,), epochs=1),
+                 lambda: paper.run("seeds", population=2, generations=1,
+                                   epochs=1, approx=True),
+                 lambda: paper.fig1(["seeds"], epochs=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -154,6 +154,103 @@ def test_netlist_sim_wrapper_never_falls_back_on_cuda(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# K1 on approximated netlists, and the Simulator on the card
+# ---------------------------------------------------------------------------
+
+
+def clamp_net(ir, width: int):
+    """A hand-built classifier whose three logits are TRUNCs at the clamp
+    (shift ``width - 1``) of ``width``-bit words: each logit is 0 or
+    -2^(width-1), so the comparator sees ties on most samples (int32 lanes
+    at width 32, int64 at 62)."""
+    s = width - 9                           # 8-bit ADC lanes: 9 signed bits
+    net = ir.Netlist(in_bits=8, w_bits=[8])
+    x0, x1, x2 = (net.input(i) for i in range(3))
+    a = net.neg(net.shl(x0, s))
+    b = net.sub(net.shl(x1, s), net.shl(x2, s))
+    c = net.sub(net.shl(x2, s), net.shl(x0, s))
+    logits = [net.trunc(v, width - 1) for v in (a, b, c)]
+    assert all(net.nodes[v].width == width for v in (a, b, c))
+    net.layer_pre_ids = [logits]
+    net.output_ids = list(logits)
+    net.argmax(logits)
+    net.validate()
+    return net
+
+
+def _approx(net, csd, lsb, am):
+    from repro_torch import approx
+    L = net.n_layers
+    return approx.approximate(net, approx.ApproxParams((csd,) * L,
+                                                       (lsb,) * L, am))
+
+
+# name: (netlists, B, n_in): TRUNC slots, comparator operands that are not
+# the logits, ties, shifts at the clamp, int64 lanes, ragged tiles, and
+# exact netlists packed beside approximated ones
+APPROX_CASES = {
+    "whitewine_mixed": (lambda: [
+        _net((11, 10, 7), 8, 0), _approx(_net((11, 10, 7), 6, 1), 1, 2, 0),
+        _approx(_net((11, 10, 7), 4, 2, sparsity=0.4), 6, 16, 8),
+        _net((11, 10, 7), 5, 3, sparsity=0.2),
+        _approx(_net((11, 10, 7), 8, 4), 0, 0, 24)], 1223, 11),
+    "argmax_ties": (lambda: [_approx(_net((7, 8, 4), 8, 7), 1, 2, 24)],
+                    NSO.BLOCK + 3, 7),
+    "int64": (lambda: [_approx(_net((11, 12, 12, 7), 8, 3), 0, 0, 4),
+                       _net((11, 10, 7), 8, 4, clusters=4)], 77, 11),
+    "clamp_width32": (lambda: [clamp_net(circuit.ir, 32)], 300, 3),
+    "clamp_width62": (lambda: [clamp_net(circuit.ir, 62)], 97, 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(APPROX_CASES))
+def test_netlist_sim_kernel_on_approximated_netlists(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    make, B, n_in = APPROX_CASES[case]
+    pop = NS.pack_population(make())
+    assert (pop.op == int(circuit.Op.TRUNC)).any()
+    if case in ("int64", "clamp_width62"):
+        assert NSO.lane_dtype(pop) == torch.int64
+    x = np.random.default_rng(B).integers(0, 256, (B, n_in))
+    reset_launches()
+    got = NS.simulate_population(pop, x, engine="cuda", device="cuda")
+    torch.cuda.synchronize()
+    assert (LAUNCHES["netlist_sim"], LAUNCHES["netlist_sim_smem"]) == (1, 1)
+    plain = NS.simulate_population(pop, x, engine="levels", device="cuda")
+    oracle = NS.simulate_population_ref(pop, x)
+    for out in (plain, oracle):
+        np.testing.assert_array_equal(got["amx"], out["amx"])
+        np.testing.assert_array_equal(got["argmax"], out["argmax"])
+    amx = oracle["amx"]
+    ties = (amx == amx.max(axis=-1, keepdims=True)).sum(axis=-1) > 1
+    if case in ("argmax_ties", "clamp_width32", "clamp_width62",
+                "whitewine_mixed"):
+        assert ties.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(APPROX_CASES))
+def test_simulator_on_cuda_matches_cpu(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    make, B, n_in = APPROX_CASES[case]
+    x = np.random.default_rng(B + 1).integers(0, 256, (B, n_in))
+    for net in make():
+        cpu = circuit.Simulator(net, device="cpu").run(x)
+        sim = circuit.Simulator(net, device="cuda")
+        assert sim.device.type == "cuda"
+        got = sim.run(x)
+        for a, b in zip(got["pre"], cpu["pre"]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got["argmax"], cpu["argmax"])
+        k1 = NS.simulate_population(NS.pack_population([net]), x,
+                                    engine="cuda", device="cuda")
+        np.testing.assert_array_equal(got["argmax"], k1["argmax"][0])
+
+
+# ---------------------------------------------------------------------------
 # K2 and K5
 # ---------------------------------------------------------------------------
 

@@ -57,3 +57,26 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_paper_track_modules_import_with_jax_blocked():
+    """The approximation subsystem, the observability copies, the spec
+    linter, the mutation catalog and the Simulator stand alone too."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch import approx, obs\n"
+        "from repro_torch.verify import spec, mutate\n"
+        "from repro_torch.circuit.simulate import Simulator, simulate\n"
+        "from repro_torch.obs import metrics, trace\n"
+        "assert approx.fit_budget and approx.measured_max_logit_error\n"
+        "assert len(mutate.CATALOG) == 18 and spec.lint_spec\n"
+        "assert trace.ENV_FLAG == 'REPRO_TRACE' and metrics.counter\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(REPO / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -117,7 +117,22 @@ Phases, each fatal on failure, each with its seconds printed:
    chosen point at 1% of its logit range, its measured max logit error
    (the ``Simulator`` on the card) held under the proven bound;
 24. the Fig. 1 sweeps (``paper.fig1(["whitewine"], epochs=60)``, 6 + 5 + 5
-   specs and the baseline) on CUDA, each technique's gain at <=5% loss.
+   specs and the baseline) on CUDA, each technique's gain at <=5% loss;
+25. the fault-tolerant island search (``repro_torch.search``) on CUDA:
+   WhiteWine (11-10-7, 60 epochs), 2 islands of population 8, 4 rounds,
+   migration every 2 rounds with 1 migrant, a checkpoint every round, the
+   batch evaluator on CUDA with tracing on. Run A uninterrupted; run B,
+   with its own cache, preempted after its second round and resumed by a
+   new runtime; run C with island 1 killed in round 1 and one spec failing
+   every attempt. Checked: B's front, objectives and evaluations byte-equal
+   to A's, with no spec finetuned again after the resume; C's survivor
+   finishes and the failing spec is quarantined on its result; every K1
+   launch took the shared-memory body; on A's front the netlist-exact
+   accuracy equals ``integer_forward``'s; the port's report of A's trace
+   lists the finetune and K1 with CUDA-event times, K1's nvcc build as its
+   one compile, and no recompile. Printed: each run's seconds, checkpoint
+   write ms and bytes, K1's launches, the finetune's share of A's wall
+   time and the report.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -673,9 +688,10 @@ def lm_serving(card: str, dev):
               "SDPA yardstick computes another function")
         fa_lib_ms = _graph_ms(sdpa, sets, reps=30)
         fa_lib_eager_ms = _rotating_ms(sdpa, sets, reps=30)
-        pairs = B * H * Tq * (Tq + 1) // 2          # visible (t, s), causal
-        fa_flops = 4 * hd * pairs
-        fa_bytes = 2 * (2 * B * Tq * H * hd + 2 * B * Tq * KV * hd)
+        # 4 hd flops a visible (t, s) pair a head, q k v o moved once: the
+        # wrapper's own counts
+        from repro_torch.kernels.flash_attention.ops import cost as fa_cost
+        fa_flops, fa_bytes = fa_cost(B, Tq, Tq, H, KV, hd, 2)
         fa_bytes_ms = fa_bytes / HBM_BYTES_PER_S * 1e3
         fa_ops_ms = fa_flops / BF16_TENSOR_FLOPS * 1e3
         print(f"[11] {card}: flash_attention B={B} T=S={Tq} H={H} KV={KV} "
@@ -744,11 +760,13 @@ def qmm_bound_ms(M, K, N, x_bytes):
     """(bound ms, "bytes" or "operations") of y = x @ dequant(w): x read,
     int8 weight and scales read, y written once; 2MKN operations at the
     bf16 tensor-core rate (float32 x: the TF32 rate, the most a float32
-    product could reach)."""
-    nbytes = M * K * x_bytes + K * N + N * 4 + M * N * x_bytes
+    product could reach). The counts are the wrapper's own (`cost`), the
+    ones its profiled dispatches record."""
+    from repro_torch.kernels.quant_matmul.ops import cost
+    ops, nbytes = cost(M, K, N, x_bytes)
     rate = BF16_TENSOR_FLOPS if x_bytes == 2 else TF32_TENSOR_FLOPS
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * M * K * N / rate * 1e3
+    ops_ms = ops / rate * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -1042,12 +1060,15 @@ def mamba_serving(card: str, dev):
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         ssm_ms = _rotating_ms(SS.ssm_scan, sets, reps=60)
         ssm_plain_ms = _rotating_ms(SS.ssm_scan_ref, sets, reps=3)
-        ssm_bytes = sum(a.numel() * a.element_size() for a in sets[0]) \
-            + B * Tq * di * 2                    # + y, bf16
-        # N state updates of 5 operations (dt A, da h, dt u, its product
-        # with B, the add) and N multiply-adds into y per (b, t, c), plus
-        # D u, on the CUDA cores
-        ssm_ops = B * Tq * di * (7 * N + 2)
+        # the inputs read and y (bf16) written once; N state updates of 5
+        # operations (dt A, da h, dt u, its product with B, the add) and N
+        # multiply-adds into y per (b, t, c), plus D u, on the CUDA cores:
+        # the wrapper's own counts
+        from repro_torch.kernels.ssm_scan.ops import cost as ssm_cost
+        ssm_ops, ssm_bytes = ssm_cost(B, Tq, di, N, 2)
+        check(ssm_bytes == sum(a.numel() * a.element_size()
+                               for a in sets[0]) + B * Tq * di * 2,
+              "ssm_scan's byte count differs from its inputs and output")
         ssm_bytes_ms = ssm_bytes / HBM_BYTES_PER_S * 1e3
         ssm_ops_ms = ssm_ops / SCALAR_OPS_PER_S * 1e3
         # and N exps per (b, t, c) on the special-function units: 16 exp2
@@ -1151,11 +1172,13 @@ def _within(got, ref, tol):
 def cmm_bound_ms(M, K, N, C, x_bytes):
     """(bound ms, "bytes" or "operations") of y = x @ W with W gathered
     from per-row codebooks: x, the int8 indices and the codebooks read once,
-    y written once; 2MKN operations at the tensor-core rate of x's type."""
-    nbytes = M * K * x_bytes + K * N + K * C * 4 + M * N * x_bytes
+    y written once; 2MKN operations at the tensor-core rate of x's type
+    (the wrapper's `cost`)."""
+    from repro_torch.kernels.clustered_matmul.ops import cost
+    ops, nbytes = cost(M, K, N, C, x_bytes)
     rate = BF16_TENSOR_FLOPS if x_bytes == 2 else TF32_TENSOR_FLOPS
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * M * K * N / rate * 1e3
+    ops_ms = ops / rate * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -1163,12 +1186,13 @@ def cmm_bound_ms(M, K, N, C, x_bytes):
 def bsmm_bound_ms(M, K, N, live, mask_bytes, x_bytes):
     """(bound ms, "bytes" or "operations") of the block-sparse product with
     a ``live`` share of its weight tiles: x, the live weights and the mask
-    read once, y written once; 2MKN x live operations."""
-    nbytes = (M * K * x_bytes + live * K * N * x_bytes + mask_bytes
-              + M * N * x_bytes)
+    read once, y written once; 2MKN x live operations (the wrapper's
+    `cost`)."""
+    from repro_torch.kernels.block_sparse_matmul.ops import cost
+    ops, nbytes = cost(M, K, N, live, mask_bytes, x_bytes)
     rate = BF16_TENSOR_FLOPS if x_bytes == 2 else TF32_TENSOR_FLOPS
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * M * K * N * live / rate * 1e3
+    ops_ms = ops / rate * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -1941,6 +1965,231 @@ def approximation_path(card: str, dev):
     return out
 
 
+def island_search(card: str, dev):
+    """Phase 25: the fault-tolerant island search on the card (module
+    docstring). Returns K1's launches and the phase's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import circuit
+    from repro_torch.configs.printed_mlp import PRINTED_MLPS
+    from repro_torch.core import batch_eval as BE
+    from repro_torch.core import ga as GA
+    from repro_torch.core import minimize as MZ
+    from repro_torch.kernels import LAUNCHES, build, reset_launches
+    from repro_torch.obs import metrics as MT
+    from repro_torch.obs import prof as PF
+    from repro_torch.obs import report
+    from repro_torch.obs import trace as TR
+    from repro_torch.search import (EvalFault, FaultHarness, FaultPlan,
+                                    IslandConfig, PreemptedError,
+                                    SearchConfig, SearchRuntime,
+                                    inject_eval_faults)
+
+    cfg = PRINTED_MLPS["whitewine"]
+    scfg = SearchConfig(
+        n_layers=len(cfg.layer_dims) - 1, rounds=4,
+        ga=GA.GAConfig(population=8, seed=0, input_bits=cfg.input_bits),
+        islands=IslandConfig(n_islands=2, migration_every=2, migrants=1),
+        checkpoint_every=1)
+    epochs = 60
+    # every spec that reaches _compile_and_price paid a real finetune
+    evaluated = []
+    compile_price = BE._compile_and_price
+
+    def counting(params_pop, specs, *a, **kw):
+        evaluated.extend(s.to_json() for s in specs)
+        return compile_price(params_pop, specs, *a, **kw)
+
+    def evaluator(path, quarantine=None):
+        cache = BE.EvalCache(path)
+        return BE.make_batch_evaluator(cfg, epochs=epochs, cache=cache,
+                                       quarantine=quarantine,
+                                       device="cuda"), cache
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out = {}
+    with Phase(25, "island search"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        BE._compile_and_price = counting
+        reset_launches()
+        PF.reset()
+        MT.REGISTRY.reset()
+        try:
+            # A: uninterrupted, traced
+            be, cache = evaluator(tmp / "a.json")
+            with TR.capture(tmp / "a.jsonl"):
+                res_a, a_s = timed(lambda: SearchRuntime(
+                    scfg, batch_evaluate=be, eval_cache=cache,
+                    ckpt_root=tmp / "ckpt_a").run())
+            evaluated_a, evaluated[:] = list(evaluated), []
+            hist = MT.snapshot()["histograms"]
+            MT.REGISTRY.reset()
+            # B: its own cache, preempted after its second round, resumed
+            # by a new runtime with a new evaluator and cache handle
+            be, cache = evaluator(tmp / "b.json")
+            with TR.capture(tmp / "b.jsonl"):
+                t0 = time.perf_counter()
+                try:
+                    SearchRuntime(scfg, batch_evaluate=be, eval_cache=cache,
+                                  ckpt_root=tmp / "ckpt_b",
+                                  harness=FaultHarness(FaultPlan(
+                                      preempt_at=1))).run()
+                    fail("run B was not preempted")
+                except PreemptedError:
+                    pass
+                b_pre_s = time.perf_counter() - t0
+                before, evaluated[:] = list(evaluated), []
+                be, cache = evaluator(tmp / "b.json")
+                rt, resume_s = timed(lambda: SearchRuntime.resume(
+                    scfg, tmp / "ckpt_b", batch_evaluate=be,
+                    eval_cache=cache))
+                check(rt.fleet.round == 2, f"B resumed at round "
+                      f"{rt.fleet.round}, not 2")
+                res_b, b_post_s = timed(rt.run)
+            after, evaluated[:] = list(evaluated), []
+            MT.REGISTRY.reset()
+            # C: island 1 dies in round 1, one spec of island 0 fails
+            # every attempt and is quarantined
+            bad = GA.init_ga_state(scfg.n_layers, scfg.ga).population[0]
+            quarantine = []
+            be, cache = evaluator(tmp / "c.json", quarantine)
+            harness = FaultHarness(FaultPlan(kill_island={1: 1}))
+            with TR.capture(tmp / "c.jsonl"), inject_eval_faults(
+                    [EvalFault(spec_json=bad.to_json(), fail_attempts=2)]):
+                res_c, c_s = timed(lambda: SearchRuntime(
+                    scfg, batch_evaluate=be, eval_cache=cache,
+                    harness=harness, quarantine=quarantine).run())
+            recs, damaged = TR.read_trace(tmp / "a.jsonl")
+            recs_b, _ = TR.read_trace(tmp / "b.jsonl")
+        finally:
+            BE._compile_and_price = compile_price
+        search_launches = dict(LAUNCHES)
+
+        print(f"[25] {card}: run A (uninterrupted) {a_s:.3f} s, "
+              f"{len(res_a.evaluations)} evaluations, "
+              f"{len(evaluated_a)} specs finetuned, front "
+              f"{len(res_a.front_specs)}")
+        print(f"[25] run B: {b_pre_s:.3f} s to its preemption after round 2 "
+              f"({len(before)} specs finetuned), resume {resume_s:.3f} s, "
+              f"then {b_post_s:.3f} s to the end ({len(after)} specs "
+              f"finetuned)")
+        print(f"[25] run C (island 1 killed in round 1, one spec failing "
+              f"every attempt): {c_s:.3f} s, generations "
+              f"{[st.generation for st in res_c.islands]}, quarantined "
+              f"{[(q.stage, q.error) for q in res_c.quarantined]}")
+        wm, wb = hist.get("ckpt.write_ms", {}), hist.get(
+            "ckpt.write_bytes", {})
+        print(f"[25] run A's {wm.get('count', 0)} checkpoints: write "
+              f"{wm.get('sum', 0.0) / max(wm.get('count', 1), 1):.3f} ms "
+              f"mean ({wm.get('min')}-{wm.get('max')} ms), "
+              f"{wb.get('min')}-{wb.get('max')} bytes")
+        spans = [r for r in recs if r.get("kind") == "span"
+                 and r["name"] == "eval.finetune"]
+        finetune_s = sum(float(r.get("dur", 0.0)) for r in spans)
+        first_s = sum(float(r.get("dur", 0.0)) for r in spans
+                      if r["attrs"].get("first"))
+        # B dispatches keys A already captured: no FLOP counting in it
+        b_s = b_pre_s + resume_s + b_post_s
+        finetune_b_s = sum(float(r.get("dur", 0.0)) for r in recs_b
+                           if r.get("kind") == "span"
+                           and r["name"] == "eval.finetune")
+        print(f"[25] run A's finetune {finetune_s:.3f} s of {a_s:.3f} s, "
+              f"{finetune_s / a_s:.1%} of the wall time ({first_s:.3f} s of "
+              f"it in first dispatches of a key, whose FLOPs "
+              f"FlopCounterMode counts); run B's {finetune_b_s:.3f} s of "
+              f"{b_s:.3f} s, {finetune_b_s / b_s:.1%}; K1 launches in "
+              f"runs A, B and C {search_launches['netlist_sim']} "
+              f"(shared-memory body {search_launches['netlist_sim_smem']})")
+        k1_ms = [float(r["attrs"]["device_ms"]) for r in recs
+                 if r.get("kind") == "span"
+                 and r["name"] == "kernels.netlist_sim.smem"]
+        print(f"[25] run A's {len(k1_ms)} K1 dispatches: CUDA-event "
+              f"{min(k1_ms, default=0):.4f}-{max(k1_ms, default=0):.4f} ms "
+              f"each, {sum(k1_ms):.4f} ms in all (a dispatch's events also "
+              f"hold the launch's host gap)")
+        text = report.render(recs, damaged, "run A's trace")
+        print("[25] the port's report of run A:")
+        print(text)
+
+        # -- checks ------------------------------------------------------
+        check(damaged == 0, "run A's trace has damaged lines")
+        check([s.to_json() for s in res_b.front_specs]
+              == [s.to_json() for s in res_a.front_specs],
+              "B's front differs from A's")
+        check(res_b.front_objectives.tobytes()
+              == res_a.front_objectives.tobytes(),
+              "B's front objectives differ from A's")
+        check(res_b.evaluations == res_a.evaluations,
+              "B's evaluations differ from A's")
+        check(not set(before) & set(after),
+              f"B re-evaluated {len(set(before) & set(after))} specs after "
+              "its resume")
+        check(sorted(before + after) == sorted(evaluated_a),
+              "B finetuned other specs than A")
+        check(res_c.islands[0].generation == scfg.rounds
+              and res_c.islands[1].generation == 1
+              and harness.log == [("kill", 1, 1)],
+              "C's survivor did not finish, or the kill went wrong")
+        check([q.spec_json for q in res_c.quarantined] == [bad.to_json()],
+              "the failing spec is not quarantined on C's result")
+        check(search_launches["netlist_sim"] > 0
+              and search_launches["netlist_sim_smem"]
+              == search_launches["netlist_sim"],
+              f"{search_launches['netlist_sim']} K1 launches in the runs, "
+              f"{search_launches['netlist_sim_smem']} through the "
+              "shared-memory body")
+        ex = report.executables(recs)
+        sites = {e["site"] for e in ex}
+        check({"eval.finetune", "kernels.netlist_sim.smem"} <= sites,
+              f"run A's report lists {sorted(sites)}")
+        check(all(e.get("device_ms", 0.0) > 0 for e in ex
+                  if e["site"] in ("eval.finetune",
+                                   "kernels.netlist_sim.smem")),
+              "an executable of run A has no CUDA-event time")
+        k1_compiles = [(e["compiles"], e["compile_s"]) for e in ex
+                       if e["site"] == "kernels.netlist_sim.smem"
+                       and e["compiles"]]
+        check(len(k1_compiles) == 1 and k1_compiles[0][0] == 1
+              and abs(k1_compiles[0][1]
+                      - build.BUILD_INFO["netlist_sim"]["seconds"]) < 1e-3,
+              f"K1's nvcc build is not one compile of run A: {k1_compiles}")
+        check(all(e["compiles"] <= 1 for e in ex)
+              and "0 key(s) recompiled" in text,
+              "run A recompiled a key")
+        # the netlist-exact accuracy of A's front against integer_forward
+        _, _, xte, yte = MZ.dataset_for(cfg)
+        for spec in res_a.front_specs:
+            net, compiled = circuit.compile_spec(cfg, spec, epochs=epochs,
+                                                 device=dev)
+            acc_net = circuit.netlist_accuracy(net, compiled, xte, yte,
+                                               device=dev)
+            _, cls = MZ.integer_forward(compiled,
+                                        MZ.quantize_inputs(compiled, xte))
+            check(acc_net == float(np.mean(cls == yte)),
+                  f"{spec.to_json()}: netlist-exact accuracy != integer "
+                  "forward")
+        print(f"[25] all {len(res_a.front_specs)} points of A's front: "
+              f"netlist-exact accuracy == integer_forward's")
+        launches = dict(LAUNCHES)
+        print(f"[25] K1 launches in phase 25, the front's checks included: "
+              f"{launches['netlist_sim']} (shared-memory body "
+              f"{launches['netlist_sim_smem']})")
+        check(launches["netlist_sim_smem"] == launches["netlist_sim"],
+              "a K1 launch of phase 25 took the global body")
+        out = {"launches": launches, "search_launches": search_launches,
+               "a_s": a_s, "b_pre_s": b_pre_s,
+               "resume_s": resume_s, "b_post_s": b_post_s, "c_s": c_s}
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -2181,15 +2430,9 @@ def main() -> None:
         big_shape = (f"P={big_pop.n_candidates} N={big_pop.n_slots} "
                      f"B={big_x.shape[1]} {NSO.lane_dtype(big_pop)}")
         lane = 4 if NSO.lane_dtype(pop) == torch.int32 else 8
-        n = pop.n_nodes.astype(np.int64)
-        valid = np.arange(pop.n_slots)[None, :] < n[:, None]
-        comp = valid & (pop.op >= int(circuit.Op.SHL)) & \
-            (pop.op != int(circuit.Op.ARGMAX))
-        ops = int(comp.sum()) * B
-        nbytes = (pop.op.size * 4 * 4 + pop.op.size * lane + P * 4
-                  + pop.level_ptr.size * 4 + P * 4
-                  + pop.input_pos.size * 4 + pop.argmax_pos.size * 4
-                  + x.numel() * lane + P * B * pop.n_classes * lane + P * B * 8)
+        # every computed slot once a sample; tables, x and the outputs
+        # moved once: the wrapper's own counts (`netlist_sim.ops.cost`)
+        ops, nbytes = NSO.cost(pop, B, lane, smem=True)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / SCALAR_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
@@ -2272,6 +2515,13 @@ def main() -> None:
         + paper_track["fig1"]["launches"]["netlist_sim_smem"])
     netlist_entry["approximated_population"] = \
         paper_track["approx_population"]
+    islands = island_search(card, dev)
+    netlist_entry["launches_by_path"][
+        "island search: runs A, B, C and the front's checks (phase 25)"] = \
+        islands["launches"]["netlist_sim"]
+    netlist_entry["launches"] += islands["launches"]["netlist_sim"]
+    netlist_entry["launches_smem_body"] += \
+        islands["launches"]["netlist_sim_smem"]
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
                                   bsmm_entry, fa_entry, ssm_entry]}))
     print(json.dumps({"ok": True, "device": {

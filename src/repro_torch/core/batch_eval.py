@@ -46,6 +46,7 @@ from repro_torch.core import minimize as MZ
 from repro_torch.core.compression_spec import ModelMin
 from repro_torch.nn import mlp as M
 from repro_torch.obs import metrics as MT
+from repro_torch.obs import prof as PF
 from repro_torch.obs import trace as TR
 
 # Padded k-means slot count: must cover every cluster count the GA can emit
@@ -329,6 +330,9 @@ class EvalCache:
             warnings.warn(f"EvalCache {self.path} corrupt ({e}); salvaged "
                           f"{len(data)} entries, damaged file backed up "
                           f"to {backup}")
+            MT.counter("cache.salvages").inc()
+            TR.event("cache.salvage", path=str(self.path),
+                     salvaged=len(data))
             return data
 
     @staticmethod
@@ -344,7 +348,9 @@ class EvalCache:
             netlist: bool = False) -> Optional[MZ.EvalResult]:
         d = self._data.get(self.key(dataset, seed, epochs, spec, netlist))
         if d is None:
+            MT.counter("cache.miss").inc()
             return None
+        MT.counter("cache.hit").inc()
         self._touch(d)                  # LRU: a hit keeps the entry young
         self._touched += 1
         return MZ.EvalResult(ModelMin.from_json(d["spec"]), d["accuracy"],
@@ -368,7 +374,9 @@ class EvalCache:
         # re-read/merge/rewrite: skip (recency persistence is best-effort)
         if not self._dirty and self._touched < self.TOUCH_FLUSH_EVERY:
             return
-        self._flush_locked()
+        with TR.span("cache.flush", entries=len(self._data)):
+            MT.counter("cache.flushes").inc()
+            self._flush_locked()
 
     def _flush_locked(self) -> None:
         self.path.parent.mkdir(parents=True, exist_ok=True)
@@ -420,7 +428,7 @@ class EvalCache:
 # Process-local, LRU-capped (mirroring EvalCache's max_entries): a
 # service-style run cycling through many datasets/specs keeps its working
 # set and evicts the least-recently-hit tables — entries are a few dense
-# KB each.
+# KB each, and `netlist_sim.pack_evictions` counts the churn.
 _PACK_CACHE: "OrderedDict[str, object]" = OrderedDict()
 _PACK_CACHE_CAP = 2048
 
@@ -428,11 +436,13 @@ _PACK_CACHE_CAP = 2048
 def _packed_netlist_for(key: Optional[str], net, NS):
     if key is not None and key in _PACK_CACHE:
         _PACK_CACHE.move_to_end(key)
+        MT.counter("netlist_sim.pack_hits").inc()
         return _PACK_CACHE[key]
     packed = NS.pack_netlist(net)
     if key is not None:
         while len(_PACK_CACHE) >= _PACK_CACHE_CAP:
             _PACK_CACHE.popitem(last=False)
+            MT.counter("netlist_sim.pack_evictions").inc()
         _PACK_CACHE[key] = packed
     return packed
 
@@ -665,15 +675,37 @@ def evaluate_population(cfg: PrintedMLPConfig, specs: Sequence[ModelMin], *,
              hits=n_hits, evaluated=len(todo))
 
     if todo:
+        n_real = len(todo)
         params0, (xtr, ytr, xte, yte) = MZ.pretrain(cfg, seed=seed,
                                                     device=dev)
         bits, ks = stack_specs(todo)
         stacked, masks_serial = stack_masks(params0, todo)
-        trained = _population_finetune(
-            params0, torch.as_tensor(bits, device=dev),
-            torch.as_tensor(ks, device=dev),
-            [torch.as_tensor(m, device=dev) for m in stacked],
-            *MZ._tensors(xtr, ytr, dev), epochs=epochs, lr=2e-3)
+        # the reference pads the population to a power-of-two bucket so its
+        # jit keeps one executable per bucket; eager PyTorch specializes on
+        # nothing, so the port trains exactly the real specs: total equals
+        # real and utilization is 1 (same counters, the port's own values)
+        MT.counter("eval.pad.specs_real").inc(n_real)
+        MT.counter("eval.pad.specs_total").inc(n_real)
+        MT.histogram("eval.bucket_util_hist").observe(1.0)
+        args = (params0, torch.as_tensor(bits, device=dev),
+                torch.as_tensor(ks, device=dev),
+                [torch.as_tensor(m, device=dev) for m in stacked],
+                *MZ._tensors(xtr, ytr, dev))
+        kw = dict(epochs=epochs, lr=2e-3)
+        if not TR.active():
+            trained = _population_finetune(*args, **kw)
+        else:
+            TR.event("eval.padding", dataset=cfg.name, specs_real=n_real,
+                     specs_total=n_real)
+            key = ("finetune", cfg.name, n_real, epochs,
+                   tuple(cfg.layer_dims), dev.type)
+            # timed on the card by CUDA events; the first dispatch of a key
+            # has its matmul FLOPs counted by FlopCounterMode
+            with PF.dispatch("eval.finetune", key, device=dev, args=args,
+                             count_flops=True, dataset=cfg.name,
+                             bucket=n_real, n=n_real) as call:
+                trained = _population_finetune(*args, **kw)
+                call.outputs = trained
         trained = M.params_to_numpy(trained)    # one host copy per leaf
         recs: List[QuarantineRecord] = []
 
@@ -681,9 +713,11 @@ def evaluate_population(cfg: PrintedMLPConfig, specs: Sequence[ModelMin], *,
             return EvalCache.key(cfg.name, seed, epochs, s,
                                  netlist=True) + "|pack"
 
-        priced = _compile_and_price(trained, todo, masks_serial, xte, yte,
-                                    netlist=netlist, quarantine=recs,
-                                    pack_key=pack_key, device=dev)
+        with TR.span("eval.compile_price", dataset=cfg.name, n=n_real):
+            priced = _compile_and_price(trained, todo, masks_serial, xte,
+                                        yte, netlist=netlist,
+                                        quarantine=recs, pack_key=pack_key,
+                                        device=dev)
         for r in priced:
             results[r.spec.to_json()] = r
             if cache is not None and \
@@ -729,12 +763,15 @@ def make_batch_evaluator(cfg: PrintedMLPConfig, *, epochs: int = 150,
     pricing) whatever ``netlist`` says. ``quarantine``, if given, collects
     the `QuarantineRecord`s of failing specs — share the list with
     `run_nsga2(quarantine=...)` / the island runtime so quarantined specs
-    surface on the final result.
+    surface on the final result. ``device`` is resolved here: without a
+    card, anything but ``"cpu"`` raises when the evaluator is made.
     """
+    dev = resolve_device(device)
+
     def batch_evaluate(specs: Sequence[ModelMin]):
         rs = evaluate_population(cfg, specs, epochs=epochs, seed=seed,
                                  cache=cache, netlist=netlist,
-                                 quarantine=quarantine, device=device)
+                                 quarantine=quarantine, device=dev)
         if record is not None:
             record.update((r.spec.to_json(), r) for r in rs)
         if include_delay:

@@ -27,7 +27,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.compression_spec import LayerMin, ModelMin
-from repro_torch.core.pareto import crowding_distance, non_dominated_sort
+from repro_torch.core.pareto import (crowding_distance, non_dominated_sort,
+                                     pareto_front)
+from repro_torch.obs import metrics as MT
+from repro_torch.obs import trace as TR
 
 BITS_CHOICES = (2, 3, 4, 5, 6, 7, 8)
 SPARSITY_CHOICES = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7)
@@ -289,7 +292,21 @@ def run_nsga2(n_layers: int,
 
     state = init_ga_state(n_layers, cfg, seed_specs)
     for _ in range(cfg.generations):
-        state = ga_generation(state, cfg, fit_all)
+        with TR.span("ga.generation", generation=state.generation):
+            state = ga_generation(state, cfg, fit_all)
+        MT.counter("ga.generations").inc()
+        if TR.active() and state.history:
+            # front stats + first-front objectives for the report's
+            # Pareto-progress curve; ranks come from the memo, never the
+            # RNG, so tracing cannot perturb the trajectory
+            objs = fit_all(state.population)
+            first = pareto_front(objs)
+            TR.event("ga.front", generation=state.generation,
+                     best_acc=state.history[-1].get("best_acc"),
+                     min_cost=state.history[-1].get("min_cost"),
+                     front_size=len(first),
+                     front=[[round(float(v), 6) for v in objs[int(i)]]
+                            for i in first])
         if on_generation is not None:
             on_generation(state)
 

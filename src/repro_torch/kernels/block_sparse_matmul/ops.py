@@ -20,6 +20,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs import prof as PF
+from repro_torch.obs import trace as TR
 from repro_torch.kernels.block_sparse_matmul.ref import \
     block_sparse_matmul_ref
 
@@ -68,6 +70,16 @@ def _check(x: torch.Tensor, w: torch.Tensor, block_mask: torch.Tensor,
         raise ValueError("x, w and block_mask lie on different devices")
 
 
+def cost(M: int, K: int, N: int, live: float, mask_bytes: int,
+         x_bytes: int) -> Tuple[float, float]:
+    """(operations, bytes) of the block-sparse product with a ``live``
+    share of its weight tiles: 2MKN x live; x, the live weights and the
+    mask read once, y written once. The counts behind the kernel's
+    bound."""
+    return 2 * M * K * N * live, (M * K * x_bytes + live * K * N * x_bytes
+                                  + mask_bytes + M * N * x_bytes)
+
+
 def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
                         block_mask: torch.Tensor, *, block_m: int = 128,
                         block_n: int = 128,
@@ -104,16 +116,36 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     per = 16 // w.element_size()
     w16 = block_n % per == 0 and N % per == 0 and w.data_ptr() % 16 == 0
     x16 = K % per == 0 and x.data_ptr() % 16 == 0
-    rc = _kernel(x.dtype, block_mask.dtype)(
-        x.data_ptr(), w.data_ptr(), block_mask.data_ptr(), y.data_ptr(),
-        M, K, N, block_k, block_n, int(w16) | int(x16) << 1,
-        torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"block_sparse_matmul kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES["block_sparse_matmul"] += 1
-    if x.dtype == torch.bfloat16:
-        LAUNCHES["block_sparse_matmul_mma"] += 1
+    fn = _kernel(x.dtype, block_mask.dtype)
+
+    def launch():
+        rc = fn(x.data_ptr(), w.data_ptr(), block_mask.data_ptr(),
+                y.data_ptr(), M, K, N, block_k, block_n,
+                int(w16) | int(x16) << 1,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"block_sparse_matmul kernel launch failed: "
+                               f"CUDA error {rc}")
+        LAUNCHES["block_sparse_matmul"] += 1
+        if x.dtype == torch.bfloat16:
+            LAUNCHES["block_sparse_matmul_mma"] += 1
+
+    if not TR.active():
+        launch()
+        return y
+    # the live share is this call's data (one host read, traced path only)
+    live = float((block_mask > 0).float().mean())
+    ops, nbytes = cost(M, K, N, live,
+                       block_mask.numel() * block_mask.element_size(),
+                       x.element_size())
+    with PF.dispatch("kernels.block_sparse_matmul",
+                     ("block_sparse_matmul", (M, K), (K, N), block_k,
+                      block_n, str(x.dtype)),
+                     device=x.device, args=(x, w, block_mask), flops=ops,
+                     bytes_accessed=nbytes, library="block_sparse_matmul",
+                     m=M, k=K, n=N, live=round(live, 6)) as call:
+        launch()
+        call.outputs = y
     return y
 
 

@@ -6,7 +6,8 @@ use with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``ctypes``. The library's name carries a hash of the source, of every shared
 header ``csrc/*.cuh`` and of the flags, so an edited kernel or header is
 rebuilt and a stale library is never loaded. No ``nvcc`` on a machine that
-asks for a kernel is an error.
+asks for a kernel is an error. Every build is reported to
+`repro_torch.obs.xprof.on_build`, the port's compile event.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+from repro_torch.obs import xprof
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -83,6 +86,9 @@ def build_many(names: Iterable[str]) -> Dict[str, Path]:
             os.replace(tmp, out[n])   # atomic: concurrent builds agree
             BUILD_INFO[n] = {"seconds": time.perf_counter() - t0,
                              "log": log}
+            # a build is the port's compile: count_compiles sinks see it,
+            # and the first profiled dispatch of the library records it
+            xprof.on_build(n, BUILD_INFO[n]["seconds"])
     finally:
         for tmp, proc in procs.values():
             if proc.poll() is None:

@@ -17,6 +17,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs import prof as PF
+from repro_torch.obs import trace as TR
 from repro_torch.kernels.clustered_matmul.ref import clustered_matmul_ref
 
 _X = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -62,6 +64,15 @@ def _check(x: torch.Tensor, idx: torch.Tensor,
         raise ValueError("x, idx and codebook lie on different devices")
 
 
+def cost(M: int, K: int, N: int, C: int, x_bytes: int,
+         idx_bytes: int = 1) -> Tuple[int, int]:
+    """(operations, bytes) of y = x @ W, W gathered from per-row
+    codebooks: 2MKN; x, the indices and the codebooks read once, y written
+    once. The counts behind the kernel's bound."""
+    return 2 * M * K * N, (M * K * x_bytes + K * N * idx_bytes + K * C * 4
+                           + M * N * x_bytes)
+
+
 def clustered_matmul(x: torch.Tensor, idx: torch.Tensor,
                      codebook: torch.Tensor) -> torch.Tensor:
     """y = x @ W, W[k, n] = codebook[k, idx[k, n]]: x (M, K) float32/bf16,
@@ -90,13 +101,29 @@ def clustered_matmul(x: torch.Tensor, idx: torch.Tensor,
     # 16 bytes of neighbouring indices in one load (16 int8 or 4 int32)
     vec = int(N % (16 // idx.element_size()) == 0
               and idx.data_ptr() % 16 == 0)
-    rc = _kernel(x.dtype, idx.dtype)(
-        x.data_ptr(), idx.data_ptr(), codebook.data_ptr(), y.data_ptr(),
-        M, K, N, C, vec, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"clustered_matmul kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES["clustered_matmul"] += 1
+    fn = _kernel(x.dtype, idx.dtype)
+
+    def launch():
+        rc = fn(x.data_ptr(), idx.data_ptr(), codebook.data_ptr(),
+                y.data_ptr(), M, K, N, C, vec,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"clustered_matmul kernel launch failed: "
+                               f"CUDA error {rc}")
+        LAUNCHES["clustered_matmul"] += 1
+
+    if not TR.active():
+        launch()
+        return y
+    ops, nbytes = cost(M, K, N, C, x.element_size(), idx.element_size())
+    with PF.dispatch("kernels.clustered_matmul",
+                     ("clustered_matmul", (M, K), (K, N), C, str(x.dtype),
+                      str(idx.dtype)),
+                     device=x.device, args=(x, idx, codebook), flops=ops,
+                     bytes_accessed=nbytes, library="clustered_matmul",
+                     m=M, k=K, n=N) as call:
+        launch()
+        call.outputs = y
     return y
 
 

@@ -20,11 +20,14 @@ follows from the inputs alone, never from a failure.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs import prof as PF
+from repro_torch.obs import trace as TR
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_tolerance)
 
@@ -94,6 +97,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v lie on different devices")
 
 
+def visible_pairs(T: int, S: int, *, causal: bool = True,
+                  window: int = 0) -> int:
+    """The (query t, key s) pairs one head attends: s < S, s <= t when
+    causal, s > t - window when ``window`` > 0."""
+    t = np.arange(T, dtype=np.int64)
+    hi = np.minimum(t, S - 1) if causal else np.full(T, S - 1, np.int64)
+    lo = np.maximum(t - window + 1, 0) if window > 0 else np.zeros(T,
+                                                                   np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def cost(B: int, T: int, S: int, H: int, KV: int, hd: int, elem: int, *,
+         causal: bool = True, window: int = 0) -> Tuple[int, int]:
+    """(flops, bytes) of one attention call: q k^T and P v, 4 hd flops a
+    visible pair a head; q and o (B, T, H, hd), k and v (B, S, KV, hd)
+    moved once at ``elem`` bytes a value. The counts behind the kernel's
+    bound."""
+    flops = 4 * hd * B * H * visible_pairs(T, S, causal=causal,
+                                           window=window)
+    return flops, elem * (2 * B * T * H * hd + 2 * B * S * KV * hd)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
@@ -125,16 +150,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       for s in a.stride()[:3]))
     wgmma = takes_wgmma(q, k, v)
     name = "bf16_wgmma" if wgmma else _SUFFIX[q.dtype]
-    rc = _kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), B, T, S, H, KV, hd, strides,
-                          int(causal), int(window), float(softcap),
-                          torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES["flash_attention"] += 1
-    if wgmma:
-        LAUNCHES["flash_attention_wgmma"] += 1
+    fn = _kernel(name)
+
+    def launch():
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                B, T, S, H, KV, hd, strides, int(causal), int(window),
+                float(softcap), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_attention kernel launch failed: "
+                               f"CUDA error {rc}")
+        LAUNCHES["flash_attention"] += 1
+        if wgmma:
+            LAUNCHES["flash_attention_wgmma"] += 1
+
+    if not TR.active():
+        launch()
+        return o
+    flops, nbytes = cost(B, T, S, H, KV, hd, q.element_size(),
+                         causal=causal, window=window)
+    with PF.dispatch("kernels.flash_attention",
+                     ("flash_attention", (B, T, S, H, KV, hd), str(q.dtype),
+                      bool(causal), int(window), name),
+                     device=q.device, args=(q, k, v), flops=flops,
+                     bytes_accessed=nbytes, library="flash_attention",
+                     b=B, t=T, s=S, h=H) as call:
+        launch()
+        call.outputs = o
     return o
 
 

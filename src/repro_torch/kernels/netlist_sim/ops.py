@@ -22,9 +22,26 @@ is <= 32, int64 otherwise, in every engine; all are bit-exact against the
 oracle. The reference's shape bucketing and candidate padding existed to
 reuse XLA executables; eager torch and a kernel that takes its sizes at run
 time need neither.
+
+Every launch is accounted under the reference's names
+(`simulate_population`): ``netlist_sim.launches`` and
+``netlist_sim.candidates``, and the ``netlist_sim.pad.*`` counters, the
+``netlist_sim.lane_util`` gauge, its histograms and the
+``netlist_sim.padding`` event for the port's own padding. Its "lanes" are,
+for the kernel's two bodies, the dense (P, N) node-table slots a launch
+stages against the candidates' real slots (``n_nodes``), and for the plain
+version, the wave grid (waves x ``window``) against the waves' real ops;
+its "rows" are the samples: B real against the samples the grid covers (B
+rounded up to the shared-memory body's tile, to the global body's block of
+`BLOCK`, or B itself for the plain version). Candidates are never padded.
+With tracing on, each kernel launch dispatches through the executable
+observatory as ``kernels.netlist_sim.smem`` or
+``kernels.netlist_sim.global`` with its analytic operations and bytes
+(`cost`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from typing import Dict, Optional, Tuple
@@ -35,6 +52,9 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.circuit import ir
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs import metrics as MT
+from repro_torch.obs import prof as PF
+from repro_torch.obs import trace as TR
 from repro_torch.kernels.netlist_sim.pack import (NOP, PackedPopulation,
                                                   pack_netlist,
                                                   pack_population)
@@ -86,6 +106,27 @@ def smem_tile(P: int, N: int, B: int, lane_bytes: int, sms: int,
              if 2 * smem_bytes(N, bt, lane_bytes) <= smem_max]
     full = [bt for bt in twice if P * -(-B // bt) >= 2 * sms]
     return (full or twice or fits)[0]
+
+
+def cost(pop: PackedPopulation, B: int, lane_bytes: int, *,
+         smem: bool = True) -> Tuple[int, int]:
+    """(integer operations, bytes) of one kernel launch over B samples:
+    every computed slot (SHL..TRUNC, not CONST, INPUT or ARGMAX) once a
+    sample; the op tables, x, the comparator operands and the class
+    decisions each moved once, and the level tables for the shared-memory
+    body. The counts behind the kernel's bound."""
+    P, N = pop.op.shape
+    n = pop.n_nodes.astype(np.int64)
+    valid = np.arange(N)[None, :] < n[:, None]
+    comp = valid & (pop.op >= _SHL) & (pop.op != _ARGMAX)
+    ops = int(comp.sum()) * B
+    nbytes = (pop.op.size * 4 * 4 + pop.op.size * lane_bytes + P * 4
+              + pop.input_pos.size * 4 + pop.argmax_pos.size * 4
+              + P * B * pop.n_inputs * lane_bytes
+              + P * B * pop.n_classes * lane_bytes + P * B * 8)
+    if smem:
+        nbytes += pop.level_ptr.size * 4 + P * 4
+    return ops, nbytes
 
 
 def device_limits(device: torch.device) -> Tuple[int, int]:
@@ -313,6 +354,18 @@ class StagedLaunch:
             [ctypes.c_int] * len(self.dims) + [ctypes.c_void_p]
         self.fn.restype = ctypes.c_int
         self.device = dev
+        self.lane_bytes = torch.iinfo(dt).bits // 8
+        self.body = "global" if self.tile is None else "smem"
+        self.key = ("netlist_sim", self.body, P, N,
+                    pop.level_ptr.shape[1] - 1, B, pop.n_inputs, C,
+                    self.tile or BLOCK, suffix)
+        grid_b = self.tile or BLOCK
+        self.stats = {
+            "engine": "cuda." + self.body, "key": self.key,
+            "cand_real": P, "cand_total": P,
+            "lanes_used": int(pop.n_nodes.sum()), "lanes_total": P * N,
+            "rows_real": B, "rows_total": -(-B // grid_b) * grid_b,
+            "tiles": -(-B // grid_b)}
 
     def launch(self) -> None:
         with torch.cuda.device(self.device):
@@ -328,15 +381,29 @@ class StagedLaunch:
             LAUNCHES["netlist_sim_smem"] += 1
 
 
+def _levels_stats(pop: PackedPopulation, B: int, window: int) -> Dict:
+    """The plain version's padding: its wave grid against the waves' real
+    ops."""
+    OP = _global_schedule(pop, window).OP
+    return {"engine": "levels",
+            "key": ("netlist_levels", OP.shape[0], window,
+                    pop.n_candidates, pop.n_inputs, pop.n_classes, B),
+            "cand_real": pop.n_candidates, "cand_total": pop.n_candidates,
+            "lanes_used": int((OP != NOP).sum()), "lanes_total": OP.size,
+            "rows_real": B, "rows_total": B, "tiles": 1}
+
+
 def netlist_sim(pop: PackedPopulation, x: torch.Tensor, *,
-                window: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+                window: int = 256, stats: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper. x: (P, B, n_in) integer tensor.
     -> (amx (P, B, C) int64, cls (P, B) int64) on x's device.
 
     A CUDA tensor launches the kernel (counted in
     ``repro_torch.kernels.LAUNCHES["netlist_sim"]``, and in
     ``LAUNCHES["netlist_sim_smem"]`` where it took the shared-memory body)
-    or raises; a CPU tensor takes the plain version `simulate_levels`."""
+    or raises; a CPU tensor takes the plain version `simulate_levels`.
+    ``stats``, if given, receives the launch's padding accounting."""
     if x.dim() != 3 or x.shape[0] != pop.n_candidates \
             or x.shape[2] != pop.n_inputs:
         raise ValueError(f"x shape {tuple(x.shape)} vs population "
@@ -344,12 +411,27 @@ def netlist_sim(pop: PackedPopulation, x: torch.Tensor, *,
     if x.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"x must be int32/int64, got {x.dtype}")
     if x.device.type == "cpu":
+        if stats is not None:
+            stats.update(_levels_stats(pop, x.shape[1], window))
         amx = simulate_levels(pop, x, window=window)
         return amx, torch.argmax(amx, dim=-1)
     if x.device.type != "cuda":
         raise ValueError(f"netlist_sim runs on CUDA or CPU, not {x.device}")
     run = StagedLaunch(pop, x)
-    run.launch()
+    if stats is not None:
+        stats.update(run.stats)
+    if not TR.active():
+        run.launch()
+    else:
+        ops, nbytes = cost(pop, x.shape[1], run.lane_bytes,
+                           smem=run.tile is not None)
+        with PF.dispatch("kernels.netlist_sim." + run.body, run.key,
+                         device=x.device, args=run.inputs, flops=ops,
+                         bytes_accessed=nbytes, library="netlist_sim",
+                         p=pop.n_candidates, b=x.shape[1],
+                         tiles=run.stats["tiles"]) as call:
+            run.launch()
+            call.outputs = (run.amx, run.cls)
     return run.amx.to(torch.int64), run.cls
 
 
@@ -373,15 +455,51 @@ def simulate_population(pop: PackedPopulation, x: np.ndarray, *,
     engine = engine or "cuda"
     if engine == "ref":
         return simulate_population_ref(pop, x)
-    xt = torch.as_tensor(x, device=resolve_device(device))
-    if engine == "levels":
-        amx = simulate_levels(pop, xt, window=window)
-        cls = torch.argmax(amx, dim=-1)
-    elif engine == "cuda":
-        amx, cls = netlist_sim(pop, xt, window=window)
-    else:
+    if engine not in ("levels", "cuda"):
         raise ValueError(f"unknown engine {engine!r}")
-    return {"amx": amx.cpu().numpy(), "argmax": cls.cpu().numpy()}
+    xt = torch.as_tensor(x, device=resolve_device(device))
+    P, B = x.shape[0], x.shape[1]
+    MT.counter("netlist_sim.launches").inc()
+    MT.counter("netlist_sim.candidates").inc(P)
+    stats: Dict = {}
+    with (TR.span("kernels.netlist_sim", engine=engine, p=P, b=B,
+                  slots=int(pop.n_nodes.sum()))
+          if TR.active() else contextlib.nullcontext()):
+        if engine == "levels":
+            stats.update(_levels_stats(pop, B, window))
+            amx = simulate_levels(pop, xt, window=window)
+            cls = torch.argmax(amx, dim=-1)
+        else:
+            amx, cls = netlist_sim(pop, xt, window=window, stats=stats)
+        out = {"amx": amx.cpu().numpy(), "argmax": cls.cpu().numpy()}
+    _account_padding(stats)
+    return out
+
+
+def _account_padding(stats: Dict) -> None:
+    """Always-on packing-efficiency accounting for one launch, under the
+    reference's names with the port's own lanes and rows (module
+    docstring). Counters hold exact totals (deterministic functions of the
+    evaluated populations, so they keep the checkpoint bit-identity
+    contract); utilization ratios go to gauges/histograms; the full stats
+    ride the trace as a ``netlist_sim.padding`` event when tracing."""
+    lanes_u, lanes_t = stats["lanes_used"], stats["lanes_total"]
+    rows_r, rows_t = stats["rows_real"], stats["rows_total"]
+    MT.counter("netlist_sim.pad.lanes_used").inc(lanes_u)
+    MT.counter("netlist_sim.pad.lanes_total").inc(lanes_t)
+    MT.counter("netlist_sim.pad.rows_real").inc(rows_r)
+    MT.counter("netlist_sim.pad.rows_total").inc(rows_t)
+    MT.counter("netlist_sim.pad.cand_real").inc(stats["cand_real"])
+    MT.counter("netlist_sim.pad.cand_total").inc(stats["cand_total"])
+    lane_util = lanes_u / max(lanes_t, 1)
+    MT.gauge("netlist_sim.lane_util").set(lane_util)
+    MT.histogram("netlist_sim.lane_util_hist").observe(lane_util)
+    MT.histogram("netlist_sim.row_util_hist").observe(
+        rows_r / max(rows_t, 1))
+    if TR.active():
+        TR.event("netlist_sim.padding",
+                 **{k: (PF.key_str(v) if k == "key" else v)
+                    for k, v in stats.items()})
 
 
 def population_accuracy(pop: PackedPopulation, x: np.ndarray,
@@ -395,4 +513,5 @@ def population_accuracy(pop: PackedPopulation, x: np.ndarray,
 
 __all__ = ["simulate_population", "population_accuracy", "netlist_sim",
            "simulate_levels", "smem_tile", "device_limits", "check_levels",
+           "cost",
            "pack_netlist", "pack_population", "simulate_population_ref"]

@@ -16,11 +16,13 @@ follows from their alignment, never from a failure.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs import prof as PF
+from repro_torch.obs import trace as TR
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -56,6 +58,13 @@ def _check(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor) -> None:
         raise ValueError("x, w_q and scales lie on different devices")
 
 
+def cost(M: int, K: int, N: int, x_bytes: int) -> Tuple[int, int]:
+    """(operations, bytes) of y = x @ dequant(w_q, scales): 2MKN; x, the
+    int8 weight and the scales read once, y written once. The counts
+    behind the kernel's bound."""
+    return 2 * M * K * N, M * K * x_bytes + K * N + N * 4 + M * N * x_bytes
+
+
 def _flags(x: torch.Tensor, w_q: torch.Tensor) -> int:
     """Bit 0: the weights' rows of a 16-column strip are 16-byte copies (N
     a multiple of 16, w_q 16-byte aligned); bit 1: x's rows are staged by
@@ -85,15 +94,30 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     if max(M, K, N) >= 2 ** 31 or M > 8 * 65535:
         raise ValueError(f"quant_matmul: shape {(M, K, N)} too large")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    rc = _kernel(x.dtype)(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                          y.data_ptr(), M, K, N, _flags(x, w_q),
-                          torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["quant_matmul"] += 1
-    if x.dtype == torch.bfloat16:
-        LAUNCHES["quant_matmul_mma"] += 1
+    fn = _kernel(x.dtype)
+
+    def launch():
+        rc = fn(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
+                y.data_ptr(), M, K, N, _flags(x, w_q),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"quant_matmul kernel launch failed: CUDA "
+                               f"error {rc}")
+        LAUNCHES["quant_matmul"] += 1
+        if x.dtype == torch.bfloat16:
+            LAUNCHES["quant_matmul_mma"] += 1
+
+    if not TR.active():
+        launch()
+        return y
+    ops, nbytes = cost(M, K, N, x.element_size())
+    with PF.dispatch("kernels.quant_matmul",
+                     ("quant_matmul", (M, K), (K, N), str(x.dtype)),
+                     device=x.device, args=(x, w_q, scales), flops=ops,
+                     bytes_accessed=nbytes, library="quant_matmul",
+                     m=M, k=K, n=N) as call:
+        launch()
+        call.outputs = y
     return y
 
 

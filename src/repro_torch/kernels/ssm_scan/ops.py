@@ -12,11 +12,13 @@ does it run the plain version `ssm_scan_ref`.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import LAUNCHES
+from repro_torch.obs import prof as PF
+from repro_torch.obs import trace as TR
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -60,6 +62,19 @@ def _check(u, dt, B_, C_, A, D) -> None:
         raise ValueError("ssm_scan's inputs lie on different devices")
 
 
+def cost(B: int, T: int, d: int, N: int, x_bytes: int) -> Tuple[int, int]:
+    """(float32 operations, bytes) of one scan: N state updates of 5
+    operations (dt A, its exp's argument times h, dt u, its product with
+    B_, the add) and N multiply-adds into y per (b, t, channel), plus D u;
+    u, B_, C_ (``x_bytes`` each), dt, A, D (float32) read once, y written
+    once. The B T d N exps, on the special-function units, are counted
+    apart by the caller that needs them. The counts behind the kernel's
+    bound."""
+    nbytes = (B * T * d * x_bytes + B * T * d * 4 + 2 * B * T * N * x_bytes
+              + d * N * 4 + d * 4 + B * T * d * x_bytes)
+    return B * T * d * (7 * N + 2), nbytes
+
+
 def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
              C_: torch.Tensor, A: torch.Tensor, D: torch.Tensor
              ) -> torch.Tensor:
@@ -83,13 +98,28 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     if u.device.index != torch.cuda.current_device():
         raise ValueError(f"u lies on {u.device}, not the current device")
     y = torch.empty_like(u)
-    rc = _kernel(u.dtype)(u.data_ptr(), dt.data_ptr(), B_.data_ptr(),
-                          C_.data_ptr(), A.data_ptr(), D.data_ptr(),
-                          y.data_ptr(), Bsz, T, d, N,
-                          torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {rc}")
-    LAUNCHES["ssm_scan"] += 1
+    fn = _kernel(u.dtype)
+
+    def launch():
+        rc = fn(u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                A.data_ptr(), D.data_ptr(), y.data_ptr(), Bsz, T, d, N,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error "
+                               f"{rc}")
+        LAUNCHES["ssm_scan"] += 1
+
+    if not TR.active():
+        launch()
+        return y
+    ops, nbytes = cost(Bsz, T, d, N, u.element_size())
+    with PF.dispatch("kernels.ssm_scan",
+                     ("ssm_scan", (Bsz, T, d), N, str(u.dtype)),
+                     device=u.device, args=(u, dt, B_, C_, A, D), flops=ops,
+                     bytes_accessed=nbytes, library="ssm_scan",
+                     b=Bsz, t=T, d=d, n=N) as call:
+        launch()
+        call.outputs = y
     return y
 
 

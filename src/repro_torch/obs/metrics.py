@@ -9,10 +9,10 @@ Determinism contract (the checkpoint/resume invariant):
 
 * **counters** hold exact Python ints and count *deterministic* search
   quantities (specs evaluated/memoized, cache hits, quarantines by stage,
-  ejections, migrations). A search runtime that snapshots the registry
-  into every checkpoint and restores it on resume finishes a
-  preempted+resumed search with counters **bit-identical** to the
-  uninterrupted run's.
+  ejections, migrations). `search.runtime.SearchRuntime` snapshots the
+  registry into every checkpoint and ``resume()`` restores it, so a
+  preempted+resumed search finishes with counters **bit-identical** to the
+  uninterrupted run's (tested).
 * **gauges** and **histograms** may hold wall-clock and byte sizes
   (checkpoint write ms/bytes, flush times) — real measurements that
   legitimately differ between a preempted and an uninterrupted run. They

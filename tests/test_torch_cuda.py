@@ -1008,3 +1008,117 @@ def test_flash_attention_head_dim_192(card, T_len, dtype):
     ref = FA.flash_attention_plain(q, k, v)
     tol = FA.flash_attention_bound(q, k, v, ref)
     assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+# ---------------------------------------------------------------------------
+# the executable observatory on the card: every wrapper traced and untraced
+# ---------------------------------------------------------------------------
+
+
+def _traced_cases(device):
+    """site -> a thunk calling one kernel wrapper on the card at a small
+    shape (arguments made once, so both laps see the same inputs)."""
+    g = torch.Generator(device=device).manual_seed(11)
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    bf = torch.bfloat16
+    qm = (normal(8, 256, dtype=bf),
+          torch.randint(-127, 128, (256, 384), generator=g, device=device,
+                        dtype=torch.int8),
+          normal(384).abs() + 0.01)
+    cm = (normal(8, 256, dtype=bf),
+          torch.randint(0, 16, (256, 384), generator=g, device=device,
+                        dtype=torch.int8), normal(256, 16))
+    mask = torch.rand((2, 3), generator=g, device=device) < 0.5
+    mask[0, 0] = True
+    bs = (normal(8, 256, dtype=bf), normal(256, 384, dtype=bf), mask)
+    fa = (normal(2, 128, 4, 64, dtype=bf), normal(2, 128, 2, 64, dtype=bf),
+          normal(2, 128, 2, 64, dtype=bf))
+    ss = ssm_inputs(g, 2, 64, 256, 16, bf, device)
+    rng = np.random.default_rng(5)
+    smem_pop = NS.pack_population(CASES["mixed"][0]())
+    smem_x = torch.as_tensor(rng.integers(0, 16, (smem_pop.n_candidates,
+                                                  300, 7)), device=device)
+    glob_pop = NS.pack_population(CASES["past_smem"][0]())
+    glob_x = torch.as_tensor(rng.integers(0, 16, (1, 100, 16)),
+                             device=device)
+    return {
+        "kernels.quant_matmul": lambda: QM.quant_matmul(*qm),
+        "kernels.clustered_matmul": lambda: CM.clustered_matmul(*cm),
+        "kernels.block_sparse_matmul": lambda: BS.block_sparse_matmul(
+            *bs, block_k=128, block_n=128),
+        "kernels.flash_attention": lambda: FA.flash_attention(*fa),
+        "kernels.ssm_scan": lambda: SS.ssm_scan(*ss),
+        "kernels.netlist_sim.smem": lambda: NS.netlist_sim(smem_pop,
+                                                           smem_x)[0],
+        "kernels.netlist_sim.global": lambda: NS.netlist_sim(glob_pop,
+                                                             glob_x)[0],
+    }
+
+
+TRACED_SITES = ["kernels.quant_matmul", "kernels.clustered_matmul",
+                "kernels.block_sparse_matmul", "kernels.flash_attention",
+                "kernels.ssm_scan", "kernels.netlist_sim.smem",
+                "kernels.netlist_sim.global"]
+
+
+def _as_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", TRACED_SITES)
+def test_kernel_wrapper_traced_equals_untraced_and_is_recorded(card, site,
+                                                               tmp_path):
+    """Tracing a wrapper leaves its output bit for bit; its registry record
+    has one dispatch, CUDA-event ms, the kernel's analytic (non-zero)
+    operations and bytes, the library's size, and no recompile."""
+    from repro_torch.obs import prof as PF
+    from repro_torch.obs import trace as TR
+    call = _traced_cases(card)[site]
+    prev, TR._tracer = TR._tracer, None
+    try:
+        base = call().clone()
+        torch.cuda.synchronize()
+    finally:
+        TR._tracer = prev
+    PF.reset()
+    reset_launches()
+    with TR.capture(tmp_path / "t.jsonl"):
+        traced = call()
+    assert sum(LAUNCHES.values()) >= 1
+    assert torch.equal(_as_bits(base), _as_bits(traced))
+    recs = [r for r in PF.REGISTRY.executables.values()
+            if r["site"] == site]
+    assert len(recs) == 1, PF.REGISTRY.executables
+    (rec,) = recs
+    assert rec["dispatches"] == 1 and rec["device_ms"] > 0
+    assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
+    assert rec["generated_code_size_in_bytes"] > 0
+    assert rec["output_size_in_bytes"] > 0 and "error" not in rec
+    assert all(r["compiles"] <= 1
+               for r in PF.REGISTRY.executables.values())
+    PF.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_state_round_trips_through_checkpoints(card, tmp_path):
+    from repro_torch.ckpt import CheckpointManager
+    g = torch.Generator(device=card).manual_seed(2)
+    state = {"w": torch.randn((64, 33), generator=g, device=card).to(
+        torch.bfloat16),
+        "step": torch.randint(-2 ** 62, 2 ** 62, (5,), generator=g,
+                              device=card, dtype=torch.int64)}
+    mgr = CheckpointManager(tmp_path, async_write=True)
+    mgr.save(1, state, meta={"k": 1}, block=True)
+    mgr.wait()
+    like = {"w": torch.empty(0, device=card),
+            "step": torch.empty(0, device=card)}
+    got, meta = mgr.restore(like=like)
+    assert meta == {"k": 1}
+    for k in state:
+        assert got[k].device == state[k].device
+        assert got[k].dtype == state[k].dtype
+        assert torch.equal(_as_bits(got[k]), _as_bits(state[k]))

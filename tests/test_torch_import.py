@@ -1,5 +1,6 @@
 """The port stands alone: `repro_torch` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package `repro`."""
+neither JAX (nor `ml_dtypes`, which ships with it) nor anything of
+the JAX package `repro`."""
 import ast
 import os
 import subprocess
@@ -15,7 +16,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -43,12 +44,14 @@ def test_port_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import pkgutil, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import repro_torch.paper\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "assert not any(k in ('jax', 'ml_dtypes')\n"
+        "               or k.startswith(('jax.', 'repro.', 'ml_dtypes.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -66,6 +69,7 @@ def test_paper_track_modules_import_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "from repro_torch import approx, obs\n"
         "from repro_torch.verify import spec, mutate\n"
         "from repro_torch.circuit.simulate import Simulator, simulate\n"

@@ -134,6 +134,30 @@ Phases, each fatal on failure, each with its seconds printed:
    write ms and bytes, K1's launches, the finetune's share of A's wall
    time and the report.
 
+26. the backward kernels: K5's (flash_attention_bwd) against its plain
+   version on the card at qwen3-0.6b's training shape (B 4, T 1024, 16/8
+   heads of 128, bf16), head_dim 192 at 96/8 heads, head_dim 256 with a
+   window and a softcap (gemma2's), and a small float32 case also against
+   autograd of the plain forward; the forward's lse against its plain
+   version; the gradients through autograd equal the kernel's; K6's
+   (ssm_scan_bwd) at falcon-mamba-7b's width (B 2, T 1024, d 8192, N 16)
+   against its plain version, a second call equal to the bit; their times,
+   plain versions' times and bounds, and K5's forward plus backward
+   through autograd beside F.scaled_dot_product_attention's;
+27. training: qwen3-0.6b at full width and depth (596,049,920 seeded
+   parameters, B 4, T 1024, AdamW, remat): one gradient through the
+   kernels against the same through K5's plain version (global norm and
+   each leaf's norm within the stated bounds; 56 K5 forward launches, all
+   through the wgmma body, and 28 backward launches); 4 steps through
+   ``repro_torch.launch.train`` with the launches counted, the step's
+   seconds, tokens/s, peak memory and the device's busy share; a run
+   preempted after 2 steps (as its SIGTERM handler does: finish the step,
+   checkpoint, stop), a new run resumed from it for 2 more, its losses within
+   rtol 2e-3 of the uninterrupted run's (and whether bit-equal); one step
+   with ``--qat-bits 8``; then falcon-mamba-7b at full width with 4 of its
+   64 layers (its 7.27 B parameters with gradients and AdamW state pass
+   the card's 80 GB), 3 steps at B 2, T 1024, K6's backward 4 times a step.
+
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, with no result, without a CUDA device or outside
@@ -290,6 +314,21 @@ REPLACES = {
     "block_sparse_matmul":
         "src/repro/kernels/block_sparse_matmul/kernel.py:42",
 }
+# phase 26's backward cases (B, T, H, KV, hd, window, softcap, dtype):
+# qwen3-0.6b's training shape, head_dim 192 at nemotron-4-340b's 96/8
+# heads, head_dim 256 with a window and gemma2's softcap, a small float32
+# case
+BWD_CASES = {
+    "qwen3_train": (4, 1024, 16, 8, 128, 0, 0.0, "bfloat16"),
+    "hd192_96_8": (1, 512, 96, 8, 192, 0, 0.0, "bfloat16"),
+    "hd256_window_softcap": (1, 1024, 8, 4, 256, 256, 50.0, "bfloat16"),
+    "f32_small_ragged": (2, 77, 4, 2, 64, 0, 30.0, "float32"),
+}
+# phase 27: qwen3-0.6b's training batch and length, its parameters; and
+# falcon-mamba-7b's batch, length and the layers kept of its 64
+QWEN3_TRAIN = (4, 1024)
+QWEN3_PARAMS = 596049920
+FALCON_TRAIN = (2, 1024, 4)
 # the bound below which the model-level comparisons must stay: one bf16
 # rounding (2^-8 relative) of the residual stream in each of 28 layers,
 # added up without amplification
@@ -2190,6 +2229,470 @@ def island_search(card: str, dev):
     return out
 
 
+def lm_training(card: str, dev):
+    """Phases 26-27: K5's and K6's backward kernels against their plain
+    versions and autograd on the card, then qwen3-0.6b trained at full
+    width and depth through ``repro_torch.launch.train`` (uninterrupted,
+    checkpointed and resumed, with QAT), and falcon-mamba-7b at full width
+    and 4 of its 64 layers. Returns the backward kernels' entries of the
+    ``{"kernels": [...]}`` line and the training numbers."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import Segment
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.kernels.flash_attention.ops import bwd_cost as fa_bwd_cost
+    from repro_torch.kernels.ssm_scan.ops import bwd_cost as ssm_bwd_cost
+    from repro_torch.launch import train as LT
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import transformer as T
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.train import losses
+    from repro_torch.train import train_state as TS
+    from repro_torch.train.optimizer import (AdamWConfig, tree_leaves,
+                                             tree_unflatten)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    # -- 26. the backward kernels against their plain versions ------------
+    fa_err, fa_share, ssm_err, ssm_share = 0.0, 0.0, 0.0, 0.0
+    with Phase(26, "flash_attention and ssm_scan backward vs plain"):
+        for name, (B, Tq, H, KV, hd, window, cap, dname) in \
+                BWD_CASES.items():
+            dt = getattr(torch, dname)
+            q, do = randn((B, Tq, H, hd), dt), randn((B, Tq, H, hd), dt)
+            k, v = randn((B, Tq, KV, hd), dt), randn((B, Tq, KV, hd), dt)
+            kw = dict(causal=True, window=window, softcap=cap)
+            reset_launches()
+            o, lse = FA.flash_attention_with_lse(q, k, v, **kw)
+            torch.cuda.synchronize()
+            lse_plain = FA.flash_attention_lse_plain(q, k, v, **kw)
+            lse_err, _, lse_ok = _within(
+                lse, lse_plain,
+                FA.flash_attention_lse_tolerance(q, k, lse_plain,
+                                                 softcap=cap))
+            check(lse_ok, f"flash_attention's lse disagrees on {name}")
+            got = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+            check(LAUNCHES["flash_attention_bwd"] == 1,
+                  f"flash_attention_bwd {name}: not one launch")
+            ref = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+            tols = FA.flash_attention_bwd_tolerance(q, k, v, o, do, lse,
+                                                    ref, **kw)
+            line = []
+            for gname, a, b, t in zip(("dq", "dk", "dv"), got, ref, tols):
+                err, share, ok = _within(a, b, t)
+                fa_err, fa_share = max(fa_err, err), max(fa_share, share)
+                line.append(f"{gname} {err:.3e} ({share:.3f} of the bound)")
+                check(ok and bool(torch.isfinite(a).all()),
+                      f"flash_attention_bwd disagrees on {name} {gname}")
+            del ref, tols
+            # through autograd: K5's forward with lse, then this kernel
+            qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+            out = FA.flash_attention(qq, kk, vv, **kw)
+            check(out.grad_fn is not None, f"{name}: K5's output has no "
+                  "grad_fn under autograd")
+            out.backward(do)
+            check(all(torch.equal(x.grad, g)
+                      for x, g in zip((qq, kk, vv), got)),
+                  f"{name}: autograd's gradients differ from the kernel's")
+            extra = ""
+            if dt == torch.float32:
+                # autograd of the plain forward, the gradient the reference
+                # differentiates its jnp attention for
+                qp, kp, vp = (x.clone().requires_grad_(True)
+                              for x in (q, k, v))
+                FA.flash_attention_plain(qp, kp, vp, **kw).backward(do)
+                tols = FA.flash_attention_bwd_tolerance(
+                    q, k, v, o, do, lse, (qp.grad, kp.grad, vp.grad), **kw)
+                shares = []
+                for gname, a, b, t in zip(("dq", "dk", "dv"), got,
+                                          (qp.grad, kp.grad, vp.grad), tols):
+                    err, share, ok = _within(a, b, t)
+                    shares.append(share)
+                    check(ok, f"flash_attention_bwd {name} {gname} differs "
+                          "from autograd of the plain forward")
+                extra = (f"; against autograd of the plain forward, largest "
+                         f"share of the bound {max(shares):.3f}")
+            print(f"[26] flash_attention_bwd {name} B={B} T={Tq} H={H} "
+                  f"KV={KV} hd={hd} window={window} softcap={cap} "
+                  f"{str(dt)[6:]}: lse max abs err {lse_err:.3e}; max abs "
+                  f"err " + ", ".join(line) + extra)
+            del q, k, v, o, do, lse, got, qq, kk, vv, out
+
+        # K6's backward at falcon-mamba-7b's width
+        cfg_m = ARCHS["falcon-mamba-7b"]
+        di, Nm = cfg_m.ssm.expand * cfg_m.d_model, cfg_m.ssm.d_state
+        Bs, Ts = FALCON_TRAIN[:2]
+        u, dtm, Bm, Cm, Am, Dm = ssm_inputs(gen, Bs, Ts, di, Nm,
+                                            torch.bfloat16, dev)
+        dy = randn((Bs, Ts, di), torch.bfloat16)
+        reset_launches()
+        got = SS.ssm_scan_bwd(u, dtm, Bm, Cm, Am, Dm, dy)
+        torch.cuda.synchronize()
+        check(LAUNCHES["ssm_scan_bwd"] == 1, "ssm_scan_bwd: not one launch")
+        ref = SS.ssm_scan_bwd_plain(u, dtm, Bm, Cm, Am, Dm, dy)
+        tols = SS.ssm_scan_bwd_tolerance(u, dtm, Bm, Cm, Am, Dm, dy, ref)
+        line = []
+        for gname, a, b, t in zip(("du", "ddt", "dB_", "dC_", "dA", "dD"),
+                                  got, ref, tols):
+            err, share, ok = _within(a, b, t)
+            ssm_err, ssm_share = max(ssm_err, err), max(ssm_share, share)
+            line.append(f"{gname} {err:.3e} ({share:.3f})")
+            check(ok and bool(torch.isfinite(a).all()),
+                  f"ssm_scan_bwd disagrees on {gname}")
+        again = SS.ssm_scan_bwd(u, dtm, Bm, Cm, Am, Dm, dy)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "ssm_scan_bwd is not bitwise repeatable")
+        print(f"[26] ssm_scan_bwd B={Bs} T={Ts} d={di} N={Nm} bf16: max abs "
+              f"err (share of the bound) " + ", ".join(line)
+              + "; a second call equal to the bit")
+        del ref, tols, again
+
+        # times: CUDA events over eager loops (a call takes milliseconds)
+        B, Tq, H, KV, hd = BWD_CASES["qwen3_train"][:5]
+        q, do = randn((B, Tq, H, hd), torch.bfloat16), \
+            randn((B, Tq, H, hd), torch.bfloat16)
+        k, v = randn((B, Tq, KV, hd), torch.bfloat16), \
+            randn((B, Tq, KV, hd), torch.bfloat16)
+        o, lse = FA.flash_attention_with_lse(q, k, v)
+        fa_ms = event_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse),
+                         reps=10)
+        fa_plain_ms = event_ms(
+            lambda: FA.flash_attention_bwd_plain(q, k, v, o, do, lse),
+            reps=3, warmup=1)
+        fa_flops, fa_bytes = fa_bwd_cost(B, Tq, Tq, H, KV, hd, 2)
+        fa_bytes_ms = fa_bytes / HBM_BYTES_PER_S * 1e3
+        fa_ops_ms = fa_flops / BF16_TENSOR_FLOPS * 1e3
+        fa_bound = max(fa_bytes_ms, fa_ops_ms)
+
+        def k5_fwd_bwd():
+            qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+            FA.flash_attention(qq, kk, vv).backward(do)
+
+        def sdpa_fwd_bwd():
+            qq, kk, vv = (x.detach().transpose(1, 2).requires_grad_(True)
+                          for x in (q, k, v))
+            F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=True, enable_gqa=True).backward(
+                    do.transpose(1, 2))
+
+        k5_fb_ms = event_ms(k5_fwd_bwd, reps=10)
+        sdpa_fb_ms = event_ms(sdpa_fwd_bwd, reps=10)
+        print(f"[26] {card}: flash_attention_bwd B={B} T=S={Tq} H={H} KV={KV} "
+              f"hd={hd} causal bf16: kernel {fa_ms:.4f} ms, plain "
+              f"{fa_plain_ms:.4f} ms, bound {fa_bound:.5f} ms ({fa_flops} "
+              f"flops at the bf16 tensor-core rate {fa_ops_ms:.5f} ms, "
+              f"{fa_bytes} bytes {fa_bytes_ms:.5f} ms); {fa_ms / fa_bound:.1f}x "
+              f"the bound; forward + backward through autograd: K5 "
+              f"{k5_fb_ms:.4f} ms, F.scaled_dot_product_attention "
+              f"{sdpa_fb_ms:.4f} ms")
+        del q, k, v, o, do, lse
+        ssm_ms = event_ms(lambda: SS.ssm_scan_bwd(u, dtm, Bm, Cm, Am, Dm,
+                                                  dy), reps=10)
+        ssm_plain_ms = event_ms(
+            lambda: SS.ssm_scan_bwd_plain(u, dtm, Bm, Cm, Am, Dm, dy),
+            reps=1, warmup=1)
+        ssm_ops, ssm_bytes, ssm_exps = ssm_bwd_cost(Bs, Ts, di, Nm, 2)
+        check(ssm_bytes == sum(a.numel() * a.element_size()
+                               for a in (u, dtm, Bm, Cm, Am, Dm, dy))
+              + sum(a.numel() * a.element_size() for a in got),
+              "ssm_scan_bwd's byte count differs from its inputs and "
+              "outputs")
+        ssm_bytes_ms = ssm_bytes / HBM_BYTES_PER_S * 1e3
+        ssm_ops_ms = ssm_ops / SCALAR_OPS_PER_S * 1e3
+        exp_floor_ms = ssm_exps / (EXP2_PER_CLOCK_PER_SM * sms * clock_hz) \
+            * 1e3
+        ssm_bound = max(ssm_bytes_ms, ssm_ops_ms, exp_floor_ms)
+        ssm_bound_by = "bytes" if ssm_bound == ssm_bytes_ms else "operations"
+        print(f"[26] {card}: ssm_scan_bwd B={Bs} T={Ts} d={di} N={Nm} bf16: "
+              f"kernel {ssm_ms:.4f} ms, plain {ssm_plain_ms:.4f} ms, bound "
+              f"{ssm_bound:.5f} ms, the largest of: {ssm_bytes} bytes "
+              f"{ssm_bytes_ms:.5f} ms; {ssm_ops} float32 operations "
+              f"{ssm_ops_ms:.5f} ms; exp floor {exp_floor_ms:.5f} ms "
+              f"({ssm_exps} exps); {ssm_ms / ssm_bound:.1f}x the bound")
+        del u, dtm, Bm, Cm, Am, Dm, dy, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 27. training at full width -----------------------------------------
+    # one bf16 rounding of the residual stream in each of 28 layers on the
+    # forward and again on the backward, added up without amplification
+    grad_bound = 2 * LM_REL_BOUND
+    numbers = {}
+    with Phase(27, "qwen3-0.6b and falcon-mamba-7b training"):
+        cfg = ARCHS["qwen3-0.6b"]
+        opt = AdamWConfig(lr=3e-4, total_steps=4, warmup_steps=1)
+        Bt, Tt = QWEN3_TRAIN
+        state = TS.init_state(torch.Generator(device=dev).manual_seed(0),
+                              cfg, opt, device=dev)
+        n_params = T.param_count(state.params)
+        check(n_params == QWEN3_PARAMS,
+              f"qwen3-0.6b has {n_params} parameters")
+        tokens = torch.randint(0, cfg.vocab_size, (Bt, Tt), generator=gen,
+                               device=dev)
+
+        def grads(params):
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tree_leaves(params)]
+            logits, aux = T.forward(tree_unflatten(params, leaves),
+                                    {"tokens": tokens}, cfg, remat=True)
+            loss = losses.next_token_loss(logits, tokens, aux=aux)
+            del logits
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+        reset_launches()
+        loss_k, g_k = grads(state.params)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        check(launches["flash_attention"] == 2 * cfg.num_layers
+              and launches["flash_attention_wgmma"] == 2 * cfg.num_layers
+              and launches["flash_attention_bwd"] == cfg.num_layers,
+              f"one step's gradient launched {launches}")
+        A.flash_attention = FA.flash_attention_plain
+        try:
+            loss_p, g_p = grads(state.params)
+        finally:
+            A.flash_attention = FA.flash_attention
+        norm_k = float(torch.sqrt(sum((g.float() ** 2).sum() for g in g_k)))
+        norm_p = float(torch.sqrt(sum((g.float() ** 2).sum() for g in g_p)))
+        leaf_rel = [abs(float(a.float().norm()) - float(b.float().norm()))
+                    / max(float(b.float().norm()), 1e-30)
+                    for a, b in zip(g_k, g_p)]
+        diff_rel = [float((a.float() - b.float()).norm())
+                    / max(float(b.float().norm()), 1e-30)
+                    for a, b in zip(g_k, g_p)]
+        paths = tree_leaves(T.map_tree(lambda p, _: "/".join(map(str, p)),
+                                       state.params))
+        worst = int(np.argmax(leaf_rel))
+        print(f"[27] qwen3-0.6b: {n_params} parameters; one gradient at "
+              f"B={Bt} T={Tt}, remat on: launches {launches}; loss {loss_k:.6f}"
+              f" (plain K5 {loss_p:.6f}); global gradient norm {norm_k:.6f} "
+              f"(plain {norm_p:.6f}, relative difference "
+              f"{abs(norm_k - norm_p) / norm_p:.3e}, bound {LM_REL_BOUND:.3e})"
+              f"; largest relative difference of a leaf's norm "
+              f"{leaf_rel[worst]:.3e} at {paths[worst]} (bound "
+              f"{grad_bound:.3e}); relative L2 of the leaves' differences: "
+              f"median {float(np.median(diff_rel)):.3e}, largest "
+              f"{max(diff_rel):.3e}")
+        check(abs(norm_k - norm_p) <= LM_REL_BOUND * norm_p,
+              "the global gradient norm through the kernels differs from the "
+              "plain version's beyond the bound")
+        check(max(leaf_rel) <= grad_bound, "a leaf's gradient norm through "
+              "the kernels differs from the plain version's beyond the bound")
+        del g_k, g_p, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        common = ["--arch", "qwen3-0.6b", "--seq-len", str(Tt),
+                  "--global-batch", str(Bt), "--log-every", "1",
+                  "--lr", "3e-4"]
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_a = LT.main(common + ["--steps", "4"])
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        numbers["launches_qwen3"] = launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = 4
+        check(launches["flash_attention"] == 2 * cfg.num_layers * steps
+              and launches["flash_attention_bwd"] == cfg.num_layers * steps
+              and launches["flash_attention_wgmma"]
+              == launches["flash_attention"],
+              f"4 training steps launched {launches}")
+        hist_a = run_a["history"]
+        check([r["step"] for r in hist_a] == [0, 1, 2, 3]
+              and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                      for r in hist_a), f"run A's history {hist_a}")
+        step_s = [r["step_s"] for r in hist_a]
+        steady = float(np.median(step_s[1:]))
+        print(f"[27] {card}: qwen3-0.6b, 4 steps of B={Bt} T={Tt} through "
+              f"launch.train: losses " + ", ".join(
+                  f"{r['loss']:.6f}" for r in hist_a)
+              + f"; step s {step_s}; steady {steady:.4f} s a step, "
+              f"{Bt * Tt / steady:.0f} tokens/s; wall {wall_a:.3f} s with set-"
+              f"up; peak device memory {peak:.2f} GiB; launches {launches} "
+              f"({launches['flash_attention'] // steps} K5 forward and "
+              f"{launches['flash_attention_bwd'] // steps} backward a step)")
+        trainer = run_a["trainer"]
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in trainer.pipeline.batch_at(0).items()}
+        st = trainer.state
+        wall_s, busy_s, n_k = device_busy(lambda: trainer.step_fn(st, batch))
+        print(f"[27] {card}: one qwen3-0.6b training step: wall {wall_s:.4f}"
+              f" s, device busy {busy_s:.4f} s in {n_k} kernels, busy share "
+              f"{busy_s / wall_s:.3f}")
+        numbers["qwen3"] = dict(step_s=steady, tokens_per_s=Bt * Tt / steady,
+                                peak_gib=peak, busy_share=busy_s / wall_s)
+        del trainer, st, run_a, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        class PreemptedAfterTwo(LT.Trainer):
+            """The launcher's trainer, told to stop after its second step
+            as its SIGTERM handler tells it (finish the step, checkpoint,
+            stop), so both runs keep the 4-step schedule."""
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                inner, done = self.step_fn, []
+
+                def step_fn(state, batch):
+                    out = inner(state, batch)
+                    done.append(1)
+                    if len(done) == 2:
+                        self.request_preemption()
+                    return out
+                self.step_fn = step_fn
+
+        with tempfile.TemporaryDirectory(dir=ROOT / "src" / "repro_torch"
+                                         / "_build") as ckpt:
+            LT.Trainer = PreemptedAfterTwo
+            try:
+                t0 = time.perf_counter()
+                first = LT.main(common + ["--steps", "4", "--ckpt-dir",
+                                          ckpt])
+                torch.cuda.synchronize()
+                t_first = time.perf_counter() - t0
+            finally:
+                LT.Trainer = PreemptedAfterTwo.__bases__[0]
+            check(first["preempted"] and first["last_step"] == 1,
+                  f"the preempted run stopped at {first['last_step']}")
+            del first
+            gc.collect()
+            t0 = time.perf_counter()
+            second = LT.main(common + ["--steps", "4", "--ckpt-dir", ckpt])
+            torch.cuda.synchronize()
+            t_second = time.perf_counter() - t0
+            hist_b = second["history"]
+            del second
+        check([r["step"] for r in hist_b] == [2, 3],
+              f"the resumed run logged {hist_b}")
+        pairs = [(a["loss"], b["loss"]) for a, b in zip(hist_a[2:], hist_b)]
+        bit_equal = all(a == b for a, b in pairs)
+        print(f"[27] qwen3-0.6b: 2 steps, preempted, a checkpoint "
+              f"({t_first:.3f} s), then a new run resumed from it for steps 2-3 "
+              f"({t_second:.3f} s): losses " + ", ".join(
+                  f"{b:.6f} (uninterrupted {a:.6f})" for a, b in pairs)
+              + f"; bit-equal: {bit_equal}")
+        check(all(abs(a - b) <= 2e-3 * abs(a) for a, b in pairs),
+              "the resumed run's losses differ from the uninterrupted run's "
+              "beyond rtol 2e-3")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reset_launches()
+        qat = LT.main(common + ["--steps", "1", "--qat-bits", "8"])
+        torch.cuda.synchronize()
+        check(np.isfinite(qat["final_loss"])
+              and LAUNCHES["flash_attention_bwd"] == cfg.num_layers,
+              f"the QAT step: loss {qat['final_loss']}, launches "
+              f"{dict(LAUNCHES)}")
+        print(f"[27] qwen3-0.6b, one step with --qat-bits 8: loss "
+              f"{qat['final_loss']:.6f}, {qat['history'][-1]['step_s']:.4f} "
+              f"s")
+        del qat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # falcon-mamba-7b at full width, 4 of its 64 layers: its 7.27 B
+        # parameters need about 87 GB for bf16 weights and gradients and
+        # float32 AdamW moments, past the card's 80 GB
+        base = ARCHS["falcon-mamba-7b"]
+        layers = FALCON_TRAIN[2]
+        cfg_f = dataclasses.replace(base, segments=tuple(
+            Segment(s.pattern, layers) for s in base.segments))
+        opt_f = AdamWConfig(lr=3e-4, total_steps=3, warmup_steps=1)
+        state = TS.init_state(torch.Generator(device=dev).manual_seed(0),
+                              cfg_f, opt_f, device=dev)
+        step = TS.make_train_step(cfg_f, opt_f, remat=True)
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg_f.vocab_size, seq_len=Ts, global_batch=Bs))
+        losses_f, times_f = [], []
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(3):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in pipe.batch_at(i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses_f.append(float(m["loss"]))
+            times_f.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+        numbers["launches_falcon_mamba"] = launches
+        peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(launches["ssm_scan_bwd"] == 3 * layers
+              and launches["ssm_scan"] == 3 * 2 * layers,
+              f"3 falcon-mamba-7b steps launched {launches}")
+        check(all(np.isfinite(x) for x in losses_f),
+              f"falcon-mamba-7b losses {losses_f}")
+        print(f"[27] {card}: falcon-mamba-7b, d {base.d_model}, {layers} of "
+              f"its 64 layers, {T.param_count(state.params)} parameters, 3 "
+              f"steps of B={Bs} T={Ts}: losses " + ", ".join(
+                  f"{x:.6f}" for x in losses_f)
+              + f"; step s {[round(x, 4) for x in times_f]}; "
+              f"{Bs * Ts / float(np.median(times_f[1:])):.0f} tokens/s; "
+              f"peak device memory {peak_f:.2f} GiB; launches {launches}")
+        numbers["falcon_mamba"] = dict(step_s=float(np.median(times_f[1:])),
+                                       peak_gib=peak_f)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    fa_entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "body": "CUDA cores, float32: D = rowsum(do o); dk, dv a KV tile "
+                "looping over the group's heads and query tiles; dq a query "
+                "tile looping over KV tiles; P recomputed from lse",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:87 (its "
+                    "gradient: the reference differentiates its jnp "
+                    "attention, src/repro/nn/attention.py)",
+        "launches": numbers["launches_qwen3"]["flash_attention_bwd"],
+        "max_abs_err": fa_err,
+        "largest_share_of_bound": fa_share,
+        "tolerance": "flash_attention_bwd_tolerance",
+        "shapes": "qwen3-0.6b training B={} T=S={} H={} KV={} hd={} "
+                  "causal bf16".format(*BWD_CASES["qwen3_train"][:5]),
+        "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
+        "bound_by": "bytes" if fa_bytes_ms >= fa_ops_ms else "operations",
+        "library_ms": None, "k5_fwd_bwd_ms": k5_fb_ms,
+        "sdpa_fwd_bwd_ms": sdpa_fb_ms}
+    ssm_entry = {
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+        "body": "CUDA cores: states at chunk starts, each chunk rebuilt in "
+                "shared memory and walked in reverse, dB_ and dC_ reduced "
+                "over a warp by shuffles, block partials summed in order",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:51 (its "
+                    "gradient: the reference differentiates its jnp scan, "
+                    "src/repro/nn/ssm.py:70)",
+        "launches": numbers["launches_falcon_mamba"]["ssm_scan_bwd"],
+        "max_abs_err": ssm_err,
+        "largest_share_of_bound": ssm_share,
+        "tolerance": "ssm_scan_bwd_tolerance",
+        "shapes": f"falcon-mamba-7b training B={Bs} T={Ts} d={di} N={Nm} "
+                  "bf16",
+        "ms": ssm_ms, "plain_ms": ssm_plain_ms, "bound_ms": ssm_bound,
+        "bound_by": ssm_bound_by, "library_ms": None}
+    return [fa_entry, ssm_entry], numbers
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -2522,8 +3025,28 @@ def main() -> None:
     netlist_entry["launches"] += islands["launches"]["netlist_sim"]
     netlist_entry["launches_smem_body"] += \
         islands["launches"]["netlist_sim_smem"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_entries, training = lm_training(card, dev)
+    # the training paths also run the forward kernels
+    fa_entry["launches_by_path"] = {
+        "qwen3-0.6b prefill (phase 8)": fa_entry["launches"],
+        "qwen3-0.6b training, 4 steps (phase 27)":
+            training["launches_qwen3"]["flash_attention"]}
+    fa_entry["launches"] = sum(fa_entry["launches_by_path"].values())
+    fa_entry["launches_wgmma_body"] += \
+        training["launches_qwen3"]["flash_attention_wgmma"]
+    ssm_entry["launches_by_path"] = {
+        "falcon-mamba-7b prefill (phase 14)": ssm_entry["launches"],
+        "falcon-mamba-7b training, 3 steps (phase 27)":
+            training["launches_falcon_mamba"]["ssm_scan"]}
+    ssm_entry["launches"] = sum(ssm_entry["launches_by_path"].values())
+    print(f"[27] {card}: training " + ", ".join(
+        f"{k}: {v}" for k, v in training.items()
+        if not k.startswith("launches")))
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
-                                  bsmm_entry, fa_entry, ssm_entry]}))
+                                  bsmm_entry, fa_entry, ssm_entry]
+                      + bwd_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

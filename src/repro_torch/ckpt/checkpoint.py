@@ -77,7 +77,10 @@ def _unflatten(like, leaves: List) -> Any:
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
+            items = [build(v) for v in t]
+            # a NamedTuple (a train state) takes its fields positionally
+            return type(t)(*items) if hasattr(t, "_fields") \
+                else type(t)(items)
         if t is None:
             return None
         return next(it)
@@ -115,8 +118,9 @@ def _place(leaf, like_leaf, device):
         device = like_leaf.device
     if device is None:
         return leaf
+    # np.ascontiguousarray would turn a 0-d leaf (a step counter) into 1-d
     t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(leaf))
+        np.array(leaf, order="C"))
     return t.to(device)
 
 

@@ -12,6 +12,15 @@
 // whole prompt, no cache), 4 x 1024 tokens x 16 heads x 128 dims at
 // qwen3-0.6b's width.
 //
+// The log-sum-exp: both bodies optionally write lse (B, H, T) float32,
+// lse[b, h, t] = log sum_s exp(x_ts) over the keys row t sees, in natural
+// log units of the scaled and softcapped score x_ts = softcap(q_t . k_s
+// d^-1/2), the units the backward kernel (flash_attention_bwd.cu) reads.
+// The wgmma body keeps its running max in the log2 domain, so it writes
+// (m + log2 l) ln 2. A row that sees no key gets +inf, so the backward's
+// exp(x - lse) is 0 there. A null pointer writes nothing (the serve and
+// prefill launches).
+//
 // What bounds it on this card: with bf16 inputs, the multiply-adds of the
 // visible (t, s) pairs at the tensor-core rate, just above the bytes of q,
 // k, v and o.
@@ -138,7 +147,8 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int T_len, int S_len,
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int T_len, int S_len,
              int H, int KV, Strides qs, Strides ks, Strides vs, Strides os,
              int causal, int window, float softcap, float scale) {
   static_assert(HD % 16 == 0, "HD must be a multiple of 16");
@@ -300,13 +310,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ob[t * os.t + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
     }
   }
+  if (lse != nullptr && tid < kBQ && q0 + tid < T_len) {
+    const float l = l_s[tid];
+    lse[static_cast<int64_t>(bh) * T_len + q0 + tid] =
+        l > 0.f ? m_s[tid] + logf(l) : INFINITY;
+  }
 }
 
 template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int T_len, int S_len, int H, int KV, Strides qs, Strides ks,
-              Strides vs, Strides os, int causal, int window, float softcap,
-              cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int T_len, int S_len, int H, int KV,
+              Strides qs, Strides ks, Strides vs, Strides os, int causal,
+              int window, float softcap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
   static bool configured = false;
   if (!configured) {
@@ -320,15 +335,16 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   flash_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), T_len, S_len, H, KV, qs,
-      ks, vs, os, causal, window, softcap, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, T_len, S_len, H, KV,
+      qs, ks, vs, os, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int T_len, int S_len, int H, int KV, int HD, const int64_t* st,
-           int causal, int window, float softcap, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int T_len, int S_len, int H, int KV, int HD,
+           const int64_t* st, int causal, int window, float softcap,
+           void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || S_len <= 0) return cudaErrorInvalidValue;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
@@ -337,8 +353,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   switch (HD) {
 #define REPRO_FLASH_HD(N)                                                    \
   case N:                                                                    \
-    return launch_hd<T, N>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs, \
-                           os, causal, window, softcap, s);
+    return launch_hd<T, N>(q, k, v, o, lse, B, T_len, S_len, H, KV, qs, ks, \
+                           vs, os, causal, window, softcap, s);
     REPRO_FLASH_HD(16)
     REPRO_FLASH_HD(32)
     REPRO_FLASH_HD(64)
@@ -498,7 +514,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int T_len, int S_len, int H,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int T_len, int S_len, int H,
                    int KV, int BH, int n_qt, Strides os, int causal,
                    int window, float softcap, float scale) {
   constexpr int NB = HD / 64;               // 64-column boxes of a row
@@ -682,6 +699,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / fmaxf(l, 1e-30f);
+    // the log2-domain max and sum, written in natural log units
+    const int t = row0 + 8 * r;
+    if (lse != nullptr && lane % 4 == 0 && t < T_len)
+      lse[static_cast<int64_t>(bh) * T_len + t] =
+          l > 0.f ? (m_run[r] + log2f(l)) * 0.6931471805599453f : INFINITY;
   }
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
@@ -747,10 +769,10 @@ bool encode(CUtensorMap* map, const void* ptr, int HD, int heads, int len,
 }
 
 template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int T_len, int S_len, int H, int KV, Strides qs, Strides ks,
-              Strides vs, Strides os, int causal, int window, float softcap,
-              cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int T_len, int S_len, int H, int KV,
+              Strides qs, Strides ks, Strides vs, Strides os, int causal,
+              int window, float softcap, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   static bool configured = false;
   if (!configured) {
@@ -771,14 +793,16 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   const int n_qt = (T_len + kBQ - 1) / kBQ;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   flash_wgmma_kernel<HD><<<n_qt * B * H, kThreads, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), T_len, S_len, H, KV, B * H,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, T_len, S_len, H, KV,
+      B * H,
       n_qt, os, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int T_len, int S_len, int H, int KV, int HD, const int64_t* st,
-           int causal, int window, float softcap, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int T_len, int S_len, int H, int KV, int HD,
+           const int64_t* st, int causal, int window, float softcap,
+           void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || S_len <= 0) return cudaErrorInvalidValue;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
@@ -786,17 +810,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   auto s = static_cast<cudaStream_t>(stream);
   switch (HD) {
     case 64:
-      return launch_hd<64>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
-                           os, causal, window, softcap, s);
+      return launch_hd<64>(q, k, v, o, lse, B, T_len, S_len, H, KV, qs, ks,
+                           vs, os, causal, window, softcap, s);
     case 128:
-      return launch_hd<128>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
-                            os, causal, window, softcap, s);
+      return launch_hd<128>(q, k, v, o, lse, B, T_len, S_len, H, KV, qs, ks,
+                            vs, os, causal, window, softcap, s);
     case 192:
-      return launch_hd<192>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
-                            os, causal, window, softcap, s);
+      return launch_hd<192>(q, k, v, o, lse, B, T_len, S_len, H, KV, qs, ks,
+                            vs, os, causal, window, softcap, s);
     case 256:
-      return launch_hd<256>(q, k, v, o, B, T_len, S_len, H, KV, qs, ks, vs,
-                            os, causal, window, softcap, s);
+      return launch_hd<256>(q, k, v, o, lse, B, T_len, S_len, H, KV, qs, ks,
+                            vs, os, causal, window, softcap, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -807,23 +831,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // q (B, T, H, HD), k and v (B, S, KV, HD), o (B, T, H, HD) on the current
 // device, each with unit stride along HD; strides holds the (b, t, head)
 // strides in elements of q, k, v and o, in that order (12 values). HD is
-// 16, 32, 64, 128, 192 or 256. Returns the CUDA error of the launch (0 on
-// success).
+// 16, 32, 64, 128, 192 or 256. lse, when not null, receives (B, H, T)
+// float32 contiguous (see the note at the top). Returns the CUDA error of
+// the launch (0 on success).
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int T,
-                                   int S, int H, int KV, int HD,
+                                   const void* v, void* o, float* lse, int B,
+                                   int T, int S, int H, int KV, int HD,
                                    const int64_t* strides, int causal,
                                    int window, float softcap, void* stream) {
-  return launch<float>(q, k, v, o, B, T, S, H, KV, HD, strides, causal,
+  return launch<float>(q, k, v, o, lse, B, T, S, H, KV, HD, strides, causal,
                        window, softcap, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int T,
-                                    int S, int H, int KV, int HD,
+                                    const void* v, void* o, float* lse, int B,
+                                    int T, int S, int H, int KV, int HD,
                                     const int64_t* strides, int causal,
                                     int window, float softcap, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, T, S, H, KV, HD, strides,
+  return launch<__nv_bfloat16>(q, k, v, o, lse, B, T, S, H, KV, HD, strides,
                                causal, window, softcap, stream);
 }
 
@@ -832,11 +857,11 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 // (TMA's terms). Returns the CUDA error of the launch (0 on success);
 // cudaErrorInvalidValue also when a tensor map does not encode.
 extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int T, int S, int H, int KV,
+                                          const void* v, void* o, float* lse,
+                                          int B, int T, int S, int H, int KV,
                                           int HD, const int64_t* strides,
                                           int causal, int window,
                                           float softcap, void* stream) {
-  return wg::launch(q, k, v, o, B, T, S, H, KV, HD, strides, causal, window,
-                    softcap, stream);
+  return wg::launch(q, k, v, o, lse, B, T, S, H, KV, HD, strides, causal,
+                    window, softcap, stream);
 }

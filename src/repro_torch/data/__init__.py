@@ -1,1 +1,2 @@
-"""Seeded synthetic UCI datasets."""
+"""Seeded synthetic data: UCI datasets (`uci`) and the LM token stream
+(`tokens`)."""

@@ -8,10 +8,15 @@ K5 that took its wgmma body (bf16 at head_dim 64, 128, 192 or 256);
 those of K2 and K4 that took their tensor-core (``mma.sync``) body (bf16 x);
 ``LAUNCHES["netlist_sim_smem"]`` those of K1 that took its shared-memory
 body (every population whose table fits in 227 KB at one sample a block).
+``LAUNCHES["flash_attention_bwd"]`` and ``LAUNCHES["ssm_scan_bwd"]`` count
+the backward kernels of K5 and K6, one a wrapper call (each call runs its
+file's kernels in order on one stream).
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
                              "quant_matmul": 0,
@@ -20,9 +25,22 @@ LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
                              "clustered_matmul": 0,
                              "block_sparse_matmul": 0,
                              "quant_matmul_mma": 0,
-                             "block_sparse_matmul_mma": 0}
+                             "block_sparse_matmul_mma": 0,
+                             "flash_attention_bwd": 0, "ssm_scan_bwd": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernel
+    ``name`` has no backward, and its output, filled through ``ctypes``,
+    would carry no ``grad_fn``, so the gradient would stop there without a
+    word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel: an input requires grad, and "
+            f"its output would silently carry none. Call it under "
+            f"torch.no_grad(), or detach the inputs")

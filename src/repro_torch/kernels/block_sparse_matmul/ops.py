@@ -19,7 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.obs import prof as PF
 from repro_torch.obs import trace as TR
 from repro_torch.kernels.block_sparse_matmul.ref import \
@@ -100,6 +100,7 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"block_sparse_matmul runs on CUDA or CPU, not "
                          f"{x.device}")
+    refuse_grad("block_sparse_matmul", x, w, block_mask)
     if not (x.is_contiguous() and w.is_contiguous()
             and block_mask.is_contiguous()):
         raise ValueError("block_sparse_matmul's kernel takes contiguous "

@@ -28,7 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel of the package, one ``csrc/<name>.cu`` each
 KERNELS = ("netlist_sim", "quant_matmul", "flash_attention", "ssm_scan",
-           "clustered_matmul", "block_sparse_matmul")
+           "clustered_matmul", "block_sparse_matmul", "flash_attention_bwd",
+           "ssm_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.obs import prof as PF
 from repro_torch.obs import trace as TR
 from repro_torch.kernels.clustered_matmul.ref import clustered_matmul_ref
@@ -88,6 +88,7 @@ def clustered_matmul(x: torch.Tensor, idx: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"clustered_matmul runs on CUDA or CPU, not "
                          f"{x.device}")
+    refuse_grad("clustered_matmul", x, idx, codebook)
     if not (x.is_contiguous() and idx.is_contiguous()
             and codebook.is_contiguous()):
         raise ValueError("clustered_matmul's kernel takes contiguous tensors")

@@ -16,6 +16,15 @@ through the wgmma body, counted also in ``LAUNCHES["flash_attention_wgmma"]``;
 it rounds P to bf16 before P @ v, which `flash_attention_tolerance` covers
 for bf16. Everything else goes through the CUDA-core body. The choice
 follows from the inputs alone, never from a failure.
+
+On CUDA, when grad mode is on and an input requires grad,
+`flash_attention` goes through `FlashAttentionFn`: its forward launches K5
+with the log-sum-exp output (B, H, T), and its backward is the hand-written
+kernel ``csrc/flash_attention_bwd.cu`` (`flash_attention_bwd`, counted in
+``LAUNCHES["flash_attention_bwd"]``), so the output always carries a
+``grad_fn`` there. Otherwise K5 launches without lse, as the serve and
+prefill paths do. On the CPU the plain version's own autograd gives the
+gradient.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.obs import prof as PF
 from repro_torch.obs import trace as TR
 from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_plain, flash_attention_lse_plain,
     flash_attention_ref, flash_attention_tolerance)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -40,8 +50,11 @@ _FNS: Dict[str, object] = {}
 def _kernel(name: str):
     if name not in _FNS:
         from repro_torch.kernels import build
-        fn = getattr(build.load("flash_attention"), f"flash_attention_{name}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        bwd = name.startswith("bwd")
+        lib = "flash_attention_bwd" if bwd else "flash_attention"
+        fn = getattr(build.load(lib), f"flash_attention_{name}")
+        fn.argtypes = [ctypes.c_void_p] * (10 if bwd else 5) + \
+            [ctypes.c_int] * 6 + \
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -119,6 +132,164 @@ def cost(B: int, T: int, S: int, H: int, KV: int, hd: int, elem: int, *,
     return flops, elem * (2 * B * T * H * hd + 2 * B * S * KV * hd)
 
 
+def bwd_cost(B: int, T: int, S: int, H: int, KV: int, hd: int, elem: int,
+             *, causal: bool = True, window: int = 0) -> Tuple[int, int]:
+    """(flops, bytes) of one backward call: the five products S = q k^T,
+    dP = do v^T, dv = P^T do, dk = dS^T q and dq = dS k, 10 hd flops a
+    visible pair a head; q, o, do, dq (B, T, H, hd) and k, v, dk, dv
+    (B, S, KV, hd) moved once at ``elem`` bytes a value, lse read as
+    float32. The counts behind the backward's bound."""
+    flops = 10 * hd * B * H * visible_pairs(T, S, causal=causal,
+                                            window=window)
+    return flops, (elem * (4 * B * T * H * hd + 4 * B * S * KV * hd)
+                   + 4 * B * H * T)
+
+
+def _launch_checks(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> None:
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention's kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    if any(a.stride(-1) != 1 for a in (q, k, v)):
+        raise ValueError("flash_attention's kernel needs unit stride along "
+                         "head_dim")
+    if B * H > 65535 or max(T, S) >= 2 ** 31 or S == 0:
+        raise ValueError(f"flash_attention: shape B={B}, T={T}, S={S}, "
+                         f"H={H} out of the kernel's range")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"q lies on {q.device}, not the current device")
+
+
+def _launch_forward(q, k, v, causal, window, softcap, with_lse: bool):
+    """K5 on CUDA tensors: o, and lse (B, H, T) float32 when
+    ``with_lse`` (else None)."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    strides = (ctypes.c_int64 * 12)(*(s for a in (q, k, v, o)
+                                      for s in a.stride()[:3]))
+    wgmma = takes_wgmma(q, k, v)
+    name = "bf16_wgmma" if wgmma else _SUFFIX[q.dtype]
+    fn = _kernel(name)
+
+    def launch():
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                B, T, S, H, KV, hd, strides, int(causal), int(window),
+                float(softcap), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_attention kernel launch failed: "
+                               f"CUDA error {rc}")
+        LAUNCHES["flash_attention"] += 1
+        if wgmma:
+            LAUNCHES["flash_attention_wgmma"] += 1
+
+    if not TR.active():
+        launch()
+        return o, lse
+    flops, nbytes = cost(B, T, S, H, KV, hd, q.element_size(),
+                         causal=causal, window=window)
+    with PF.dispatch("kernels.flash_attention",
+                     ("flash_attention", (B, T, S, H, KV, hd), str(q.dtype),
+                      bool(causal), int(window), name),
+                     device=q.device, args=(q, k, v), flops=flops,
+                     bytes_accessed=nbytes, library="flash_attention",
+                     b=B, t=T, s=S, h=H) as call:
+        launch()
+        call.outputs = o
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
+    """(dq, dk, dv) of `flash_attention`'s o for the gradient ``do``,
+    from the forward's o and lse (B, H, T), in the inputs' dtype: dq
+    (B, T, H, hd), dk and dv (B, S, KV, hd), contiguous. CUDA tensors launch
+    the backward kernel (counted in ``LAUNCHES["flash_attention_bwd"]``) or
+    raise, reading q, k, v, o and do by strides; CPU tensors run the plain
+    version `flash_attention_bwd_plain`."""
+    _check(q, k, v)
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or \
+            tuple(lse.shape) != (B, H, T) or lse.dtype != torch.float32 or \
+            o.dtype != q.dtype or do.dtype != q.dtype or \
+            not (o.device == do.device == lse.device == q.device):
+        raise ValueError(f"o and do must match q {tuple(q.shape)} "
+                         f"{q.dtype} on {q.device}, lse be (B, H, T) "
+                         f"float32 there; got {tuple(o.shape)} {o.dtype}, "
+                         f"{tuple(do.shape)} {do.dtype}, {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
+                         f"{q.device}")
+    _launch_checks(q, k, v)
+    # autograd may hand over a gradient with any strides
+    o, do, lse = (a if a.stride(-1) == 1 else a.contiguous()
+                  for a in (o, do, lse.contiguous()))
+    dq = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, KV, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 15)(*(s for a in (q, k, v, o, do)
+                                      for s in a.stride()[:3]))
+    fn = _kernel("bwd_" + _SUFFIX[q.dtype])
+
+    def launch():
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, T, S, H, KV, hd, strides, int(causal), int(window),
+                float(softcap), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                               f"CUDA error {rc}")
+        LAUNCHES["flash_attention_bwd"] += 1
+
+    if not TR.active():
+        launch()
+        return dq, dk, dv
+    flops, nbytes = bwd_cost(B, T, S, H, KV, hd, q.element_size(),
+                             causal=causal, window=window)
+    with PF.dispatch("kernels.flash_attention_bwd",
+                     ("flash_attention_bwd", (B, T, S, H, KV, hd),
+                      str(q.dtype), bool(causal), int(window)),
+                     device=q.device, args=(q, k, v, o, do, lse),
+                     flops=flops, bytes_accessed=nbytes,
+                     library="flash_attention_bwd", b=B, t=T, s=S,
+                     h=H) as call:
+        launch()
+        call.outputs = (dq, dk, dv)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K5's forward with its log-sum-exp, K5's backward kernel as its
+    gradient (CUDA only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        o, lse = _launch_forward(q, k, v, causal, window, softcap, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                         window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
@@ -132,51 +303,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU, not "
                          f"{q.device}")
-    B, T, H, hd = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention's kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {hd}")
-    if any(a.stride(-1) != 1 for a in (q, k, v)):
-        raise ValueError("flash_attention's kernel needs unit stride along "
-                         "head_dim")
-    if B * H > 65535 or max(T, S) >= 2 ** 31 or S == 0:
-        raise ValueError(f"flash_attention: shape B={B}, T={T}, S={S}, "
-                         f"H={H} out of the kernel's range")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"q lies on {q.device}, not the current device")
-    o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 12)(*(s for a in (q, k, v, o)
-                                      for s in a.stride()[:3]))
-    wgmma = takes_wgmma(q, k, v)
-    name = "bf16_wgmma" if wgmma else _SUFFIX[q.dtype]
-    fn = _kernel(name)
+    _launch_checks(q, k, v)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
+                                      float(softcap))
+    return _launch_forward(q, k, v, causal, window, softcap, False)[0]
 
-    def launch():
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                B, T, S, H, KV, hd, strides, int(causal), int(window),
-                float(softcap), torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"flash_attention kernel launch failed: "
-                               f"CUDA error {rc}")
-        LAUNCHES["flash_attention"] += 1
-        if wgmma:
-            LAUNCHES["flash_attention_wgmma"] += 1
 
-    if not TR.active():
-        launch()
-        return o
-    flops, nbytes = cost(B, T, S, H, KV, hd, q.element_size(),
-                         causal=causal, window=window)
-    with PF.dispatch("kernels.flash_attention",
-                     ("flash_attention", (B, T, S, H, KV, hd), str(q.dtype),
-                      bool(causal), int(window), name),
-                     device=q.device, args=(q, k, v), flops=flops,
-                     bytes_accessed=nbytes, library="flash_attention",
-                     b=B, t=T, s=S, h=H) as call:
-        launch()
-        call.outputs = o
-    return o
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """(o, lse (B, H, T) float32) with no autograd: K5 with its
+    log-sum-exp on CUDA tensors, the plain versions on CPU ones."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return (flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      softcap=softcap),
+                flash_attention_lse_plain(q, k, v, causal=causal,
+                                          window=window, softcap=softcap))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
+                         f"{q.device}")
+    _launch_checks(q, k, v)
+    return _launch_forward(q, k, v, causal, window, softcap, True)
 
 
 def flash_attention_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,5 +342,7 @@ def flash_attention_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_tolerance(v, ref, abs_out)
 
 
-__all__ = ["flash_attention", "flash_attention_bound",
-           "flash_attention_plain", "flash_attention_ref", "takes_wgmma"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bound",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_lse_plain", "flash_attention_plain",
+           "flash_attention_ref", "flash_attention_with_lse", "takes_wgmma"]

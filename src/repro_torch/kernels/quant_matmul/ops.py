@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.obs import prof as PF
 from repro_torch.obs import trace as TR
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
@@ -84,6 +84,7 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
         return quant_matmul_ref(x, w_q, scales)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on CUDA or CPU, not {x.device}")
+    refuse_grad("quant_matmul", x, w_q, scales)
     if not (x.is_contiguous() and w_q.is_contiguous()
             and scales.is_contiguous()):
         raise ValueError("quant_matmul's kernel takes contiguous tensors")

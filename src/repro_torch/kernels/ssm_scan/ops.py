@@ -7,7 +7,14 @@ bf16), and dt (B, T, d), A (d, N), D (d,) in float32; it returns y
 (B, T, d) in u's type. For CUDA tensors it launches the kernel (counted in
 ``repro_torch.kernels.LAUNCHES["ssm_scan"]``) or raises; the kernel masks
 ragged T and d itself, so nothing is padded or copied. Only for CPU tensors
-does it run the plain version `ssm_scan_ref`.
+does it run the plain version `ssm_scan_ref`, whose own autograd gives the
+gradient there.
+
+On CUDA, when grad mode is on and an input requires grad, `ssm_scan` goes
+through `SsmScanFn`, whose backward is the hand-written kernel
+``csrc/ssm_scan_bwd.cu`` (`ssm_scan_bwd`, counted in
+``LAUNCHES["ssm_scan_bwd"]``), so y always carries a ``grad_fn`` there.
+Otherwise it launches K6 as the serve and prefill paths do.
 """
 from __future__ import annotations
 
@@ -19,19 +26,23 @@ import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.obs import prof as PF
 from repro_torch.obs import trace as TR
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_plain,
+                                               ssm_scan_ref)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_STATE = 16          # the state values a channel holds in registers
+BWD_CHUNK = 16          # steps between the backward's saved states
+BWD_CHANNELS = 32       # channels a block of the backward
 _FNS: Dict[str, object] = {}
 
 
-def _kernel(dtype: torch.dtype):
-    name = _SUFFIX[dtype]
+def _kernel(dtype: torch.dtype, lib: str = "ssm_scan"):
+    name = f"{lib}_{_SUFFIX[dtype]}"
     if name not in _FNS:
         from repro_torch.kernels import build
-        fn = getattr(build.load("ssm_scan"), f"ssm_scan_{name}")
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+        fn = getattr(build.load(lib), name)
+        n_ptr = 7 if lib == "ssm_scan" else 17
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -75,16 +86,21 @@ def cost(B: int, T: int, d: int, N: int, x_bytes: int) -> Tuple[int, int]:
     return B * T * d * (7 * N + 2), nbytes
 
 
-def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
-             C_: torch.Tensor, A: torch.Tensor, D: torch.Tensor
-             ) -> torch.Tensor:
-    """y of the selective scan from a zero state (see `ref.selective_scan`),
-    in u's dtype."""
-    _check(u, dt, B_, C_, A, D)
-    if u.device.type == "cpu":
-        return ssm_scan_ref(u, dt, B_, C_, A, D)
-    if u.device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on CUDA or CPU, not {u.device}")
+def bwd_cost(B: int, T: int, d: int, N: int, x_bytes: int
+             ) -> Tuple[int, int, int]:
+    """(float32 operations, bytes, exps) of one backward: the reverse
+    walk's operations per (b, t, channel, state) (dh, its products into
+    ddt, dA, du, dB_ and dC_, the carried product: 14) and per (b, t,
+    channel) (du, ddt, dD: 4); u, dt, B_, C_, dy, A, D read once, du, ddt,
+    dB_, dC_, dA, dD written once; the B T d N exps of exp(dt A) the
+    gradient needs. The counts behind the backward's bound (the kernel
+    itself takes 3 B T d N exps, as it rebuilds the states twice)."""
+    nbytes = (3 * B * T * d * x_bytes + 2 * B * T * d * 4
+              + 4 * B * T * N * x_bytes + 2 * (d * N * 4 + d * 4))
+    return B * T * d * (14 * N + 4), nbytes, B * T * d * N
+
+
+def _launch_checks(u, dt, B_, C_, A, D) -> None:
     if not all(a.is_contiguous() for a in (u, dt, B_, C_, A, D)):
         raise ValueError("ssm_scan's kernel takes contiguous tensors")
     Bsz, T, d = u.shape
@@ -97,6 +113,101 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                          f"kernel's range")
     if u.device.index != torch.cuda.current_device():
         raise ValueError(f"u lies on {u.device}, not the current device")
+
+
+def ssm_scan_bwd(u, dt, B_, C_, A, D, dy):
+    """(du, ddt, dB_, dC_, dA, dD) of `ssm_scan`'s y for the gradient dy,
+    in the dtypes of (u, dt, B_, C_, A, D). CUDA tensors launch the
+    backward kernel (counted in ``LAUNCHES["ssm_scan_bwd"]``) or raise; CPU
+    tensors run the plain version `ssm_scan_bwd_plain`. The wrapper makes
+    dy contiguous (a copy only when it is not) and allocates the kernel's
+    float32 scratch: the states at chunk starts (B, T/16, N, d), the
+    per-block sums of dB_ and dC_ (B, d/32, T, 32), dA and dD per batch
+    row."""
+    _check(u, dt, B_, C_, A, D)
+    if dy.shape != u.shape or dy.dtype != u.dtype or dy.device != u.device:
+        raise ValueError(f"dy must match u: got {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}")
+    if u.device.type == "cpu":
+        return ssm_scan_bwd_plain(u, dt, B_, C_, A, D, dy)
+    if u.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on CUDA or CPU, not {u.device}")
+    _launch_checks(u, dt, B_, C_, A, D)
+    dy = dy.contiguous()
+    Bsz, T, d = u.shape
+    N = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=u.device)
+    chunks = -(-T // BWD_CHUNK)
+    blocks = -(-d // BWD_CHANNELS)
+    hck = torch.empty((Bsz, chunks, N, d), **f32)
+    part = torch.empty((Bsz, blocks, T, 2 * MAX_STATE), **f32)
+    dA_part = torch.empty((Bsz, d, N), **f32)
+    dD_part = torch.empty((Bsz, d), **f32)
+    du, ddt = torch.empty_like(u), torch.empty_like(dt)
+    dB, dC = torch.empty_like(B_), torch.empty_like(C_)
+    dA, dD = torch.empty_like(A), torch.empty_like(D)
+    fn = _kernel(u.dtype, "ssm_scan_bwd")
+
+    def launch():
+        rc = fn(u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                A.data_ptr(), D.data_ptr(), dy.data_ptr(), hck.data_ptr(),
+                part.data_ptr(), dA_part.data_ptr(), dD_part.data_ptr(),
+                du.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                dA.data_ptr(), dD.data_ptr(), Bsz, T, d, N,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ssm_scan_bwd kernel launch failed: CUDA "
+                               f"error {rc}")
+        LAUNCHES["ssm_scan_bwd"] += 1
+
+    out = (du, ddt, dB, dC, dA, dD)
+    if not TR.active():
+        launch()
+        return out
+    ops, nbytes, _ = bwd_cost(Bsz, T, d, N, u.element_size())
+    with PF.dispatch("kernels.ssm_scan_bwd",
+                     ("ssm_scan_bwd", (Bsz, T, d), N, str(u.dtype)),
+                     device=u.device, args=(u, dt, B_, C_, A, D, dy),
+                     flops=ops, bytes_accessed=nbytes,
+                     library="ssm_scan_bwd", b=Bsz, t=T, d=d, n=N) as call:
+        launch()
+        call.outputs = out
+    return out
+
+
+class SsmScanFn(torch.autograd.Function):
+    """K6 forward, K6's backward kernel as its gradient (CUDA only)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, B_, C_, A, D):
+        ctx.save_for_backward(u, dt, B_, C_, A, D)
+        return _launch_forward(u, dt, B_, C_, A, D)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssm_scan_bwd(*ctx.saved_tensors, dy)
+
+
+def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+             C_: torch.Tensor, A: torch.Tensor, D: torch.Tensor
+             ) -> torch.Tensor:
+    """y of the selective scan from a zero state (see `ref.selective_scan`),
+    in u's dtype."""
+    _check(u, dt, B_, C_, A, D)
+    if u.device.type == "cpu":
+        return ssm_scan_ref(u, dt, B_, C_, A, D)
+    if u.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on CUDA or CPU, not {u.device}")
+    _launch_checks(u, dt, B_, C_, A, D)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (u, dt, B_, C_, A, D)):
+        return SsmScanFn.apply(u, dt, B_, C_, A, D)
+    return _launch_forward(u, dt, B_, C_, A, D)
+
+
+def _launch_forward(u, dt, B_, C_, A, D) -> torch.Tensor:
+    Bsz, T, d = u.shape
+    N = A.shape[1]
     y = torch.empty_like(u)
     fn = _kernel(u.dtype)
 
@@ -123,4 +234,5 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     return y
 
 
-__all__ = ["ssm_scan", "ssm_scan_ref"]
+__all__ = ["SsmScanFn", "ssm_scan", "ssm_scan_bwd", "ssm_scan_bwd_plain",
+           "ssm_scan_ref"]

@@ -9,6 +9,12 @@ from typing import Optional, Tuple
 import torch
 
 
+def _work(a: torch.Tensor) -> torch.Tensor:
+    """``a`` in the type the plain versions compute in: float32, or float64
+    for float64 inputs (the tests' exact reference)."""
+    return a if a.dtype == torch.float64 else a.float()
+
+
 def selective_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                    C_: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
                    h0: Optional[torch.Tensor] = None
@@ -20,10 +26,9 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     """
     Bsz, T, d = u.shape
     N = A.shape[1]
-    uf, dtf = u.float(), dt.float()
-    bf, cf = B_.float(), C_.float()
-    h = torch.zeros((Bsz, d, N), dtype=torch.float32, device=u.device) \
-        if h0 is None else h0.float()
+    uf, dtf, bf, cf = (_work(a) for a in (u, dt, B_, C_))
+    h = torch.zeros((Bsz, d, N), dtype=uf.dtype, device=u.device) \
+        if h0 is None else h0.to(uf.dtype)
     ys = []
     for t in range(T):
         u_t, dt_t = uf[:, t], dtf[:, t]                   # (B, d)
@@ -103,3 +108,159 @@ def ssm_scan_tolerance(u, dt, B_, C_, A, D, ref: torch.Tensor
     if u.dtype == torch.bfloat16:
         tol = tol + 1.01 * 2.0 ** -7 * ref.float().abs()
     return tol
+
+
+def ssm_scan_bwd_plain(u, dt, B_, C_, A, D, dy):
+    """The plain backward of `ssm_scan_ref`: the explicit reverse scan that
+    kernel K6's backward (``csrc/ssm_scan_bwd.cu``) computes, in float32
+    (float64 for float64 inputs). Given dy (B, T, d), returns (du, ddt, dB_,
+    dC_, dA, dD) in the dtypes of (u, dt, B_, C_, A, D):
+
+        dh_t  = dy_t C_t + exp(dt_{t+1} A) dh_{t+1}
+        du_t  = dy_t D + dt_t sum_n dh_t B_t
+        ddt_t = sum_n dh_t (A exp(dt_t A) h_{t-1} + u_t B_t)
+        dA    = sum_{b,t} dh_t dt_t exp(dt_t A) h_{t-1},  dD = sum dy u
+        dB_t  = sum_c dh_t dt_t u_t,  dC_t = sum_c dy_t h_t
+
+    It keeps every state (B, T, d, N) of the forward walk."""
+    Bsz, T, d = u.shape
+    uf, dtf, dyf, bf, cf, Af, Df = (_work(a) for a in (u, dt, dy, B_, C_, A,
+                                                        D))
+    h = torch.zeros((Bsz, d, Af.shape[1]), dtype=uf.dtype, device=u.device)
+    hs = []
+    for t in range(T):
+        h = torch.exp(dtf[:, t, :, None] * Af) * h \
+            + (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
+        hs.append(h)
+    g = torch.zeros_like(h)
+    du, ddt, dB, dC = [None] * T, [None] * T, [None] * T, [None] * T
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(T)):
+        dh = dyf[:, t, :, None] * cf[:, t, None, :] + g
+        hprev = hs[t - 1] if t > 0 else torch.zeros_like(h)
+        e = torch.exp(dtf[:, t, :, None] * Af)
+        eh = e * hprev
+        ub = uf[:, t, :, None] * bf[:, t, None, :]
+        ddt[t] = (dh * (Af * eh + ub)).sum(-1)
+        dA = dA + (dh * dtf[:, t, :, None] * eh).sum(0)
+        du[t] = dyf[:, t] * Df + dtf[:, t] * (dh * bf[:, t, None, :]).sum(-1)
+        dB[t] = (dh * (dtf[:, t] * uf[:, t])[..., None]).sum(1)
+        dC[t] = (dyf[:, t, :, None] * hs[t]).sum(1)
+        g = e * dh
+    dD = (dyf * uf).sum((0, 1))
+
+    def stack(xs, like):
+        out = torch.stack(xs, dim=1) if xs else like.float().new_zeros(
+            like.shape)
+        return out.to(like.dtype)
+
+    return (stack(du, u), stack(ddt, dt), stack(dB, B_), stack(dC, C_),
+            dA.to(A.dtype), dD.to(D.dtype))
+
+
+def ssm_scan_bwd_tolerance(u, dt, B_, C_, A, D, dy, refs):
+    """Elementwise bounds on |kernel - plain version| of each of the six
+    gradients (du, ddt, dB_, dC_, dA, dD) for the same inputs; ``refs`` are
+    the plain version's outputs.
+
+    Both sides run the same recurrences in float32 in other orders. Per
+    side, with eps the float32 unit roundoff doubled (one ulp):
+
+    * The states. `ssm_scan_tolerance` bounds the two sides' forward states
+      apart by 16 eps E_t (its magnitude recurrences H_t >= |h_t| and
+      E_t); each side is within 8 eps E_t of the exact state. The backward
+      rebuilds them with the forward's instructions (the kernel with
+      ex2.approx.ftz, within 2 ulp and counted there), so err_h <= 8 eps E.
+    * The exps. The kernel takes exp(dt A) as 2^(dt (A log2 e)) by
+      ex2.approx.ftz.f32: 2 ulp, plus 1.5 eps |dt A| relative from the
+      roundings of log2 e, A log2 e and dt (A log2 e); the plain version's
+      exp is within 1 ulp plus 0.5 eps |dt A| for dt A. So each side's
+      exp(dt A) is within rel_e = (2 + 1.5 |dt A|) eps of exact.
+    * The adjoint dh_t = dy_t C_t + e_{t+1} dh_{t+1} is contractive
+      (e <= 1). With Gm_t = |dy_t C_t| + e_{t+1} Gm_{t+1} >= |dh_t|, the
+      step's product e_{t+1} dh_{t+1} is off by at most (rel_e_{t+1} + eps)
+      e_{t+1} Gm_{t+1} besides the carried error, and its sum with
+      dy_t C_t adds 2 eps Gm_t, so err_dh_t <= Eg_t with
+      Eg_t = e_{t+1} (Eg_{t+1} + (rel_e_{t+1} + eps) Gm_{t+1}) + 2 eps Gm_t.
+    * Each gradient is a sum of products of these: a product's error is at
+      most its factors' errors times the other factors' magnitudes, plus
+      one rounding a factor; a float32 sum of m terms, in any order, is
+      within (m - 1) eps of the sum of their magnitudes. So, per side:
+      du_t:  |dt| sum_n Eg |B| + (N + 3) eps (|dy D| + |dt| sum_n Gm |B|)
+      ddt_t: sum_n [Eg (|A| e |h_{t-1}| + |u B|) + Gm |A| e (err_h_{t-1}
+             + rel_e |h_{t-1}|)] + (N + 4) eps sum_n Gm (|A| e |h_{t-1}|
+             + |u B|)
+      dA:    sum_{b,t} |dt| e [Eg |h_{t-1}| + Gm (err_h_{t-1} + rel_e
+             |h_{t-1}|)] + (B T + 3) eps sum_{b,t} Gm |dt| e |h_{t-1}|
+      dD:    (B T) eps sum_{b,t} |dy u|
+      dB_t:  sum_c Eg |dt u| + (d + 2) eps sum_c Gm |dt u|
+      dC_t:  sum_c |dy| err_h_t + (d + 1) eps sum_c |dy| H_t
+    The bound is twice that (two sides), 1% more for the float32 rounding
+    of the bound's own sums, and for a bf16 output (du, dB_, dC_) one
+    rounding of each side, 1.01 * 2^-7 |ref|.
+
+    It needs every state's magnitude (B, T, d, N float32: 1 GiB for
+    falcon-mamba-7b at B 2, T 1024)."""
+    eps = torch.finfo(torch.float32).eps
+    Bsz, T, d = u.shape
+    N = A.shape[1]
+    uf, dtf, dyf = u.float(), dt.float(), dy.float()
+    bf, cf = B_.float().abs(), C_.float().abs()
+    Af = A.float()
+    Aa, Da = Af.abs(), D.float().abs()
+    dev = u.device
+    # forward magnitudes: H_t >= |h_t|, err_h_t <= 8 eps E_t (per side)
+    H = torch.zeros((Bsz, d, N), dtype=torch.float32, device=dev)
+    E = torch.zeros_like(H)
+    Hs, Es = [], []
+    for t in range(T):
+        e = torch.exp(dtf[:, t, :, None] * Af)
+        inc = (dtf[:, t] * uf[:, t]).abs()[..., None] * bf[:, t, None, :]
+        E = e * E + H + inc
+        H = e * H + inc
+        Hs.append(H)
+        Es.append(E)
+    zero = torch.zeros_like(H)
+    Gm = torch.zeros_like(H)     # e_{t+1} Gm_{t+1}, carried
+    Eg = torch.zeros_like(H)     # the carried part of Eg_t
+    t_du, t_ddt, t_dB, t_dC = [None] * T, [None] * T, [None] * T, [None] * T
+    t_dA = torch.zeros((d, N), dtype=torch.float32, device=dev)
+    sum_dA = torch.zeros_like(t_dA)
+    for t in reversed(range(T)):
+        dtA = dtf[:, t, :, None] * Af
+        e = torch.exp(dtA)
+        rel_e = (2 + 1.5 * dtA.abs()) * eps
+        gm = (dyf[:, t, :, None] * cf[:, t, None, :]).abs() + Gm
+        eg = Eg + 2 * eps * gm
+        hp = Hs[t - 1] if t > 0 else zero
+        ehp = 8 * eps * Es[t - 1] if t > 0 else zero
+        adt = dtf[:, t].abs()[..., None]
+        ub = (uf[:, t].abs()[..., None]) * bf[:, t, None, :]
+        aeh = Aa * e * hp
+        t_du[t] = adt[..., 0] * (eg * bf[:, t, None, :]).sum(-1) + (N + 3) \
+            * eps * ((dyf[:, t] * Da).abs()
+                     + adt[..., 0] * (gm * bf[:, t, None, :]).sum(-1))
+        t_ddt[t] = (eg * (aeh + ub) + gm * Aa * e * (ehp + rel_e * hp)
+                    ).sum(-1) + (N + 4) * eps * (gm * (aeh + ub)).sum(-1)
+        t_dA = t_dA + (adt * e * (eg * hp + gm * (ehp + rel_e * hp))).sum(0)
+        sum_dA = sum_dA + (gm * adt * e * hp).sum(0)
+        dtu = (dtf[:, t] * uf[:, t]).abs()[..., None]
+        t_dB[t] = (eg * dtu).sum(1) + (d + 2) * eps * (gm * dtu).sum(1)
+        ady = dyf[:, t].abs()[..., None]
+        t_dC[t] = (ady * 8 * eps * Es[t]).sum(1) \
+            + (d + 1) * eps * (ady * Hs[t]).sum(1)
+        Gm = e * gm
+        Eg = e * (eg + (rel_e + eps) * gm)
+    t_dA = t_dA + (Bsz * T + 3) * eps * sum_dA
+    t_dD = Bsz * T * eps * (dyf * uf).abs().sum((0, 1))
+
+    def done(parts, ref):
+        tol = 2.02 * (torch.stack(parts, dim=1) if isinstance(parts, list)
+                      else parts)
+        if ref.dtype == torch.bfloat16:
+            tol = tol + 1.01 * 2.0 ** -7 * ref.float().abs()
+        return tol
+
+    du_r, ddt_r, dB_r, dC_r, dA_r, dD_r = refs
+    return (done(t_du, du_r), done(t_ddt, ddt_r), done(t_dB, dB_r),
+            done(t_dC, dC_r), done(t_dA, dA_r), done(t_dD, dD_r))

@@ -14,7 +14,7 @@ the encoder and vision inputs are later slices and raise
 
 Public entry points:
   init(generator, cfg)                     -> params
-  forward(params, batch, cfg)              -> (logits, aux)  (train / prefill)
+  forward(params, batch, cfg, remat=True)  -> (logits, aux)  (train / prefill)
   decode_step(params, state, tokens, cfg)  -> (logits, state)  (one token)
   init_decode_state(cfg, batch, max_len, dtype) -> cache state
 """
@@ -24,6 +24,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
@@ -116,15 +117,27 @@ def _take(tree, r: int):
 
 
 def _segment_apply(seg_params, x, cfg: ArchConfig, seg, *, caches=None,
-                   kv_len=None):
-    """Returns x; caches are updated in place."""
-    for r in range(seg.repeats):
-        params = _take(seg_params, r)
-        cache_r = None if caches is None else _take(caches, r)
+                   kv_len=None, remat: bool = False):
+    """Returns x; caches are updated in place. ``remat``: each repeat of
+    the pattern runs under `torch.utils.checkpoint.checkpoint`, which keeps
+    only its input and runs it again in the backward pass, as the JAX
+    package's `jax.checkpoint` of its scan body does."""
+
+    def body(x, params, cache_r):
         for i, spec in enumerate(seg.pattern):
             x, _ = _block_apply(params[i], x, cfg, spec,
                                 cache=None if cache_r is None else cache_r[i],
                                 kv_len=kv_len)
+        return x
+
+    for r in range(seg.repeats):
+        params = _take(seg_params, r)
+        cache_r = None if caches is None else _take(caches, r)
+        if remat and cache_r is None:
+            x = checkpoint(body, x, params, None, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x, params, cache_r)
     return x
 
 
@@ -181,13 +194,20 @@ def _lm_head(p, x, cfg: ArchConfig):
     return L.softcap(logits.float(), cfg.logit_softcap)
 
 
-def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
+            remat: bool = True):
     """Train/prefill forward. batch: {"tokens": (B, T)}.
-    Returns (logits float32 (B, T, V), aux_loss)."""
+    Returns (logits float32 (B, T, V), aux_loss). ``remat`` recomputes each
+    block in the backward pass instead of keeping its activations (no
+    effect without one); the "dots" policy, which keeps the products'
+    outputs, is not ported and raises."""
+    if remat and cfg.remat_policy == "dots":
+        raise NotImplementedError("remat_policy='dots' (keep the products' "
+                                  "outputs) is not ported")
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     for seg_params, seg in zip(params["segments"], cfg.segments):
-        x = _segment_apply(seg_params, x, cfg, seg)
+        x = _segment_apply(seg_params, x, cfg, seg, remat=remat)
     x = _norm(params["final_norm"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _lm_head(params, x, cfg), aux

@@ -1,2 +1,2 @@
-"""Serve and prefill steps of the LM track (the train step is a later
-slice of the port)."""
+"""The LM track's training: losses, AdamW, the train, serve and prefill
+steps, and the fault-tolerant trainer."""

@@ -6,7 +6,10 @@ bounds stated beside them (`quant_matmul_tolerance`,
 `clustered_matmul_tolerance`, `block_sparse_matmul_tolerance`,
 `flash_attention_tolerance` through `flash_attention_bound`,
 `ssm_scan_tolerance`), alone and inside the
-model. They import no
+model; the backward kernels of K5 and K6 against their plain versions
+(`flash_attention_bwd_tolerance`, `ssm_scan_bwd_tolerance`), gradients
+through autograd and a train step through the kernels; K2-K4 refusing a
+gradient. They import no
 JAX (the machine with the card has none) and skip without a CUDA device;
 on the card run them without the JAX-importing conftest:
 
@@ -1037,6 +1040,9 @@ def _traced_cases(device):
     fa = (normal(2, 128, 4, 64, dtype=bf), normal(2, 128, 2, 64, dtype=bf),
           normal(2, 128, 2, 64, dtype=bf))
     ss = ssm_inputs(g, 2, 64, 256, 16, bf, device)
+    fa_o, fa_lse = FA.flash_attention_with_lse(*fa)
+    fa_do, ss_dy = normal(2, 128, 4, 64, dtype=bf), normal(2, 64, 256,
+                                                          dtype=bf)
     rng = np.random.default_rng(5)
     smem_pop = NS.pack_population(CASES["mixed"][0]())
     smem_x = torch.as_tensor(rng.integers(0, 16, (smem_pop.n_candidates,
@@ -1051,6 +1057,9 @@ def _traced_cases(device):
             *bs, block_k=128, block_n=128),
         "kernels.flash_attention": lambda: FA.flash_attention(*fa),
         "kernels.ssm_scan": lambda: SS.ssm_scan(*ss),
+        "kernels.flash_attention_bwd": lambda: FA.flash_attention_bwd(
+            *fa, fa_o, fa_do, fa_lse)[0],
+        "kernels.ssm_scan_bwd": lambda: SS.ssm_scan_bwd(*ss, ss_dy)[0],
         "kernels.netlist_sim.smem": lambda: NS.netlist_sim(smem_pop,
                                                            smem_x)[0],
         "kernels.netlist_sim.global": lambda: NS.netlist_sim(glob_pop,
@@ -1060,7 +1069,8 @@ def _traced_cases(device):
 
 TRACED_SITES = ["kernels.quant_matmul", "kernels.clustered_matmul",
                 "kernels.block_sparse_matmul", "kernels.flash_attention",
-                "kernels.ssm_scan", "kernels.netlist_sim.smem",
+                "kernels.ssm_scan", "kernels.flash_attention_bwd",
+                "kernels.ssm_scan_bwd", "kernels.netlist_sim.smem",
                 "kernels.netlist_sim.global"]
 
 
@@ -1122,3 +1132,207 @@ def test_cuda_state_round_trips_through_checkpoints(card, tmp_path):
         assert got[k].device == state[k].device
         assert got[k].dtype == state[k].dtype
         assert torch.equal(_as_bits(got[k]), _as_bits(state[k]))
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels of K5 and K6, and gradients on the card
+# ---------------------------------------------------------------------------
+
+# name: (B, T, S, H, KV, hd, causal, window, softcap, dtype): every head_dim
+# in both types where the tiles differ (64-row tiles to hd 128, 32-row ones
+# at 192 and 256), ragged T and S, non-causal S past T, windows, softcaps,
+# GQA groups of 1 to 8
+BWD_CASES = {
+    "hd16_f32_g2": (2, 50, 50, 4, 2, 16, True, 0, 0.0, "float32"),
+    "hd32_f32_softcap": (1, 77, 77, 4, 1, 32, True, 0, 30.0, "float32"),
+    "hd64_bf16_noncausal": (2, 100, 150, 4, 2, 64, False, 0, 0.0,
+                            "bfloat16"),
+    "hd128_bf16_g2": (2, 300, 300, 16, 8, 128, True, 0, 0.0, "bfloat16"),
+    "hd128_f32_window": (1, 200, 200, 4, 2, 128, True, 64, 0.0, "float32"),
+    "hd192_bf16_g6": (1, 130, 130, 12, 2, 192, True, 0, 0.0, "bfloat16"),
+    "hd256_bf16_window_softcap": (1, 300, 300, 8, 4, 256, True, 100, 50.0,
+                                  "bfloat16"),
+    "hd256_f32_g8": (1, 70, 70, 8, 1, 256, True, 0, 0.0, "float32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_attention_bwd_kernel_matches_plain(card, case):
+    """K5's lse and its backward kernel against their plain versions within
+    `flash_attention_lse_tolerance` and `flash_attention_bwd_tolerance`;
+    autograd through `flash_attention` gives the kernel's gradients; a
+    rerun is equal to the bit (no atomics)."""
+    B, Tq, S, H, KV, hd, causal, window, cap, dtype = BWD_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + S + hd)
+    dt = DTYPES[dtype]
+    q, do = (torch.randn((B, Tq, H, hd), generator=g, device=card).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=card).to(dt)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = FA.flash_attention_with_lse(q, k, v, **kw)
+    lse_ref = FA.flash_attention_lse_plain(q, k, v, **kw)
+    assert bool(((lse - lse_ref).abs() <= FA.flash_attention_lse_tolerance(
+        q, k, lse_ref, softcap=cap)).all())
+    reset_launches()
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == 1
+    ref = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    for a, b, tol in zip(got, ref, FA.flash_attention_bwd_tolerance(
+            q, k, v, o, do, lse, ref, **kw)):
+        assert a.dtype == dt and a.shape == b.shape
+        assert bool(((a.float() - b.float()).abs() <= tol).all())
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = FA.flash_attention(qq, kk, vv, **kw)
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert all(torch.equal(x.grad, y) for x, y in zip((qq, kk, vv), got))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_matches_autograd_of_the_plain_forward(card):
+    """In float32 the kernel's gradient also agrees with autograd of the
+    plain forward (the gradient the reference takes of its jnp
+    attention), within the same bound."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q, do = (torch.randn((2, 90, 8, 64), generator=g, device=card)
+             for _ in range(2))
+    k, v = (torch.randn((2, 90, 2, 64), generator=g, device=card)
+            for _ in range(2))
+    kw = dict(causal=True, window=40, softcap=30.0)
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    FA.flash_attention(qq, kk, vv, **kw).backward(do)
+    qp, kp, vp = (x.clone().requires_grad_(True) for x in (q, k, v))
+    FA.flash_attention_plain(qp, kp, vp, **kw).backward(do)
+    o, lse = FA.flash_attention_with_lse(q, k, v, **kw)
+    want = (qp.grad, kp.grad, vp.grad)
+    for a, b, tol in zip((qq.grad, kk.grad, vv.grad), want,
+                         FA.flash_attention_bwd_tolerance(q, k, v, o, do, lse,
+                                                          want, **kw)):
+        assert bool(((a - b).abs() <= tol).all())
+
+
+# name: (B, T, d, N, dtype): falcon-mamba-7b's training width, ragged T
+# (chunks of 16), ragged d (blocks of 32 channels), small states, one step
+SSM_BWD_CASES = {
+    "falcon_train_bf16": (2, 1024, 8192, 16, "bfloat16"),
+    "ragged_t_333_f32": (2, 333, 256, 16, "float32"),
+    "ragged_d_1000_bf16": (1, 200, 1000, 16, "bfloat16"),
+    "state_3_f32": (3, 65, 70, 3, "float32"),
+    "one_step_bf16": (2, 1, 40, 16, "bfloat16"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SSM_BWD_CASES))
+def test_ssm_scan_bwd_kernel_matches_plain(card, case):
+    """K6's backward kernel against `ssm_scan_bwd_plain` within
+    `ssm_scan_bwd_tolerance`; autograd through `ssm_scan` gives the
+    kernel's gradients; a rerun is equal to the bit."""
+    B, Tq, d, N, dtype = SSM_BWD_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + d + N)
+    args = ssm_inputs(g, B, Tq, d, N, DTYPES[dtype], card)
+    dy = torch.randn((B, Tq, d), generator=g, device=card).to(DTYPES[dtype])
+    reset_launches()
+    got = SS.ssm_scan_bwd(*args, dy)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan_bwd"] == 1
+    ref = SS.ssm_scan_bwd_plain(*args, dy)
+    for a, b, tol in zip(got, ref, SS.ssm_scan_bwd_tolerance(*args, dy,
+                                                             ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(((a.float() - b.float()).abs() <= tol).all())
+    again = SS.ssm_scan_bwd(*args, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [x.clone().requires_grad_(True) for x in args]
+    y = SS.ssm_scan(*leaves)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    assert all(torch.equal(x.grad, w) for x, w in zip(leaves, got))
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_a_gradient(card):
+    """K2, K3 and K4 have no backward kernel: on CUDA they raise when grad
+    mode is on and an input requires grad, and run under no_grad."""
+    x = torch.ones((2, 64), device=card, requires_grad=True)
+    w8 = torch.ones((64, 8), dtype=torch.int8, device=card)
+    idx = torch.zeros((64, 8), dtype=torch.int8, device=card)
+    cb = torch.ones((64, 4), device=card)
+    w = torch.ones((64, 32), device=card)
+    bm = torch.ones((2, 1), dtype=torch.bool, device=card)
+    calls = {"quant_matmul": lambda a: QM.quant_matmul(
+        a, w8, torch.ones(8, device=card)),
+        "clustered_matmul": lambda a: CM.clustered_matmul(a, idx, cb),
+        "block_sparse_matmul": lambda a: BS.block_sparse_matmul(
+            a, w, bm, block_k=32, block_n=32)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call(x)
+        with torch.no_grad():
+            assert call(x).is_cuda
+        assert call(x.detach()).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_k5_and_k6_outputs_always_carry_a_gradient(card):
+    """Under grad mode with an input that requires grad, K5's and K6's
+    outputs have a grad_fn whatever input requires it; without one they
+    launch the forward alone (no lse)."""
+    g = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn((1, 16, 4, 64), generator=g, device=card)
+    k = torch.randn((1, 16, 2, 64), generator=g, device=card)
+    for i in range(3):
+        xs = [q, k, k.clone()]
+        xs[i] = xs[i].clone().requires_grad_(True)
+        assert FA.flash_attention(*xs).grad_fn is not None
+    assert FA.flash_attention(q, k, k).grad_fn is None
+    args = ssm_inputs(g, 1, 20, 64, 16, torch.bfloat16, card)
+    for i in range(6):
+        xs = list(args)
+        xs[i] = xs[i].clone().requires_grad_(True)
+        assert SS.ssm_scan(*xs).grad_fn is not None
+    assert SS.ssm_scan(*args).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
+def test_train_step_through_the_kernels_matches_plain(card, arch,
+                                                      monkeypatch):
+    """One train step of a small model, float32, through K5 and its
+    backward (or K6 and its backward) against the same step through the
+    plain versions: float32 end to end, two layers of reordered sums, so
+    loss and grad_norm within 1e-4 relative and the parameters within
+    1e-5 + 2.2 lr (Adam moves a parameter by about lr whatever its
+    gradient's size, and a gradient within rounding of 0 can flip it)."""
+    from repro_torch.train import train_state as TS
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    cfg = ARCHS[arch].reduced(**QUANT_CFG) if arch == "qwen3-0.6b" \
+        else ARCHS[arch].reduced(d_model=256)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    state = TS.init_state(torch.Generator(device=card).manual_seed(0), cfg,
+                          opt, device=card)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 100),
+                                     device=card)}
+    step = TS.make_train_step(cfg, opt, remat=True)
+    reset_launches()
+    s1, m1 = step(state, batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    if arch == "qwen3-0.6b":
+        assert (LAUNCHES["flash_attention"],
+                LAUNCHES["flash_attention_bwd"]) == (2 * L, L)
+        monkeypatch.setattr(A, "flash_attention", FA.flash_attention_plain)
+    else:
+        assert (LAUNCHES["ssm_scan"], LAUNCHES["ssm_scan_bwd"]) == (2 * L, L)
+        monkeypatch.setattr(S, "ssm_scan", SS.ssm_scan_ref)
+    s2, m2 = step(state, batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m1[key]) - float(m2[key])) <= 1e-4 * abs(
+            float(m2[key]))
+    for a, b in zip(tree_leaves(s1.params), tree_leaves(s2.params)):
+        assert float((a - b).abs().max()) <= 1e-5 + 2.2 * opt.lr

@@ -1,0 +1,383 @@
+"""The plain backward versions of K5 (`flash_attention_bwd_plain`) and K6
+(`ssm_scan_bwd_plain`), which the backward kernels are held against on the
+card, against autograd of the plain forward versions (float64, tight) and
+against `jax.grad` of the JAX package's attention oracle and selective scan
+(float32). The same numpy inputs, made from a seed, go to both sides. Also:
+the tolerances of the backward kernels cover the float32 plain versions'
+own rounding against float64, the tile ranges the K5 backward kernel walks
+cover every visible pair, and on the CPU the wrappers keep a gradient with
+no kernel launched.
+
+Tolerances: float64 against autograd 1e-10 (the same formulas in another
+order); float32 against `jax.grad` 1e-4 relative to the gradient's largest
+value (both sides sum hd or T products in float32, in other orders, and the
+jnp side differentiates the softmax where the plain version recomputes P
+from lse); lse against jax's logsumexp 1e-5."""
+import jax
+
+if not hasattr(jax.experimental, "enable_x64"):
+    # jax >= 0.9 moved the name to jax.enable_x64; the reference imports it
+    # from jax.experimental (circuit/simulate.py, kernels/netlist_sim/ops.py)
+    jax.experimental.enable_x64 = jax.enable_x64
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels.flash_attention import flash_attention_ref as jax_fref  # noqa: E402,E501
+from repro.nn.ssm import _selective_scan as jax_scan  # noqa: E402
+from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels import flash_attention as TFA  # noqa: E402
+from repro_torch.kernels import ssm_scan as TSS  # noqa: E402
+
+# name: (B, T, H, KV, hd, window, softcap), the cases of
+# tests/test_torch_lm_kernels.py
+CASES = {
+    "gqa1": (1, 64, 4, 4, 16, 0, 0.0),
+    "gqa2_ragged": (2, 50, 4, 2, 32, 0, 0.0),
+    "gqa4_ragged": (1, 96, 4, 1, 16, 0, 0.0),
+    "window": (1, 128, 2, 2, 16, 32, 0.0),
+    "window_ragged_gqa2": (1, 77, 4, 2, 16, 20, 0.0),
+    "softcap": (1, 64, 2, 1, 16, 0, 50.0),
+    "softcap_window_gqa4": (2, 45, 8, 2, 32, 16, 30.0),
+}
+
+
+def _qkv_do(B, T, H, KV, hd, seed):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(B, T, H, hd)), r.normal(size=(B, T, KV, hd)),
+            r.normal(size=(B, T, KV, hd)), r.normal(size=(B, T, H, hd)))
+
+
+def _t(a, dtype=torch.float64, grad=False):
+    return torch.tensor(a, dtype=dtype, requires_grad=grad)
+
+
+def _close(got, want, rtol):
+    got = got.detach().double().numpy()
+    want = np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert np.abs(got - want).max() <= rtol * scale, \
+        (np.abs(got - want).max(), scale)
+
+
+def _jax_ref(q, k, v, *, window, softcap):
+    """The JAX oracle in the model's layout (GQA folded as its ops.py)."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+
+    def fold(a):
+        return jnp.broadcast_to(a.transpose(0, 2, 1, 3)[:, :, None],
+                                (B, KV, G, S, hd)).reshape(B * H, S, hd)
+
+    o = jax_fref(q.transpose(0, 2, 1, 3).reshape(B * H, T, hd), fold(k),
+                 fold(v), causal=True, window=window, softcap=softcap)
+    return o.reshape(B, H, T, hd).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_attention_bwd_plain_matches_autograd_float64(case):
+    B, T, H, KV, hd, window, cap = CASES[case]
+    qn, kn, vn, don = _qkv_do(B, T, H, KV, hd, seed=len(case) + T)
+    q, k, v = (_t(a, grad=True) for a in (qn, kn, vn))
+    kw = dict(causal=True, window=window, softcap=cap)
+    o = TFA.flash_attention_plain(q, k, v, **kw)
+    want = torch.autograd.grad(o, (q, k, v), _t(don))
+    lse = TFA.flash_attention_lse_plain(q.detach(), k.detach(), v.detach(),
+                                        **kw)
+    got = TFA.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                        o.detach(), _t(don), lse, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        _close(g, w.numpy(), 1e-10)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_attention_bwd_plain_matches_jax_grad(case):
+    B, T, H, KV, hd, window, cap = CASES[case]
+    qn, kn, vn, don = (a.astype(np.float32) for a in
+                       _qkv_do(B, T, H, KV, hd, seed=len(case) + T))
+
+    def f(q, k, v):
+        o = _jax_ref(q, k, v, window=window, softcap=cap)
+        return jnp.sum(o * don)
+
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(
+        *(jnp.asarray(a) for a in (qn, kn, vn)))
+    kw = dict(causal=True, window=window, softcap=cap)
+    q, k, v, do = (_t(a, torch.float32) for a in (qn, kn, vn, don))
+    o, lse = TFA.flash_attention_with_lse(q, k, v, **kw)
+    got = TFA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, np.asarray(w), 1e-4)
+    jlse = jax.nn.logsumexp(
+        jnp.where(jnp.asarray(_visible_np(T, window))[None, None],
+                  _jax_scores(qn, kn, cap), -jnp.inf), axis=-1)
+    _close(lse, np.asarray(jlse), 1e-5)
+
+
+def _visible_np(T, window):
+    t, s = np.arange(T)[:, None], np.arange(T)[None, :]
+    ok = s <= t
+    return ok & (s > t - window) if window else ok
+
+
+def _jax_scores(q, k, cap):
+    """softcap(q k^T / sqrt(hd)) (B, H, T, S) in jnp, KV heads repeated."""
+    G = q.shape[2] // k.shape[2]
+    kk = jnp.repeat(jnp.asarray(k), G, axis=2)
+    s = jnp.einsum("bthd,bshd->bhts", jnp.asarray(q), kk) \
+        * (q.shape[-1] ** -0.5)
+    return jnp.tanh(s / cap) * cap if cap else s
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["gqa2_ragged", "softcap_window_gqa4",
+                                  "window_ragged_gqa2"])
+def test_flash_attention_bwd_tolerance_covers_float32_rounding(case, dtype):
+    """The bound is for two float32 computations of the same function; the
+    float32 plain version against the float64 one is one of them against
+    exact, so it must stay inside (bf16: the bf16 output's own rounding
+    too)."""
+    B, T, H, KV, hd, window, cap = CASES[case]
+    dt = getattr(torch, dtype)
+    arrs = [_t(a, torch.float32).to(dt)
+            for a in _qkv_do(B, T, H, KV, hd, seed=3 + T)]
+    kw = dict(causal=True, window=window, softcap=cap)
+    q, k, v, do = arrs
+    o, lse = TFA.flash_attention_with_lse(q, k, v, **kw)
+    got = TFA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    exact = TFA.flash_attention_bwd_plain(
+        *(a.double() for a in (q, k, v, o, do)), lse.double(), **kw)
+    tols = TFA.flash_attention_bwd_tolerance(q, k, v, o, do, lse, got, **kw)
+    for g, e, tol in zip(got, exact, tols):
+        assert bool(((g.double() - e).abs() <= tol).all())
+        assert bool((tol < 0.05 * e.abs().max() + 1e-3).all())
+    lse_tol = TFA.flash_attention_lse_tolerance(q, k, lse, softcap=cap)
+    lse64 = TFA.flash_attention_lse_plain(q.double(), k.double(), v.double(),
+                                          **kw)
+    assert bool(((lse.double() - lse64).abs() <= lse_tol).all())
+
+
+@pytest.mark.parametrize("T,S,window,causal", [
+    (1000, 1000, 0, True), (77, 77, 0, True), (130, 333, 0, False),
+    (700, 700, 256, True), (45, 45, 16, True), (200, 200, 100, False),
+    (64, 64, 1, True)])
+@pytest.mark.parametrize("tile", [64, 32])
+def test_flash_attention_bwd_tile_ranges_cover_every_pair(T, S, window,
+                                                          causal, tile):
+    """The ranges of query tiles the dk/dv kernel walks for a KV tile, and
+    of KV tiles the dq kernel walks for a query tile (csrc/
+    flash_attention_bwd.cu), each cover every visible (t, s) pair."""
+    ok = np.ones((T, S), bool)
+    t, s = np.arange(T)[:, None], np.arange(S)[None, :]
+    if causal:
+        ok &= s <= t
+    if window:
+        ok &= s > t - window
+    n_qt, n_kt = -(-T // tile), -(-S // tile)
+    seen_kv = np.zeros_like(ok)
+    for kt in range(n_kt):
+        k0 = kt * tile
+        k_last = min(k0 + tile, S) - 1
+        qt_begin = k0 // tile if causal else 0
+        qt_end = n_qt
+        if window:
+            qt_end = min(qt_end, (k_last + window - 1) // tile + 1)
+        for qt in range(qt_begin, qt_end):
+            seen_kv[qt * tile:(qt + 1) * tile, k0:k0 + tile] = True
+    seen_q = np.zeros_like(ok)
+    for qt in range(n_qt):
+        q0 = qt * tile
+        q_last = min(q0 + tile, T) - 1
+        kt_end = n_kt
+        if causal:
+            kt_end = min(kt_end, q_last // tile + 1)
+        lo = q0 - window + 1
+        kt_begin = lo // tile if window and lo > 0 else 0
+        for kt in range(kt_begin, kt_end):
+            seen_q[q0:q0 + tile, kt * tile:(kt + 1) * tile] = True
+    assert not (ok & ~seen_kv).any() and not (ok & ~seen_q).any()
+
+
+def test_flash_attention_keeps_a_gradient_on_the_cpu():
+    q, k, v = (torch.randn((1, 20, 4, 16), requires_grad=True)
+               for _ in range(3))
+    reset_launches()
+    o = TFA.flash_attention(q, k[:, :, :2], v[:, :, :2])
+    assert o.grad_fn is not None
+    o.sum().backward()
+    assert q.grad is not None and k.grad is not None
+    assert LAUNCHES["flash_attention"] == LAUNCHES["flash_attention_bwd"] == 0
+
+
+def test_flash_attention_bwd_checks_its_inputs():
+    q = torch.zeros((1, 8, 2, 16))
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="lse"):
+        TFA.flash_attention_bwd(q, q, q, q, q, lse[:, :1])
+    with pytest.raises(ValueError, match="lse"):
+        TFA.flash_attention_bwd(q, q, q, q, q, lse.double())
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        TFA.flash_attention_bwd(*(a.to("meta") for a in (q, q, q, q, q,
+                                                         lse)))
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(B, T, d, N, seed):
+    """As the model makes them: dt = softplus(normal - 1), A = -(1..N)
+    times a log-normal factor."""
+    r = np.random.default_rng(seed)
+    u = r.normal(size=(B, T, d))
+    dt = np.log1p(np.exp(r.normal(size=(B, T, d)) - 1.0))
+    Bm, Cm = r.normal(size=(B, T, N)), r.normal(size=(B, T, N))
+    A = -np.arange(1, N + 1)[None, :] * np.exp(0.3 * r.normal(size=(d, N)))
+    return u, dt, Bm, Cm, A, r.normal(size=d), r.normal(size=(B, T, d))
+
+
+SCAN_SHAPES = [(2, 17, 8, 4), (1, 40, 5, 16), (3, 1, 4, 3), (1, 33, 33, 1)]
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_ssm_scan_bwd_plain_matches_autograd_float64(shape):
+    *ins, dyn = _scan_inputs(*shape, seed=sum(shape))
+    ts = [_t(a, grad=True) for a in ins]
+    y, _ = TSS.selective_scan(*ts)
+    want = torch.autograd.grad(y, ts, _t(dyn))
+    got = TSS.ssm_scan_bwd_plain(*(t.detach() for t in ts), _t(dyn))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        _close(g, w.numpy(), 1e-10)
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_ssm_scan_bwd_plain_matches_jax_grad(shape):
+    u, dt, Bm, Cm, A, D, dy = (a.astype(np.float32) for a in
+                               _scan_inputs(*shape, seed=sum(shape)))
+
+    def f(*xs):
+        y, _ = jax_scan(*xs)
+        return jnp.sum(y * dy)
+
+    want = jax.jit(jax.grad(f, argnums=tuple(range(6))))(
+        *(jnp.asarray(a) for a in (u, dt, Bm, Cm, A, D)))
+    got = TSS.ssm_scan_bwd(*(_t(a, torch.float32)
+                             for a in (u, dt, Bm, Cm, A, D, dy)))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, np.asarray(w), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 40, 8, 16), (1, 70, 5, 4)], ids=str)
+def test_ssm_scan_bwd_tolerance_covers_float32_rounding(shape, dtype):
+    ins = [_t(a, torch.float32) for a in _scan_inputs(*shape, seed=7)]
+    lowp = getattr(torch, dtype)
+    u, dt, Bm, Cm, A, D, dy = ins
+    u, Bm, Cm, dy = (a.to(lowp) for a in (u, Bm, Cm, dy))
+    got = TSS.ssm_scan_bwd(u, dt, Bm, Cm, A, D, dy)
+    exact = TSS.ssm_scan_bwd_plain(*(a.double() for a in
+                                     (u, dt, Bm, Cm, A, D, dy)))
+    tols = TSS.ssm_scan_bwd_tolerance(u, dt, Bm, Cm, A, D, dy, got)
+    for g, e, tol in zip(got, exact, tols):
+        assert g.shape == e.shape == tol.shape
+        assert bool(((g.double() - e).abs() <= tol).all())
+
+
+def _scan_bwd_kernel_order(u, dt, Bm, Cm, A, D, dy, chunk=16, lanes=32):
+    """The arithmetic of ``csrc/ssm_scan_bwd.cu`` in plain PyTorch: the
+    states at chunk starts from a first forward walk, each chunk's states
+    rebuilt from its start, the reverse walk in chunks, dB_ and dC_ summed
+    over blocks of ``lanes`` channels and then over the blocks in order,
+    dA and dD per batch row and then over the rows. exp by exp2 of
+    dt (A log2 e)."""
+    Bsz, T, d = u.shape
+    N = A.shape[1]
+    a2 = A * 1.4426950408889634
+
+    def e_of(t):
+        return torch.exp2(dt[:, t, :, None] * a2)
+
+    chunks = -(-T // chunk)
+    h = torch.zeros((Bsz, d, N), dtype=u.dtype)
+    starts = []
+    for k in range(chunks):
+        starts.append(h.clone())
+        for t in range(k * chunk, min(T, (k + 1) * chunk)):
+            h = e_of(t) * h + (dt[:, t] * u[:, t])[..., None] * Bm[:, t,
+                                                                  None, :]
+    g = torch.zeros_like(h)
+    dA_part = torch.zeros((Bsz, d, N), dtype=u.dtype)
+    du, ddt = torch.zeros_like(u), torch.zeros_like(u)
+    blocks = -(-d // lanes)
+    part = torch.zeros((Bsz, blocks, T, 2, N), dtype=u.dtype)
+    for k in reversed(range(chunks)):
+        t0, t1 = k * chunk, min(T, (k + 1) * chunk)
+        hs, h = [], starts[k]
+        for t in range(t0, t1):
+            h = e_of(t) * h + (dt[:, t] * u[:, t])[..., None] * Bm[:, t,
+                                                                  None, :]
+            hs.append(h)
+        for t in reversed(range(t0, t1)):
+            hprev = hs[t - t0 - 1] if t > t0 else starts[k]
+            e = e_of(t)
+            dh = dy[:, t, :, None] * Cm[:, t, None, :] + g
+            eh = e * hprev
+            ddt[:, t] = (dh * (A * eh + u[:, t, :, None]
+                               * Bm[:, t, None, :])).sum(-1)
+            dA_part += dh * dt[:, t, :, None] * eh
+            du[:, t] = dt[:, t] * (dh * Bm[:, t, None, :]).sum(-1) \
+                + dy[:, t] * D
+            vb = dh * (dt[:, t] * u[:, t])[..., None]
+            vc = dy[:, t, :, None] * hs[t - t0]
+            for blk in range(blocks):
+                sl = slice(blk * lanes, (blk + 1) * lanes)
+                part[:, blk, t, 0] = vb[:, sl].sum(1)
+                part[:, blk, t, 1] = vc[:, sl].sum(1)
+            g = e * dh
+    dB = torch.zeros((Bsz, T, N), dtype=u.dtype)
+    dC = torch.zeros_like(dB)
+    for blk in range(blocks):
+        dB += part[:, blk, :, 0]
+        dC += part[:, blk, :, 1]
+    return du, ddt, dB, dC, dA_part.sum(0), (dy * u).sum(1).sum(0)
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 70, 16), (1, 16, 32, 3),
+                                   (2, 17, 5, 4), (1, 1, 40, 16)], ids=str)
+def test_ssm_scan_bwd_chunked_walk_matches_plain(shape):
+    """The kernel's chunked walk (states saved every 16 steps, rebuilt per
+    chunk, partial sums over blocks of 32 channels) computes the plain
+    backward: in float64 they agree to rounding, ragged chunks and
+    ragged blocks included."""
+    ins = [_t(a) for a in _scan_inputs(*shape, seed=11)]
+    got = _scan_bwd_kernel_order(*ins)
+    want = TSS.ssm_scan_bwd_plain(*ins)
+    for g, w in zip(got, want):
+        _close(g, w.numpy(), 1e-10)
+
+
+def test_ssm_scan_keeps_a_gradient_on_the_cpu():
+    ins = [_t(a, torch.float32, grad=True)
+           for a in _scan_inputs(1, 9, 4, 4, seed=1)[:6]]
+    reset_launches()
+    y = TSS.ssm_scan(*ins)
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert all(t.grad is not None for t in ins)
+    assert LAUNCHES["ssm_scan"] == LAUNCHES["ssm_scan_bwd"] == 0
+
+
+def test_ssm_scan_bwd_checks_its_inputs():
+    ins = [_t(a, torch.float32) for a in _scan_inputs(1, 4, 4, 2, seed=1)]
+    with pytest.raises(ValueError, match="dy"):
+        TSS.ssm_scan_bwd(*ins[:6], ins[6][:, :2])
+    with pytest.raises(ValueError, match="dy"):
+        TSS.ssm_scan_bwd(*ins[:6], ins[6].double())

@@ -84,3 +84,34 @@ def test_paper_track_modules_import_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_training_modules_import_and_step_with_jax_blocked():
+    """The training slice (losses, AdamW, the train step, the trainer, the
+    token pipeline, the launcher) stands alone: with JAX and the reference
+    blocked it imports and takes one step of a reduced model on the CPU."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "from repro_torch.launch import train as LT\n"
+        "from repro_torch.train import losses, optimizer, trainer\n"
+        "from repro_torch.train import train_state\n"
+        "from repro_torch.data import tokens\n"
+        "from repro_torch.kernels import flash_attention, ssm_scan\n"
+        "assert flash_attention.flash_attention_bwd_plain\n"
+        "assert ssm_scan.ssm_scan_bwd_plain and losses.softmax_xent\n"
+        "assert optimizer.adamw_update and trainer.Trainer\n"
+        "assert tokens.TokenPipeline and train_state.make_train_step\n"
+        "out = LT.main(['--arch', 'qwen3-0.6b', '--reduced', '--steps',\n"
+        "               '1', '--seq-len', '8', '--global-batch', '2',\n"
+        "               '--device', 'cpu'])\n"
+        "assert out['last_step'] == 0\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(REPO / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -40,6 +40,21 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 REF_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
+@pytest.fixture(autouse=True)
+def _full_float32_products():
+    """Float32 products in full float32 on both sides, whatever an earlier
+    test of the same worker process left set: torch's CPU float32 matmul
+    precision "medium" moves the float32 comparisons below some 390 times
+    past REF_TOL. Restored after each test."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
 def _pair(a: np.ndarray, dtype: str):
     """The same values as a jax array and a torch tensor of ``dtype``."""
     if dtype == "bfloat16":

@@ -141,9 +141,13 @@ Phases, each fatal on failure, each with its seconds printed:
    autograd of the plain forward; the forward's lse against its plain
    version; the gradients through autograd equal the kernel's; K6's
    (ssm_scan_bwd) at falcon-mamba-7b's width (B 2, T 1024, d 8192, N 16)
-   against its plain version, a second call equal to the bit; their times,
-   plain versions' times and bounds, and K5's forward plus backward
-   through autograd beside F.scaled_dot_product_attention's;
+   against its plain version, a second call equal to the bit; their times
+   over input sets rotated past the L2 (device times from CUDA graphs),
+   plain versions' times and bounds, K5's three kernels' device times from
+   torch.profiler, SDPA's backward alone timed as K5's is, K5's forward
+   plus backward through autograd beside F.scaled_dot_product_attention's,
+   and K6's forward at the training shape with and without the states it
+   keeps for its backward;
 27. training: qwen3-0.6b at full width and depth (596,049,920 seeded
    parameters, B 4, T 1024, AdamW, remat): one gradient through the
    kernels against the same through K5's plain version (global norm and
@@ -166,6 +170,7 @@ a checkout of the repository.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -280,6 +285,33 @@ def device_busy(fn):
     return wall_s, busy_s, sum(e.count for e in events)
 
 
+def kernel_ms_by_name(fn, reps: int, names) -> dict:
+    """Device ms of one launch of the kernels whose names contain each of
+    ``names``, for a ``fn`` that launches each once: ``fn`` run ``reps``
+    times under ``torch.profiler`` after one warm-up call, each name's CUDA
+    kernel time over the launches the profiler recorded (it may record
+    fewer than were made), None for a name it recorded no launch of."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.key:
+                total[n] += e.self_device_time_total / 1e3
+                count[n] += e.count
+    return {n: total[n] / count[n] if count[n] else None for n in names}
+
+
 def event_ms(fn, reps: int, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -315,11 +347,14 @@ REPLACES = {
         "src/repro/kernels/block_sparse_matmul/kernel.py:42",
 }
 # phase 26's backward cases (B, T, H, KV, hd, window, softcap, dtype):
-# qwen3-0.6b's training shape, head_dim 192 at nemotron-4-340b's 96/8
-# heads, head_dim 256 with a window and gemma2's softcap, a small float32
-# case
+# qwen3-0.6b's training shape and head_dim 64 with GQA 4, a window, a
+# softcap and a ragged T (both through the wgmma body), head_dim 192 at
+# nemotron-4-340b's 96/8 heads, head_dim 256 with a window and gemma2's
+# softcap, a small float32 case (those three through the CUDA-core body)
 BWD_CASES = {
     "qwen3_train": (4, 1024, 16, 8, 128, 0, 0.0, "bfloat16"),
+    "hd64_g4_window_softcap_ragged": (2, 1000, 16, 4, 64, 128, 30.0,
+                                      "bfloat16"),
     "hd192_96_8": (1, 512, 96, 8, 192, 0, 0.0, "bfloat16"),
     "hd256_window_softcap": (1, 1024, 8, 4, 256, 256, 50.0, "bfloat16"),
     "f32_small_ragged": (2, 77, 4, 2, 64, 0, 30.0, "float32"),
@@ -354,13 +389,16 @@ def _rotating_ms(fn, sets, reps: int) -> float:
     return event_ms(step, reps=reps, warmup=len(sets))
 
 
-def _graph_ms(fn, sets, reps: int) -> float:
+def _graph_ms(fn, sets, reps: int, stream=None) -> float:
     """Device time of one ``fn(*sets[i % len(sets)])``, i < reps: the calls
     are captured once in a CUDA graph, which is replayed between CUDA
     events, so the host's cost of each call (a wrapper's checks, the
-    launch) is left out. The sets rotate as in `_rotating_ms`."""
+    launch) is left out. The sets rotate as in `_rotating_ms`. With
+    ``stream``, the warm-up and the capture run on it: a backward through
+    autograd runs on its forward's stream, so the forward must have run
+    there."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):   # builds, allocations, library handles
         for args in sets:
@@ -368,7 +406,7 @@ def _graph_ms(fn, sets, reps: int) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, **({"stream": stream} if stream else {})):
         for i in range(reps):
             fn(*sets[i % len(sets)])
     graph.replay()
@@ -2283,10 +2321,18 @@ def lm_training(card: str, dev):
                 FA.flash_attention_lse_tolerance(q, k, lse_plain,
                                                  softcap=cap))
             check(lse_ok, f"flash_attention's lse disagrees on {name}")
+            wgmma = FA.takes_wgmma_bwd(q, k, v, o, do)
+            check(wgmma == (dt == torch.bfloat16 and hd in (64, 128)),
+                  f"flash_attention_bwd {name}: takes_wgmma_bwd {wgmma}")
             got = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
             torch.cuda.synchronize()
-            check(LAUNCHES["flash_attention_bwd"] == 1,
-                  f"flash_attention_bwd {name}: not one launch")
+            check(LAUNCHES["flash_attention_bwd"] == 1
+                  and LAUNCHES["flash_attention_bwd_wgmma"] == int(wgmma),
+                  f"flash_attention_bwd {name}: launches {dict(LAUNCHES)}")
+            again = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_bwd {name} is not bitwise repeatable")
+            del again
             ref = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
             tols = FA.flash_attention_bwd_tolerance(q, k, v, o, do, lse,
                                                     ref, **kw)
@@ -2327,8 +2373,10 @@ def lm_training(card: str, dev):
                          f"share of the bound {max(shares):.3f}")
             print(f"[26] flash_attention_bwd {name} B={B} T={Tq} H={H} "
                   f"KV={KV} hd={hd} window={window} softcap={cap} "
-                  f"{str(dt)[6:]}: lse max abs err {lse_err:.3e}; max abs "
-                  f"err " + ", ".join(line) + extra)
+                  f"{str(dt)[6:]}, "
+                  f"{'wgmma' if wgmma else 'CUDA-core'} body: lse max abs "
+                  f"err {lse_err:.3e}; max abs err " + ", ".join(line)
+                  + "; a second call equal to the bit" + extra)
             del q, k, v, o, do, lse, got, qq, kk, vv, out
 
         # K6's backward at falcon-mamba-7b's width
@@ -2338,10 +2386,17 @@ def lm_training(card: str, dev):
         u, dtm, Bm, Cm, Am, Dm = ssm_inputs(gen, Bs, Ts, di, Nm,
                                             torch.bfloat16, dev)
         dy = randn((Bs, Ts, di), torch.bfloat16)
+        # the forward as autograd runs it stores the chunk-start states and
+        # writes the y it writes without them
+        y_st, states = SS.ssm_scan_with_states(u, dtm, Bm, Cm, Am, Dm)
+        check(torch.equal(y_st, SS.ssm_scan(u, dtm, Bm, Cm, Am, Dm)),
+              "ssm_scan's y differs when it stores its states")
+        del y_st
         reset_launches()
-        got = SS.ssm_scan_bwd(u, dtm, Bm, Cm, Am, Dm, dy)
+        got = SS.ssm_scan_bwd(u, dtm, Bm, Cm, Am, Dm, dy, states)
         torch.cuda.synchronize()
-        check(LAUNCHES["ssm_scan_bwd"] == 1, "ssm_scan_bwd: not one launch")
+        check(LAUNCHES["ssm_scan_bwd"] == 1 and LAUNCHES["ssm_scan"] == 0,
+              f"ssm_scan_bwd: launches {dict(LAUNCHES)}")
         ref = SS.ssm_scan_bwd_plain(u, dtm, Bm, Cm, Am, Dm, dy)
         tols = SS.ssm_scan_bwd_tolerance(u, dtm, Bm, Cm, Am, Dm, dy, ref)
         line = []
@@ -2352,55 +2407,123 @@ def lm_training(card: str, dev):
             line.append(f"{gname} {err:.3e} ({share:.3f})")
             check(ok and bool(torch.isfinite(a).all()),
                   f"ssm_scan_bwd disagrees on {gname}")
-        again = SS.ssm_scan_bwd(u, dtm, Bm, Cm, Am, Dm, dy)
+        again = SS.ssm_scan_bwd(u, dtm, Bm, Cm, Am, Dm, dy, states)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               "ssm_scan_bwd is not bitwise repeatable")
-        print(f"[26] ssm_scan_bwd B={Bs} T={Ts} d={di} N={Nm} bf16: max abs "
-              f"err (share of the bound) " + ", ".join(line)
-              + "; a second call equal to the bit")
+        print(f"[26] ssm_scan_bwd B={Bs} T={Ts} d={di} N={Nm} bf16, the "
+              f"forward's chunk-start states: max abs err (share of the "
+              f"bound) " + ", ".join(line) + "; a second call equal to the "
+              "bit")
         del ref, tols, again
 
-        # times: CUDA events over eager loops (a call takes milliseconds)
+        # times at qwen3_train: three input sets (64 MB each), more than the
+        # 50 MB L2 holds, rotated as in `_rotating_ms`
         B, Tq, H, KV, hd = BWD_CASES["qwen3_train"][:5]
-        q, do = randn((B, Tq, H, hd), torch.bfloat16), \
-            randn((B, Tq, H, hd), torch.bfloat16)
-        k, v = randn((B, Tq, KV, hd), torch.bfloat16), \
-            randn((B, Tq, KV, hd), torch.bfloat16)
-        o, lse = FA.flash_attention_with_lse(q, k, v)
-        fa_ms = event_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse),
-                         reps=10)
+        fa_sets = []
+        for _ in range(3):
+            q, do = randn((B, Tq, H, hd), torch.bfloat16), \
+                randn((B, Tq, H, hd), torch.bfloat16)
+            k, v = randn((B, Tq, KV, hd), torch.bfloat16), \
+                randn((B, Tq, KV, hd), torch.bfloat16)
+            o, lse = FA.flash_attention_with_lse(q, k, v)
+            check(FA.takes_wgmma_bwd(q, k, v, o, do), "qwen3_train's "
+                  "backward does not take the wgmma body")
+            fa_sets.append((q, k, v, o, do, lse))
+        fa_eager_ms = _rotating_ms(FA.flash_attention_bwd, fa_sets,
+                                   reps=21)
+        fa_ms = _graph_ms(FA.flash_attention_bwd, fa_sets, reps=21)
+        cycle = itertools.cycle(fa_sets)
+        parts = kernel_ms_by_name(
+            lambda: FA.flash_attention_bwd(*next(cycle)), 12,
+            ("delta_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel"))
+        check(None not in parts.values(), f"the profiler recorded no launch "
+              f"of some of K5's backward kernels: {parts}")
+        parts_sum = sum(parts.values())
+        dq_share = parts["dq_wgmma_kernel"] / parts_sum
         fa_plain_ms = event_ms(
-            lambda: FA.flash_attention_bwd_plain(q, k, v, o, do, lse),
+            lambda: FA.flash_attention_bwd_plain(*fa_sets[0]),
             reps=3, warmup=1)
         fa_flops, fa_bytes = fa_bwd_cost(B, Tq, Tq, H, KV, hd, 2)
         fa_bytes_ms = fa_bytes / HBM_BYTES_PER_S * 1e3
         fa_ops_ms = fa_flops / BF16_TENSOR_FLOPS * 1e3
         fa_bound = max(fa_bytes_ms, fa_ops_ms)
 
-        def k5_fwd_bwd():
+        def k5_fwd_bwd(q, k, v, o, do, lse):
             qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
             FA.flash_attention(qq, kk, vv).backward(do)
 
-        def sdpa_fwd_bwd():
+        def sdpa_fwd_bwd(q, k, v, o, do, lse):
             qq, kk, vv = (x.detach().transpose(1, 2).requires_grad_(True)
                           for x in (q, k, v))
             F.scaled_dot_product_attention(
                 qq, kk, vv, is_causal=True, enable_gqa=True).backward(
                     do.transpose(1, 2))
 
-        k5_fb_ms = event_ms(k5_fwd_bwd, reps=10)
-        sdpa_fb_ms = event_ms(sdpa_fwd_bwd, reps=10)
+        k5_fb_ms = _rotating_ms(k5_fwd_bwd, fa_sets, reps=12)
+        sdpa_fb_ms = _rotating_ms(sdpa_fwd_bwd, fa_sets, reps=12)
+        # SDPA's backward alone, measured as K5's is: each set's forward
+        # once on a side stream, then torch.autograd.grad of its output
+        # captured in a CUDA graph on that stream, the sets rotated
+        sdpa_stream = torch.cuda.Stream()
+        sdpa_stream.wait_stream(torch.cuda.current_stream())
+        sdpa_sets = []
+        with torch.cuda.stream(sdpa_stream):
+            for q, k, v, o, do, lse in fa_sets:
+                ins = tuple(x.detach().transpose(1, 2).requires_grad_(True)
+                            for x in (q, k, v))
+                out = F.scaled_dot_product_attention(*ins, is_causal=True,
+                                                     enable_gqa=True)
+                sdpa_sets.append((out, ins, do.transpose(1, 2)))
+        torch.cuda.current_stream().wait_stream(sdpa_stream)
+
+        def sdpa_bwd(out, ins, do_s):
+            return torch.autograd.grad(out, ins, do_s, retain_graph=True)
+
+        got_s = sdpa_bwd(*sdpa_sets[0])
+        want_s = FA.flash_attention_bwd(*fa_sets[0])
+        check(all(_rel(a.transpose(1, 2), b) < 0.02
+                  for a, b in zip(got_s, want_s)),
+              "SDPA's backward yardstick computes another function")
+        del got_s, want_s
+        sdpa_bwd_ms = _graph_ms(sdpa_bwd, sdpa_sets, reps=21,
+                                stream=sdpa_stream)
+        with torch.cuda.stream(sdpa_stream):
+            sdpa_bwd_eager_ms = _rotating_ms(sdpa_bwd, sdpa_sets, reps=21)
+        del sdpa_sets
         print(f"[26] {card}: flash_attention_bwd B={B} T=S={Tq} H={H} KV={KV} "
-              f"hd={hd} causal bf16: kernel {fa_ms:.4f} ms, plain "
-              f"{fa_plain_ms:.4f} ms, bound {fa_bound:.5f} ms ({fa_flops} "
-              f"flops at the bf16 tensor-core rate {fa_ops_ms:.5f} ms, "
-              f"{fa_bytes} bytes {fa_bytes_ms:.5f} ms); {fa_ms / fa_bound:.1f}x "
-              f"the bound; forward + backward through autograd: K5 "
-              f"{k5_fb_ms:.4f} ms, F.scaled_dot_product_attention "
-              f"{sdpa_fb_ms:.4f} ms")
-        del q, k, v, o, do, lse
-        ssm_ms = event_ms(lambda: SS.ssm_scan_bwd(u, dtm, Bm, Cm, Am, Dm,
-                                                  dy), reps=10)
+              f"hd={hd} causal bf16, wgmma body, 3 input sets rotated past "
+              f"the L2: kernel {fa_ms:.4f} ms device (CUDA graph), "
+              f"{fa_eager_ms:.4f} ms eager; plain {fa_plain_ms:.4f} ms, bound "
+              f"{fa_bound:.5f} ms ({fa_flops} flops at the bf16 tensor-core "
+              f"rate {fa_ops_ms:.5f} ms, {fa_bytes} bytes "
+              f"{fa_bytes_ms:.5f} ms); {fa_ms / fa_bound:.1f}x the bound; "
+              f"SDPA's backward alone (torch.autograd.grad of its output) "
+              f"{sdpa_bwd_ms:.4f} ms device (CUDA graph), "
+              f"{sdpa_bwd_eager_ms:.4f} ms eager; forward + backward through "
+              f"autograd, eager: K5 {k5_fb_ms:.4f} ms, "
+              f"F.scaled_dot_product_attention {sdpa_fb_ms:.4f} ms")
+        print(f"[26] {card}: flash_attention_bwd's kernels (torch.profiler, "
+              f"device ms a call): " + ", ".join(
+                  f"{n} {t:.4f} ({t / parts_sum:.3f})"
+                  for n, t in parts.items())
+              + f"; the dq kernel {dq_share:.3f} of the backward ("
+              f"{'above' if dq_share > 0.4 else 'not above'} 0.4)")
+        del q, k, v, o, do, lse, fa_sets, cycle
+        # K6 at falcon-mamba-7b's training width: two input sets (400 MB
+        # each with the states), rotated
+        ssm_sets = [(u, dtm, Bm, Cm, Am, Dm, dy, states)]
+        ins = ssm_inputs(gen, Bs, Ts, di, Nm, torch.bfloat16, dev)
+        ssm_sets.append((*ins, randn((Bs, Ts, di), torch.bfloat16),
+                         SS.ssm_scan_with_states(*ins)[1]))
+        del ins
+        ssm_ms = _rotating_ms(SS.ssm_scan_bwd, ssm_sets, reps=20)
+        ssm_graph_ms = _graph_ms(SS.ssm_scan_bwd, ssm_sets, reps=20)
+        # the forward as autograd runs it (storing the states) and as
+        # prefill runs it, at this shape
+        fwd_sets = [a[:6] for a in ssm_sets]
+        ssm_fwd_states_ms = _graph_ms(SS.ssm_scan_with_states, fwd_sets,
+                                      reps=20)
+        ssm_fwd_ms = _graph_ms(SS.ssm_scan, fwd_sets, reps=20)
         ssm_plain_ms = event_ms(
             lambda: SS.ssm_scan_bwd_plain(u, dtm, Bm, Cm, Am, Dm, dy),
             reps=1, warmup=1)
@@ -2416,13 +2539,22 @@ def lm_training(card: str, dev):
             * 1e3
         ssm_bound = max(ssm_bytes_ms, ssm_ops_ms, exp_floor_ms)
         ssm_bound_by = "bytes" if ssm_bound == ssm_bytes_ms else "operations"
-        print(f"[26] {card}: ssm_scan_bwd B={Bs} T={Ts} d={di} N={Nm} bf16: "
-              f"kernel {ssm_ms:.4f} ms, plain {ssm_plain_ms:.4f} ms, bound "
+        print(f"[26] {card}: ssm_scan_bwd B={Bs} T={Ts} d={di} N={Nm} bf16, "
+              f"2 input sets rotated: kernel {ssm_ms:.4f} ms eager "
+              f"({ssm_graph_ms:.4f} ms device, CUDA graph), plain "
+              f"{ssm_plain_ms:.4f} ms, bound "
               f"{ssm_bound:.5f} ms, the largest of: {ssm_bytes} bytes "
               f"{ssm_bytes_ms:.5f} ms; {ssm_ops} float32 operations "
               f"{ssm_ops_ms:.5f} ms; exp floor {exp_floor_ms:.5f} ms "
-              f"({ssm_exps} exps); {ssm_ms / ssm_bound:.1f}x the bound")
-        del u, dtm, Bm, Cm, Am, Dm, dy, got
+              f"({ssm_exps} exps); {ssm_graph_ms / ssm_bound:.1f}x the "
+              f"bound (device time)")
+        print(f"[26] {card}: ssm_scan forward at B={Bs} T={Ts} d={di} N={Nm} "
+              f"bf16 (CUDA graph): storing the chunk-start states for the "
+              f"backward {ssm_fwd_states_ms:.4f} ms, without them "
+              f"{ssm_fwd_ms:.4f} ms "
+              f"({ssm_fwd_states_ms / ssm_fwd_ms - 1:+.3f})")
+        del ssm_sets, fwd_sets
+        del u, dtm, Bm, Cm, Am, Dm, dy, got, states
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2458,7 +2590,8 @@ def lm_training(card: str, dev):
         launches = dict(LAUNCHES)
         check(launches["flash_attention"] == 2 * cfg.num_layers
               and launches["flash_attention_wgmma"] == 2 * cfg.num_layers
-              and launches["flash_attention_bwd"] == cfg.num_layers,
+              and launches["flash_attention_bwd"] == cfg.num_layers
+              and launches["flash_attention_bwd_wgmma"] == cfg.num_layers,
               f"one step's gradient launched {launches}")
         A.flash_attention = FA.flash_attention_plain
         try:
@@ -2512,7 +2645,9 @@ def lm_training(card: str, dev):
         check(launches["flash_attention"] == 2 * cfg.num_layers * steps
               and launches["flash_attention_bwd"] == cfg.num_layers * steps
               and launches["flash_attention_wgmma"]
-              == launches["flash_attention"],
+              == launches["flash_attention"]
+              and launches["flash_attention_bwd_wgmma"]
+              == launches["flash_attention_bwd"],
               f"4 training steps launched {launches}")
         hist_a = run_a["history"]
         check([r["step"] for r in hist_a] == [0, 1, 2, 3]
@@ -2527,7 +2662,9 @@ def lm_training(card: str, dev):
               f"{Bt * Tt / steady:.0f} tokens/s; wall {wall_a:.3f} s with set-"
               f"up; peak device memory {peak:.2f} GiB; launches {launches} "
               f"({launches['flash_attention'] // steps} K5 forward and "
-              f"{launches['flash_attention_bwd'] // steps} backward a step)")
+              f"{launches['flash_attention_bwd'] // steps} backward a step, "
+              f"{launches['flash_attention_bwd_wgmma'] // steps} of them "
+              f"through the backward's wgmma body)")
         trainer = run_a["trainer"]
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in trainer.pipeline.batch_at(0).items()}
@@ -2599,7 +2736,8 @@ def lm_training(card: str, dev):
         qat = LT.main(common + ["--steps", "1", "--qat-bits", "8"])
         torch.cuda.synchronize()
         check(np.isfinite(qat["final_loss"])
-              and LAUNCHES["flash_attention_bwd"] == cfg.num_layers,
+              and LAUNCHES["flash_attention_bwd"] == cfg.num_layers
+              and LAUNCHES["flash_attention_bwd_wgmma"] == cfg.num_layers,
               f"the QAT step: loss {qat['final_loss']}, launches "
               f"{dict(LAUNCHES)}")
         print(f"[27] qwen3-0.6b, one step with --qat-bits 8: loss "
@@ -2657,9 +2795,15 @@ def lm_training(card: str, dev):
     fa_entry = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-        "body": "CUDA cores, float32: D = rowsum(do o); dk, dv a KV tile "
-                "looping over the group's heads and query tiles; dq a query "
-                "tile looping over KV tiles; P recomputed from lse",
+        "body": "wgmma (bf16, head_dim 64 and 128): D = rowsum(do o); dk, dv "
+                "a 64-key tile over the group's heads and query tiles fed "
+                "by TMA, S^T = K Q^T and dP^T = V dO^T, dV += P^T dO and dK "
+                "+= dS^T Q; dq a 64-query tile over KV tiles; P recomputed "
+                "from lse in the log2 domain; CUDA cores, float32, for "
+                "everything else",
+        "launches_wgmma_body":
+            numbers["launches_qwen3"]["flash_attention_bwd_wgmma"],
+        "kernel_ms_by_name": parts, "eager_ms": fa_eager_ms,
         "replaces": "src/repro/kernels/flash_attention/kernel.py:87 (its "
                     "gradient: the reference differentiates its jnp "
                     "attention, src/repro/nn/attention.py)",
@@ -2671,14 +2815,21 @@ def lm_training(card: str, dev):
                   "causal bf16".format(*BWD_CASES["qwen3_train"][:5]),
         "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
         "bound_by": "bytes" if fa_bytes_ms >= fa_ops_ms else "operations",
-        "library_ms": None, "k5_fwd_bwd_ms": k5_fb_ms,
-        "sdpa_fwd_bwd_ms": sdpa_fb_ms}
+        "library_ms": sdpa_bwd_ms, "library_eager_ms": sdpa_bwd_eager_ms,
+        "library": "torch.autograd.grad of F.scaled_dot_product_attention's "
+                   "output (its backward alone), device time",
+        "k5_fwd_bwd_eager_ms": k5_fb_ms,
+        "sdpa_fwd_bwd_eager_ms": sdpa_fb_ms}
     ssm_entry = {
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
-        "body": "CUDA cores: states at chunk starts, each chunk rebuilt in "
-                "shared memory and walked in reverse, dB_ and dC_ reduced "
-                "over a warp by shuffles, block partials summed in order",
+        "body": "CUDA cores: a channel's state over 4 lanes; the "
+                "forward's chunk-start states, each chunk of 16 steps "
+                "rebuilt in registers and walked in reverse; u, dt, dy "
+                "through a cp.async ring; dB_ and dC_ over a warp by "
+                "shuffles, over the block's warps in order, block partials "
+                "summed in order",
+        "eager_ms": ssm_ms,
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:51 (its "
                     "gradient: the reference differentiates its jnp scan, "
                     "src/repro/nn/ssm.py:70)",
@@ -2688,8 +2839,10 @@ def lm_training(card: str, dev):
         "tolerance": "ssm_scan_bwd_tolerance",
         "shapes": f"falcon-mamba-7b training B={Bs} T={Ts} d={di} N={Nm} "
                   "bf16",
-        "ms": ssm_ms, "plain_ms": ssm_plain_ms, "bound_ms": ssm_bound,
-        "bound_by": ssm_bound_by, "library_ms": None}
+        "ms": ssm_graph_ms, "plain_ms": ssm_plain_ms, "bound_ms": ssm_bound,
+        "bound_by": ssm_bound_by, "library_ms": None,
+        "forward_with_states_ms": ssm_fwd_states_ms,
+        "forward_without_states_ms": ssm_fwd_ms}
     return [fa_entry, ssm_entry], numbers
 
 

@@ -69,7 +69,19 @@ def _loss(params, x, y, w_transform):
 
 
 def _train(params, x, y, *, epochs: int, lr: float, w_transform):
+    """Full-batch Adam over ``epochs``. float32 products run in full float32
+    (TF32 off, as the reference's parity needs) inside the loop only: the
+    caller's ``allow_tf32`` is put back on the way out."""
+    saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _adam_loop(params, x, y, epochs=epochs, lr=lr,
+                          w_transform=w_transform)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _adam_loop(params, x, y, *, epochs: int, lr: float, w_transform):
     flat = [l[k].detach().clone() for l in params["layers"]
             for k in ("w", "b")]
     m = [torch.zeros_like(f) for f in flat]

@@ -33,6 +33,9 @@
 //    whose pointers are 16-byte aligned, as TMA requires. Every bf16 model
 //    config takes it (qwen3 hd 128; nemotron-4-340b hd 192; gemma, gemma2,
 //    recurrentgemma hd 256).
+//  * The pieces this body shares with the backward's (mbarriers, TMA loads,
+//    descriptors, the two m64n64k16 products, the tensor maps) live in
+//    wgmma.cuh.
 //  * One block per (b * H + h, 128-query tile), two warpgroups of 64 query
 //    rows. The grid is ordered so that the last query tiles, which see the
 //    most keys under the causal mask, start first.
@@ -110,9 +113,10 @@
 #include <cmath>
 #include <cstdint>
 
-#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -380,115 +384,6 @@ constexpr int kBK = 64;            // keys per KV tile
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 4-D tensor map (coordinates innermost first) into shared
-// memory, completing on ``bar``
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// shared-memory matrix descriptor of a 128-byte swizzled operand: start
-// address >> 4 (bits 0-13), leading byte offset >> 4 (16-29; unused by the
-// shapes here), stride byte offset 1024 >> 4 between 8-row groups (32-45),
-// swizzle mode 1 = 128 B (62-63); base offset 0, every tile being 1024-byte
-// aligned
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64, f32) (+)= A (64 x 16, bf16, K-major, shared) B^T (B: 64 x 16,
-// K-major, shared)
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
-                                       uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16, registers) B (16 x 64, bf16,
-// MN-major in shared memory: the transpose bit set)
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                       uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // KV tiles [begin, end) that some query of [first, last] sees
 __device__ __forceinline__ void visible_tiles(int first, int last, int S_len,
                                               int causal, int window,
@@ -551,8 +446,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) mbar_init(bar_kv + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -722,52 +616,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (batch, len, heads, HD) bf16 tensor as a 4-D map (HD, heads, len,
-// batch) read in boxes of 64 x 1 x rows x 1, 128-byte swizzled. The stride
-// of an extent-1 dimension is never used; it is replaced by the dense one
-// so that a broadcast (stride 0) view encodes.
-bool encode(CUtensorMap* map, const void* ptr, int HD, int heads, int len,
-            int batch, Strides st, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const int64_t h = heads > 1 ? st.h : HD;
-  const int64_t t = len > 1 ? st.t : h * heads;
-  const int64_t bb = batch > 1 ? st.b : t * len;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(len),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(h) * 2,
-                                 static_cast<cuuint64_t>(t) * 2,
-                                 static_cast<cuuint64_t>(bb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int T_len, int S_len, int H, int KV,
@@ -786,9 +634,9 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, HD, H, T_len, B, qs, kBQ) ||
-      !encode(&tk, k, HD, KV, S_len, B, ks, kBK) ||
-      !encode(&tv, v, HD, KV, S_len, B, vs, kBK))
+  if (!encode(&tq, q, HD, H, T_len, B, qs.b, qs.t, qs.h, kBQ) ||
+      !encode(&tk, k, HD, KV, S_len, B, ks.b, ks.t, ks.h, kBK) ||
+      !encode(&tv, v, HD, KV, S_len, B, vs.b, vs.t, vs.h, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_qt = (T_len + kBQ - 1) / kBQ;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));

@@ -17,47 +17,92 @@
 //   dq_t  = d^-1/2 sum_s dS_ts k_s
 //
 // lse is the forward's log-sum-exp in natural log units of x (see
-// flash_attention.cu); P is recomputed from it in float32 with expf, never
-// stored. Every sum is float32; dq, dk, dv are written once in the inputs'
-// type. Keys at or beyond S and queries at or beyond T weigh 0 in every
-// mask mode, as in the forward.
+// flash_attention.cu); P is recomputed from it, never stored. Every sum is
+// float32; dq, dk, dv are written once in the inputs' type. Keys at or
+// beyond S and queries at or beyond T weigh 0 in every mask mode, as in the
+// forward.
 //
 // Where it runs: the backward of every attention layer of the training step
 // (28 launches a qwen3-0.6b step, at B 4, T 1024, H 16, KV 8, hd 128, bf16).
 //
 // What bounds it on this card: the multiply-adds of the visible (t, s)
-// pairs, 10 hd flops a pair a head at the tensor-core rate (S, dP, dv, dk,
-// dq). This first version runs them on the CUDA cores in float32 and
-// recomputes S and dP in the dq pass (14 hd a pair), so it runs far above
-// that bound; a tensor-core version is a later step.
+// pairs, 10 hd flops a pair a head (S, dP, dv, dk, dq) at the bf16
+// tensor-core rate; the bytes of q, k, v, o, do and the three gradients lie
+// far below. The wgmma body recomputes S and dP in its dq kernel, 14 hd
+// flops a pair on the tensor cores, 1.4x the bound's.
 //
-// Design:
-//  * Three kernels, launched in order on the caller's stream:
-//    1. delta_kernel: D = rowsum(do * o), one warp a (b, h, t) row, the
-//       lanes' partial sums added by a fixed xor tree.
-//    2. dkdv_kernel: one block a (KV tile of BT keys, b, KV head). It keeps
-//       the tile's k and v and its dk and dv accumulators and loops over the
-//       G query heads of the group and, for each, over the query tiles that
-//       see some key of the tile. So dk and dv sum over the group's heads
-//       in one fixed order, with no atomics: a rerun gives the same bits.
-//    3. dq_kernel: one block a (query tile of BT rows, b, head), looping over
-//       the KV tiles the tile sees, as the forward's CUDA-core body does.
+// Every call runs three kernels in order on the caller's stream:
+// delta_kernel (D = rowsum(do * o), one warp a (b, h, t) row, the lanes'
+// partial sums added by a fixed xor tree), then a dk/dv kernel, one block a
+// (KV tile, b, KV head) that loops over the G query heads of the group and,
+// for each, over the query tiles that see some key of the tile, so dk and dv
+// sum over the group's heads in one fixed order with no atomics, then a dq
+// kernel, one block a (query tile, b, head) looping over the KV tiles the
+// tile sees. A rerun gives the same bits. The heaviest blocks start first:
+// under the causal mask the first KV tiles (dk/dv) and the last query tiles
+// (dq) see the most pairs. q, k, v, o and do are read by (b, t, head)
+// strides with unit stride along hd, as the forward reads them; dq, dk, dv
+// are written contiguous. Two bodies, one entry point each; the wrapper
+// (kernels/flash_attention/ops.py, takes_wgmma_bwd) picks by type, head_dim
+// and alignment, never by a failure:
+//
+// 1. The wgmma body (dkdv_wgmma_kernel, dq_wgmma_kernel): bf16 inputs at
+//    head_dim 64 and 128 whose five tensors TMA can read (every (b, t,
+//    head) stride a multiple of 8 elements, 16-byte aligned starts). It is
+//    built on the forward's wgmma skeleton (wgmma.cuh): TMA boxes of 64 rows
+//    x 64 bf16 with 128-byte swizzle, a 2-stage mbarrier ring, m64n64k16
+//    products with float32 accumulators in registers.
+//  * One warpgroup (128 threads) a block, 64 rows; two blocks an SM (96 KB
+//    of shared memory each at hd 128, at most 255 registers a thread).
+//  * dk/dv kernel: the block's 64 keys of K and V stay in shared memory;
+//    Q, dO and the rows' lse and D of each (head, query tile) stream
+//    through the ring, the next tile in flight while one is computed. The
+//    scores are computed transposed, so every operand takes a form the
+//    forward uses: S^T = K Q^T and dP^T = V dO^T with both operands
+//    K-major (the forward's Q K^T); P^T = exp2(S^T d^-1/2 log2 e - lse
+//    log2 e) and dS^T = P^T (dP^T - D) on the accumulator fragments,
+//    masks only on tiles that straddle the causal diagonal or the window's
+//    edge; then dV += P^T dO and dK += dS^T Q with A from registers (the
+//    fragments packed to bf16) and B = dO or Q through the transpose bit
+//    (the forward's P V).
+//  * dq kernel: Q, dO and the rows' lse and D stay (in registers for lse
+//    and D); K and V tiles stream through the ring. S = Q K^T, dP = dO V^T,
+//    dS as above (keys past S masked), dQ += dS K with K through the
+//    transpose bit. Recomputing S and dP keeps every sum in one order; the
+//    other way, dS written by the dk/dv kernel and read back, would move
+//    64 MB at the qwen3-0.6b shape.
+//  * delta_kernel also writes lse log2 e beside D, both padded to a
+//    multiple of 64 rows (+inf and 0 past T), so a tile's 64 values of each
+//    come by one bulk copy on the tile's mbarrier, and a query row past T
+//    gets P = 0. Rows past T and keys past S are zero-filled by TMA.
+//  * Numerics beside the CUDA-core body: P is rounded to bf16 before
+//    dV += P^T dO, dS to bf16 before the dK and dQ products, and P is
+//    exp2f of an argument in the log2 domain (lse log2 e and d^-1/2 log2 e
+//    each rounded once, the argument by one fma). flash_attention_bwd_
+//    tolerance's bf16 terms cover these; a CPU emulation of this body
+//    (tests/test_torch_grad_kernels.py) stays inside it.
+//  * head_dim 192 and 256 would need 192-256 accumulator floats a thread
+//    for dK and dV on one warpgroup, past the 255 registers: they take the
+//    CUDA-core body.
+//
+// 2. The CUDA-core body (dkdv_kernel, dq_kernel), for everything else:
+//    float32 inputs, head_dim 16, 32, 192 and 256, and views TMA cannot
+//    read. P = expf(x - lse) and every product in float32 from tiles
+//    converted to float32 in shared memory.
 //  * Tiles: BT = 64 rows and keys for head_dim up to 128, 32 for 192 and
 //    256, so that four float32 tiles of BT x (hd + 1) (rows padded by one
 //    word against bank conflicts) and the BT x (BT + 1) tiles of P and dS
 //    fit the 227 KB of a block (165 KB at hd 128, 140 KB at hd 256).
 //  * 256 threads: each computes a (BT/16) x (BT/16) patch of S and dP
 //    (rows ty + 16 i, keys tx + 16 j), then a (BT/16) x (hd/16) patch of
-//    its accumulators.
-//  * The heaviest blocks start first: under the causal mask the first KV
-//    tiles (dkdv) and the last query tiles (dq) see the most pairs.
-//  * q, k, v, o and do are read by (b, t, head) strides with unit stride
-//    along hd, as the forward reads them; dq, dk, dv are written contiguous.
+//    its accumulators. Its dq kernel recomputes S and dP too.
 #include <cmath>
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -87,11 +132,12 @@ struct Args {
   const void* o;
   const void* dout;
   const float* lse;   // (B, H, T)
-  float* delta;       // (B, H, T) scratch
+  float* delta;       // (B, H, T_pad) scratch
+  float* lse2;        // (B, H, T_pad) scratch, lse log2 e; null: not written
   void* dq;           // (B, T, H, HD) contiguous
   void* dk;           // (B, S, KV, HD) contiguous
   void* dv;
-  int B, T, S, H, KV;
+  int B, T, S, H, KV, T_pad;
   Strides qs, ks, vs, os, dos;
   int causal, window;
   float softcap, scale;
@@ -176,27 +222,37 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
     }
 }
 
+// D of rows t < T_pad of each (b, h), 0 past T; with lse2, lse log2 e
+// beside it (+inf past T)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(Args a, int HD) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
                       threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= static_cast<int64_t>(a.B) * a.H * a.T) return;
-  const int t = static_cast<int>(row % a.T);
-  const int bh = static_cast<int>(row / a.T);
+  if (row >= static_cast<int64_t>(a.B) * a.H * a.T_pad) return;
+  const int t = static_cast<int>(row % a.T_pad);
+  const int bh = static_cast<int>(row / a.T_pad);
   const int b = bh / a.H, h = bh % a.H;
-  const T* o = static_cast<const T*>(a.o) + b * a.os.b + h * a.os.h +
-               t * a.os.t;
-  const T* g = static_cast<const T*>(a.dout) + b * a.dos.b + h * a.dos.h +
-               t * a.dos.t;
   float sum = 0.f;
-  for (int d = lane; d < HD; d += 32)
-    sum = fmaf(to_f32(g[d]), to_f32(o[d]), sum);
+  if (t < a.T) {
+    const T* o = static_cast<const T*>(a.o) + b * a.os.b + h * a.os.h +
+                 t * a.os.t;
+    const T* g = static_cast<const T*>(a.dout) + b * a.dos.b +
+                 h * a.dos.h + t * a.dos.t;
+    for (int d = lane; d < HD; d += 32)
+      sum = fmaf(to_f32(g[d]), to_f32(o[d]), sum);
 #pragma unroll
-  for (int m = 16; m >= 1; m >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, m);
-  if (lane == 0) a.delta[row] = sum;
+    for (int m = 16; m >= 1; m >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  }
+  if (lane == 0) {
+    a.delta[row] = sum;
+    if (a.lse2 != nullptr)
+      a.lse2[row] = t < a.T ? a.lse[static_cast<int64_t>(bh) * a.T + t] *
+                                  1.4426950408889634f
+                            : INFINITY;
+  }
 }
 
 template <typename T, int HD>
@@ -421,18 +477,18 @@ int launch_hd(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int B, int T_len, int S_len, int H, int KV,
-           int HD, const int64_t* st, int causal, int window, float softcap,
-           void* stream) {
-  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || S_len <= 0) return cudaErrorInvalidValue;
-  Args a;
+// the arguments of every kernel of a call; false when the shapes are
+// refused (the caller returns 0 for an empty call)
+bool make_args(Args& a, const void* q, const void* k, const void* v,
+               const void* o, const void* dout, const float* lse,
+               float* delta, void* dq, void* dk, void* dv, int B, int T_len,
+               int S_len, int H, int KV, int HD, const int64_t* st,
+               int causal, int window, float softcap) {
+  if (KV <= 0 || H % KV != 0 || S_len <= 0) return false;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.lse = lse; a.delta = delta; a.dq = dq; a.dk = dk; a.dv = dv;
-  a.B = B; a.T = T_len; a.S = S_len; a.H = H; a.KV = KV;
+  a.B = B; a.T = T_len; a.S = S_len; a.H = H; a.KV = KV; a.T_pad = T_len;
+  a.lse2 = nullptr;
   a.qs = {st[0], st[1], st[2]};
   a.ks = {st[3], st[4], st[5]};
   a.vs = {st[6], st[7], st[8]};
@@ -440,7 +496,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   a.dos = {st[12], st[13], st[14]};
   a.causal = causal; a.window = window; a.softcap = softcap;
   a.scale = 1.0f / sqrtf(static_cast<float>(HD));
-  auto s = static_cast<cudaStream_t>(stream);
+  return true;
+}
+
+template <typename T>
+int launch(const Args& a, int HD, cudaStream_t s) {
   switch (HD) {
 #define REPRO_FLASH_BWD_HD(N) \
   case N:                     \
@@ -457,6 +517,468 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma body
+// ---------------------------------------------------------------------------
+namespace bwg {
+using namespace wg;
+
+constexpr int kWG = 128;      // threads a block: one warpgroup
+constexpr int kRows = 64;     // rows of a block's tile and of a streamed one
+constexpr int kStages = 2;
+constexpr int kBox = kRows * 128;   // bytes of a 64-row box of 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+constexpr int smem_bytes() {
+  // two tiles that stay, kStages x two streamed tiles (each HD / 64 boxes),
+  // kStages x the 64 lse log2 e and D values of a query tile, 3 mbarriers,
+  // 1024 bytes of slack to align the base
+  return (HD / 64) * (2 + 2 * kStages) * kBox + kStages * 2 * kRows * 4 +
+         64 + 1024;
+}
+
+// S^T (keys x queries) = K Q^T and dP^T = V dO^T of one (KV tile, query
+// tile), then dV += P^T dO and dK += dS^T Q, for the block's 64 keys over
+// its group's heads and their query tiles
+template <int HD>
+__global__ void __launch_bounds__(kWG, 2)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse2,
+                  const float* __restrict__ dlt,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int T_len, int S_len,
+                  int H, int KV, int BKV, int T_pad, int causal, int window,
+                  float softcap, float scale) {
+  constexpr int NB = HD / 64;
+  constexpr int kTile = NB * kBox;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sk = (base + 1023u) & ~1023u;
+  const uint32_t sv = sk + kTile;
+  const uint32_t sq = sv + kTile;                 // + stage * kTile
+  const uint32_t sdo = sq + kStages * kTile;      // + stage * kTile
+  const uint32_t srow = sdo + kStages * kTile;    // + stage * 2 * kRows * 4
+  const uint32_t bar_kv = srow + kStages * 2 * kRows * 4;
+  const uint32_t bar_st = bar_kv + 8;             // + stage * 8
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (srow - base));
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int kt = static_cast<int>(blockIdx.x) / BKV;   // first tiles first
+  const int bkv = static_cast<int>(blockIdx.x) % BKV;
+  const int b = bkv / KV, kvh = bkv % KV;
+  const int G = H / KV;
+  const int k0 = kt * kRows;
+  const int k_last = min(k0 + kRows, S_len) - 1;
+  // query tiles with a row that sees a key of [k0, k_last]
+  const int n_qt = (T_len + kRows - 1) / kRows;
+  const int qt_begin = causal ? k0 / kRows : 0;
+  int qt_end = n_qt;
+  if (window > 0) qt_end = min(qt_end, (k_last + window - 1) / kRows + 1);
+  const int n_per = max(qt_end - qt_begin, 0);
+  const int n_iter = G * n_per;          // (head of the group, query tile)
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(bar_st + 8 * s, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load_q = [&](int stage, int it) {
+    const int h = kvh * G + it / n_per;
+    const int q0 = (qt_begin + it % n_per) * kRows;
+    const uint32_t bar = bar_st + 8 * stage;
+    mbar_expect_tx(bar, 2 * kTile + 2 * kRows * 4);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      tma_load(sq + stage * kTile + j * kBox, &tq, bar, 64 * j, h, q0, b);
+      tma_load(sdo + stage * kTile + j * kBox, &tdo, bar, 64 * j, h, q0, b);
+    }
+    const int64_t row = (static_cast<int64_t>(b) * H + h) * T_pad + q0;
+    const uint32_t dst = srow + stage * 2 * kRows * 4;
+    bulk_load(dst, lse2 + row, kRows * 4, bar);
+    bulk_load(dst + kRows * 4, dlt + row, kRows * 4, bar);
+  };
+  if (tid == 0 && n_iter > 0) {
+    mbar_expect_tx(bar_kv, 2 * kTile);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      tma_load(sk + j * kBox, &tk, bar_kv, 64 * j, kvh, k0, b);
+      tma_load(sv + j * kBox, &tv, bar_kv, 64 * j, kvh, k0, b);
+    }
+    load_q(0, 0);
+  }
+  __syncwarp();
+
+  float dka[NB][32], dva[NB][32];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[j][i] = dva[j][i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+  const int r0 = 16 * warp + lane / 4;   // this thread's keys: k0 + r0, + 8
+
+  if (n_iter > 0) mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int st = it % kStages;
+    const int q0 = (qt_begin + it % n_per) * kRows;
+    if (tid == 0 && it + 1 < n_iter) load_q((it + 1) % kStages, it + 1);
+    __syncwarp();
+    mbar_wait(bar_st + 8 * st, (it / kStages) & 1);
+    // S^T = K Q^T and dP^T = V dO^T over HD / 16 k16 steps
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      mma_ss(s, desc_sw128(sk + off), desc_sw128(sq + st * kTile + off),
+             kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      mma_ss(dp, desc_sw128(sv + off), desc_sw128(sdo + st * kTile + off),
+             kk > 0);
+    }
+    commit();
+    wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T on the fragments: element 4 i + e is key k0 + r0 +
+    // 8 (e >> 1), query q0 + 8 i + 2 (lane % 4) + (e & 1)
+    const float* l2 = rows + st * 2 * kRows;
+    const float* dd = l2 + kRows;
+    const bool edge = (causal && k0 + kRows - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kRows - 1 - window);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * i + 2 * (lane % 4) + (e & 1);
+        float fac = 1.f, y;
+        if (softcap > 0.f) {
+          const float th = tanhf(s[4 * i + e] * scale / softcap);
+          fac = 1.f - th * th;
+          y = fmaf(th * softcap, kLog2e, -l2[col]);
+        } else {
+          y = fmaf(s[4 * i + e], scale_log2, -l2[col]);
+        }
+        float p = exp2f(y);
+        if (edge) {
+          const int key = k0 + r0 + 8 * (e >> 1), t = q0 + col;
+          bool ok = true;
+          if (causal) ok = key <= t;
+          if (window > 0) ok = ok && key > t - window;
+          if (!ok) p = 0.f;
+        }
+        s[4 * i + e] = p;
+        dp[4 * i + e] = p * (dp[4 * i + e] - dd[col]) * fac;
+      }
+    // P^T and dS^T in bf16 as the A fragments of the four k16 steps
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        pa[kk][q] = pack_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+        da[kk][q] = pack_bf16(dp[8 * kk + 2 * q], dp[8 * kk + 2 * q + 1]);
+      }
+    // dV += P^T dO, dK += dS^T Q: per k16 step (16 queries, 2048 bytes of
+    // a box) one product per 64 columns of hd
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      fence_regs(dva[j]);
+      fence_regs(dka[j]);
+    }
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        mma_rs(dva[j], pa[kk],
+               desc_sw128(sdo + st * kTile + j * kBox + kk * 2048));
+        mma_rs(dka[j], da[kk],
+               desc_sw128(sq + st * kTile + j * kBox + kk * 2048));
+      }
+    commit();
+    wait_all();
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      fence_regs(dva[j]);
+      fence_regs(dka[j]);
+    }
+    __syncthreads();   // stage st is free for the load of it + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + r0 + 8 * r;
+    if (key >= S_len) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * S_len + key) * KV + kvh) *
+                       HD;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 64 * j + 8 * i + 2 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
+            __floats2bfloat162_rn(dka[j][4 * i + 2 * r] * scale,
+                                  dka[j][4 * i + 2 * r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
+            __floats2bfloat162_rn(dva[j][4 * i + 2 * r],
+                                  dva[j][4 * i + 2 * r + 1]);
+      }
+  }
+}
+
+// S = Q K^T and dP = dO V^T of one (query tile, KV tile), then dQ += dS K,
+// for the block's 64 queries over the KV tiles they see
+template <int HD>
+__global__ void __launch_bounds__(kWG, 2)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse2,
+                const float* __restrict__ dlt,
+                __nv_bfloat16* __restrict__ dq, int T_len, int S_len, int H,
+                int KV, int BH, int n_qt, int T_pad, int causal, int window,
+                float softcap, float scale) {
+  constexpr int NB = HD / 64;
+  constexpr int kTile = NB * kBox;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdo = sq + kTile;
+  const uint32_t sk = sdo + kTile;                // + stage * kTile
+  const uint32_t sv = sk + kStages * kTile;       // + stage * kTile
+  const uint32_t bar_q = sv + kStages * kTile;
+  const uint32_t bar_kv = bar_q + 8;              // + stage * 8
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / BH;  // last first
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = qt * kRows;
+  const int r0 = 16 * warp + lane / 4;   // this thread's rows: q0 + r0, + 8
+  // KV tiles some row of [q0, q_last] sees
+  const int q_last = min(q0 + kRows, T_len) - 1;
+  int kt_end = (S_len + kRows - 1) / kRows;
+  if (causal) kt_end = min(kt_end, q_last / kRows + 1);
+  int kt_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;
+    kt_begin = lo > 0 ? lo / kRows : 0;
+  }
+  const int n_tiles = max(kt_end - kt_begin, 0);
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(bar_kv + 8 * s, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int stage, int kt) {
+    const uint32_t bar = bar_kv + 8 * stage;
+    mbar_expect_tx(bar, 2 * kTile);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      tma_load(sk + stage * kTile + j * kBox, &tk, bar, 64 * j, kvh,
+               kt * kRows, b);
+      tma_load(sv + stage * kTile + j * kBox, &tv, bar, 64 * j, kvh,
+               kt * kRows, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * kTile);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      tma_load(sq + j * kBox, &tq, bar_q, 64 * j, h, q0, b);
+      tma_load(sdo + j * kBox, &tdo, bar_q, 64 * j, h, q0, b);
+    }
+    if (n_tiles > 0) load_kv(0, kt_begin);
+  }
+  __syncwarp();
+
+  // the rows' lse log2 e and D (padded: +inf and 0 past T)
+  const int64_t row = static_cast<int64_t>(bh) * T_pad + q0 + r0;
+  const float l2[2] = {lse2[row], lse2[row + 8]};
+  const float dd[2] = {dlt[row], dlt[row + 8]};
+  float dqa[NB][32];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[j][i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kt = kt_begin + it, st = it % kStages;
+    if (tid == 0 && it + 1 < n_tiles) load_kv((it + 1) % kStages, kt + 1);
+    __syncwarp();
+    mbar_wait(bar_kv + 8 * st, (it / kStages) & 1);
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      mma_ss(s, desc_sw128(sq + off), desc_sw128(sk + st * kTile + off),
+             kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      mma_ss(dp, desc_sw128(sdo + off), desc_sw128(sv + st * kTile + off),
+             kk > 0);
+    }
+    commit();
+    wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // element 4 i + e is query q0 + r0 + 8 (e >> 1), key k0 + 8 i +
+    // 2 (lane % 4) + (e & 1)
+    const int k0 = kt * kRows;
+    const bool edge = k0 + kRows > S_len ||
+                      (causal && k0 + kRows - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kRows - 1 - window);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float fac = 1.f, y;
+        if (softcap > 0.f) {
+          const float th = tanhf(s[4 * i + e] * scale / softcap);
+          fac = 1.f - th * th;
+          y = fmaf(th * softcap, kLog2e, -l2[r]);
+        } else {
+          y = fmaf(s[4 * i + e], scale_log2, -l2[r]);
+        }
+        float p = exp2f(y);
+        if (edge) {
+          const int key = k0 + 8 * i + 2 * (lane % 4) + (e & 1);
+          const int t = q0 + r0 + 8 * r;
+          bool ok = key < S_len;
+          if (causal) ok = ok && key <= t;
+          if (window > 0) ok = ok && key > t - window;
+          if (!ok) p = 0.f;
+        }
+        dp[4 * i + e] = p * (dp[4 * i + e] - dd[r]) * fac;
+      }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        da[kk][q] = pack_bf16(dp[8 * kk + 2 * q], dp[8 * kk + 2 * q + 1]);
+    // dQ += dS K: K (keys x hd) through the transpose bit
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fence_regs(dqa[j]);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        mma_rs(dqa[j], da[kk],
+               desc_sw128(sk + st * kTile + j * kBox + kk * 2048));
+    commit();
+    wait_all();
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fence_regs(dqa[j]);
+    __syncthreads();   // stage st is free for the load of it + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + r0 + 8 * r;
+    if (t >= T_len) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * T_len + t) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 64 * j + 8 * i + 2 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(dq + at + col) =
+            __floats2bfloat162_rn(dqa[j][4 * i + 2 * r] * scale,
+                                  dqa[j][4 * i + 2 * r + 1] * scale);
+      }
+  }
+}
+
+template <int HD>
+int launch_hd(const Args& a, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dkdv_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(dq_wgmma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();   // not left for the next call to report
+      return static_cast<int>(e);
+    }
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode(&tq, a.q, HD, a.H, a.T, a.B, a.qs.b, a.qs.t, a.qs.h, kRows) ||
+      !encode(&tk, a.k, HD, a.KV, a.S, a.B, a.ks.b, a.ks.t, a.ks.h, kRows) ||
+      !encode(&tv, a.v, HD, a.KV, a.S, a.B, a.vs.b, a.vs.t, a.vs.h, kRows) ||
+      !encode(&tdo, a.dout, HD, a.H, a.T, a.B, a.dos.b, a.dos.t, a.dos.h,
+              kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t rows = static_cast<int64_t>(a.B) * a.H * a.T_pad;
+  delta_kernel<__nv_bfloat16><<<static_cast<unsigned>((rows + 7) / 8),
+                                kThreads, 0, stream>>>(a, HD);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_kt = (a.S + kRows - 1) / kRows;
+  dkdv_wgmma_kernel<HD><<<n_kt * a.B * a.KV, kWG, bytes, stream>>>(
+      tq, tk, tv, tdo, a.lse2, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.T, a.S, a.H, a.KV, a.B * a.KV,
+      a.T_pad, a.causal, a.window, a.softcap, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_qt = (a.T + kRows - 1) / kRows;
+  dq_wgmma_kernel<HD><<<n_qt * a.B * a.H, kWG, bytes, stream>>>(
+      tq, tk, tv, tdo, a.lse2, a.delta, static_cast<__nv_bfloat16*>(a.dq),
+      a.T, a.S, a.H, a.KV, a.B * a.H, n_qt, a.T_pad, a.causal, a.window,
+      a.softcap, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// delta holds 2 B H T_pad floats, T_pad = T rounded up to 64: D, then
+// lse log2 e
+int launch(Args a, int HD, cudaStream_t s) {
+  a.T_pad = (a.T + kRows - 1) / kRows * kRows;
+  a.lse2 = a.delta + static_cast<int64_t>(a.B) * a.H * a.T_pad;
+  switch (HD) {
+    case 64:
+      return launch_hd<64>(a, s);
+    case 128:
+      return launch_hd<128>(a, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwg
+
 }  // namespace
 
 // q, o, do (B, T, H, HD), k and v (B, S, KV, HD) on the current device,
@@ -466,23 +988,27 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // (B, T, H, HD), dk and dv (B, S, KV, HD) contiguous, of the inputs' type.
 // HD is 16, 32, 64, 128, 192 or 256. Returns the CUDA error of the launches
 // (0 on success).
-extern "C" int flash_attention_bwd_f32(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int B, int T, int S, int H, int KV, int HD,
-    const int64_t* strides, int causal, int window, float softcap,
-    void* stream) {
-  return launch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T, S, H,
-                       KV, HD, strides, causal, window, softcap, stream);
-}
+#define REPRO_FLASH_BWD_ENTRY(NAME, BODY)                                    \
+  extern "C" int NAME(const void* q, const void* k, const void* v,          \
+                      const void* o, const void* dout, const float* lse,    \
+                      float* delta, void* dq, void* dk, void* dv, int B,    \
+                      int T, int S, int H, int KV, int HD,                  \
+                      const int64_t* strides, int causal, int window,       \
+                      float softcap, void* stream) {                        \
+    if (B <= 0 || T <= 0 || H <= 0) return 0;                              \
+    Args a;                                                                 \
+    if (!make_args(a, q, k, v, o, dout, lse, delta, dq, dk, dv, B, T, S, H, \
+                   KV, HD, strides, causal, window, softcap))               \
+      return cudaErrorInvalidValue;                                         \
+    return BODY(a, HD, static_cast<cudaStream_t>(stream));                  \
+  }
 
-extern "C" int flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int B, int T, int S, int H, int KV, int HD,
-    const int64_t* strides, int causal, int window, float softcap,
-    void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               T, S, H, KV, HD, strides, causal, window,
-                               softcap, stream);
-}
+REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_f32, launch<float>)
+REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_bf16, launch<__nv_bfloat16>)
+// The wgmma body: bf16 as above at HD 64 or 128, every (b, t, head) stride
+// of q, k, v and do a multiple of 8 elements and their starts 16-byte
+// aligned (TMA's terms); delta holds 2 B H T_pad floats, T_pad = T rounded
+// up to a multiple of 64. cudaErrorInvalidValue also when a tensor map does
+// not encode.
+REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_bf16_wgmma, bwg::launch)
+#undef REPRO_FLASH_BWD_ENTRY

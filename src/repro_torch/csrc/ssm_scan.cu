@@ -8,7 +8,10 @@
 // version (kernels/ssm_scan/ref.py) compute: u, B_ and C_ in one type (bf16
 // or float32, one template), dt, A and D in float32, the state and every
 // sum in float32, y written once in u's type. Only y leaves the kernel, as
-// in the TPU kernel (no h_last).
+// in the TPU kernel (no h_last), and, when the caller asks (autograd's
+// forward), the states at the start of every chunk of kTCB = 16 steps for
+// the backward (ssm_scan_bwd.cu), which would otherwise run the recurrence
+// once more to find them.
 //
 // Where it runs: every layer of the prefill forward (64 launches a call for
 // falcon-mamba-7b), at B 4, T 1024, d 8192, N 16.
@@ -62,6 +65,15 @@
 //  * The order of every rounding is written out (__fmul_rn, fmaf,
 //    __fadd_rn) so that no contraction choice of the compiler changes it,
 //    and a CPU emulation (tests/test_torch_ssm.py) repeats it.
+//  * The chunk-start states: with a non-null hck, before steps t = 0, 16,
+//    32, ... a lane stores its 4 state values (h_{t-1}; zeros at t = 0) as
+//    one 16-byte store into hck (B, ceil(L / 16), d, 16) float32 (state
+//    slots past N hold 0). They are the registers the scan carries, so the
+//    backward's rebuild, which repeats this step's instructions, continues
+//    them bit for bit. The serve and prefill launches pass null and take
+//    an instance of the kernel compiled without the stores (a template
+//    flag), whose registers and time are those of a scan that stores
+//    nothing; y is the same either way.
 //  * Ragged edges are masked in the kernel (channels beyond d compute on
 //    zeros and store nothing, the last chunk is short, state slots beyond N
 //    hold A = B = C = 0 and stay 0), so the wrapper pads and copies
@@ -78,6 +90,8 @@ namespace {
 constexpr int kThreads = 256;  // threads a block: kThreads / kG channels
 constexpr int kG = 4;          // lanes a channel
 constexpr int kTC = 32;        // time steps a chunk
+constexpr int kTCB = 16;       // steps between the states saved for the
+                               // backward (ssm_scan_bwd.cu's chunk)
 constexpr int kStages = 2;     // ring depth
 constexpr int kMaxN = 16;      // state values a channel
 constexpr float kLog2e = 1.4426950408889634f;
@@ -146,12 +160,13 @@ __device__ __forceinline__ void stage_rows(E* dst, const E* __restrict__ src,
   }
 }
 
-template <typename T>
+template <typename T, bool kStates>
 __global__ void __launch_bounds__(kThreads, 4)
 ssm_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                 const T* __restrict__ bm, const T* __restrict__ cm,
                 const float* __restrict__ A, const float* __restrict__ D,
-                T* __restrict__ y, int L, int d, int N, bool vec) {
+                T* __restrict__ y, float* __restrict__ hck, int L, int d,
+                int N, bool vec) {
   constexpr int G = kG;
   constexpr int CH = kThreads / G;     // channels a block
   constexpr int S = kMaxN / G;         // state values a lane
@@ -251,6 +266,13 @@ ssm_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     // and adds what it receives. Each add is the xor tree's, so y_t =
     // (p_0 + p_1) + (p_2 + p_3) over the lanes' partial sums p.
     for (int tt0 = 0; tt0 < tc; tt0 += G) {
+      if (kStates && (t0 + tt0) % kTCB == 0 && live) {
+        const int64_t chunk = static_cast<int64_t>(blockIdx.y) *
+                                  ((L + kTCB - 1) / kTCB) +
+                              (t0 + tt0) / kTCB;
+        *reinterpret_cast<float4*>(hck + (chunk * d + c) * kMaxN + j * S) =
+            make_float4(h[0], h[1], h[2], h[3]);
+      }
       float p[G];
       if (tt0 + G <= tc) {
 #pragma unroll
@@ -301,20 +323,21 @@ bool aligned16(const void* p) {
 
 template <typename T>
 int launch(const void* u, const void* dt, const void* bm, const void* cm,
-           const void* A, const void* D, void* y, int batch, int L, int d,
-           int N, void* stream) {
+           const void* A, const void* D, void* y, float* hck, int batch,
+           int L, int d, int N, void* stream) {
   if (N < 1 || N > kMaxN || batch > 65535) return cudaErrorInvalidValue;
   if (batch <= 0 || L <= 0 || d <= 0) return 0;
   const bool vec = aligned16(u) && aligned16(dt) && aligned16(y) &&
                    d % (16 / sizeof(T)) == 0 && d % 4 == 0;
   constexpr int ch = kThreads / kG;
   const dim3 grid((d + ch - 1) / ch, batch);
-  ssm_scan_kernel<T><<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = hck != nullptr ? ssm_scan_kernel<T, true>
+                                : ssm_scan_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(u), static_cast<const float*>(dt),
       static_cast<const T*>(bm), static_cast<const T*>(cm),
       static_cast<const float*>(A), static_cast<const float*>(D),
-      static_cast<T*>(y), L, d, N, vec);
+      static_cast<T*>(y), hck, L, d, N, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -322,19 +345,21 @@ int launch(const void* u, const void* dt, const void* bm, const void* cm,
 
 // u, dt, y (batch, L, d); B_, C_ (batch, L, N); A (d, N); D (d,): all
 // contiguous on the current device; u, B_, C_ and y of the suffix's type,
-// dt, A and D float32; 1 <= N <= 16. Returns the CUDA error of the launch
+// dt, A and D float32; 1 <= N <= 16. hck, when not null, receives the
+// states at the start of every 16 steps, (batch, ceil(L / 16), d, 16)
+// float32 contiguous, slots past N 0. Returns the CUDA error of the launch
 // (0 on success).
 extern "C" int ssm_scan_f32(const void* u, const void* dt, const void* bm,
                             const void* cm, const void* A, const void* D,
-                            void* y, int batch, int L, int d, int N,
-                            void* stream) {
-  return launch<float>(u, dt, bm, cm, A, D, y, batch, L, d, N, stream);
+                            void* y, float* hck, int batch, int L, int d,
+                            int N, void* stream) {
+  return launch<float>(u, dt, bm, cm, A, D, y, hck, batch, L, d, N, stream);
 }
 
 extern "C" int ssm_scan_bf16(const void* u, const void* dt, const void* bm,
                              const void* cm, const void* A, const void* D,
-                             void* y, int batch, int L, int d, int N,
-                             void* stream) {
-  return launch<__nv_bfloat16>(u, dt, bm, cm, A, D, y, batch, L, d, N,
+                             void* y, float* hck, int batch, int L, int d,
+                             int N, void* stream) {
+  return launch<__nv_bfloat16>(u, dt, bm, cm, A, D, y, hck, batch, L, d, N,
                                stream);
 }

@@ -21,40 +21,56 @@
 // Where it runs: the backward of every Mamba layer of the training step, at
 // falcon-mamba-7b's B 2, T 1024, d 8192, N 16.
 //
-// What bounds it on this card: as in the forward, the exps. The forward
-// keeps no states (only y leaves it, as in the TPU kernel), so the backward
-// runs the recurrence twice more: B T d N exps to find the states at chunk
-// starts and B T d N again to rebuild each chunk's states, beside the
-// B T d N of exp(dt A) that the reverse walk needs. The bound counts the
-// B T d N exps the gradient itself needs, at the special-function units'
-// rate, or the bytes if larger.
+// What bounds it on this card: the bytes of its inputs and outputs (236 MB
+// at that shape), just above the B T d N exps of exp(dt A) that the
+// gradient needs at the special-function units' rate. The kernel takes
+// 2 B T d N exps (each chunk's states rebuilt, then exp(dt A) again on the
+// reverse walk) and reads the forward's chunk-start states (B T d 16 / 16
+// floats, 67 MB at that shape) beside the bound's bytes.
 //
 // Design:
-//  * Three kernels, launched in order on the caller's stream, one thread a
-//    (batch, channel) with its N <= 16 state values in registers, a block a
-//    warp of 32 channels:
-//    1. states_kernel walks t forward and writes h at the start of every
-//       chunk of kTC steps but the first into scratch (B, chunks, N, d).
-//    2. scan_kernel walks the chunks in reverse. For a chunk it reloads the
-//       start state, rebuilds the chunk's kTC states into shared memory
-//       ([step][n][lane], conflict-free), then walks the steps in reverse
-//       carrying g = exp(dt_{t+1} A) dh_{t+1} in registers, and writes du
-//       and ddt. dA and dD accumulate in registers over t and are written
-//       once a thread, per batch row. dB_ and dC_ are sums over the d
-//       channels: a step's 2 x 16 per-lane values are reduced over the
-//       warp's 32 lanes by recursive halving of __shfl_xor_sync (31
-//       shuffles; lane j ends with value j's sum, every add one of a fixed
-//       tree), and lane j writes it to per-block partials (B, blocks, T, 32).
-//    3. reduce_kernel sums the partials over the blocks, and dA and dD over
-//       the batch, each in one fixed order: no floating atomics anywhere, so
-//       a rerun gives the same bits.
+//  * The chunk-start states come from the forward: when autograd runs K6 it
+//    passes hck, and the forward stores the state at the start of every
+//    chunk of kTC = 16 steps, (B, chunks, d, 16) float32, with the
+//    instructions this kernel's rebuild repeats, so the rebuilt states
+//    continue them bit for bit.
+//  * scan_kernel: a channel's 16 state values are split over kG = 4
+//    neighbouring lanes, as in the forward: a lane holds N/4 values of A,
+//    of the carried g = exp(dt_{t+1} A) dh_{t+1} and of dA in registers, a
+//    block of 256 threads owns 64 channels of a batch row, so B 2, d 8192
+//    gives 256 blocks of 8 warps, two an SM. The block walks the chunks in
+//    reverse; u, dt and dy of the next chunk (earlier in time) x the block's
+//    channels are staged in shared memory through a ring of two buffers
+//    filled by 16-byte cp.async copies while this chunk is computed; B_ and
+//    C_ of the next chunk are loaded into registers a chunk ahead, its start
+//    state too.
+//  * A chunk: its 16 states are rebuilt from the start state into registers
+//    (16 x 4 a lane, indexed by unrolled loops), then the steps are walked
+//    in reverse 4 at a time. du_t and ddt_t sum over the channel's 4 lanes:
+//    the group's 4 x 4 partial sums (each lane's fma over its N/4 values)
+//    are reduced by recursive halving of __shfl_xor_sync, the forward's
+//    fixed xor tree (p_0 + p_1) + (p_2 + p_3), after which lane j holds
+//    step j's sums and writes du over the staged u and ddt over the staged
+//    dt; the chunk leaves in 16-byte stores.
+//  * dB_ and dC_ sum over channels: a step's 2 x 4 values a lane are summed
+//    over the warp's 8 channels by recursive halving of __shfl_xor_sync over
+//    lanes ^4, ^8, ^16 (7 shuffles; every add one of a fixed tree), then
+//    over the block's 8 warps in order in shared memory, and written as
+//    per-block partials (B, blocks, T, 32); dA and dD accumulate in
+//    registers over t and are written per batch row. reduce_kernel sums the
+//    partials over the blocks, and dA and dD over the batch, each in one
+//    fixed order: no floating atomics anywhere, so a rerun gives the same
+//    bits.
 //  * exp(dt A) is 2^(dt (A log2 e)) by ex2.approx.ftz.f32 with A log2 e
-//    taken once a thread, as in the forward; ssm_scan_bwd_tolerance counts
-//    its error. Kernels 1 and 2 rebuild the states with the same
-//    instructions, so the states of a chunk continue those at its start.
+//    taken once a lane, as in the forward; ssm_scan_bwd_tolerance counts
+//    its error, and its bound holds for any order of the sums over n and
+//    over channels. A CPU emulation of this walk (tests/
+//    test_torch_grad_kernels.py) repeats its order.
 //  * Steps past T (the last chunk's ragged end) and channels past d compute
 //    on zeros, which changes no state and adds 0 to every sum; state slots
-//    past N hold A = B = C = 0 and stay 0.
+//    past N hold A = B = C = 0 and stay 0. Where d or a pointer is not
+//    16-byte aligned the staging and the stores take one element a copy
+//    (chosen by shape, the same arithmetic).
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -62,10 +78,15 @@
 
 namespace {
 
-constexpr int kCH = 32;        // channels a block: one warp
-constexpr int kTC = 16;        // steps a chunk
+constexpr int kThreads = 256;  // threads a block
+constexpr int kG = 4;          // lanes a channel
+constexpr int kCH = kThreads / kG;     // channels a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kTC = 16;        // steps a chunk: the forward's kTCB
+constexpr int kStages = 2;     // ring depth
 constexpr int kMaxN = 16;      // state values a channel
-constexpr int kParts = 2 * kMaxN;   // dB_ and dC_ values a step
+constexpr int kS = kMaxN / kG;         // state values a lane
+constexpr int kParts = 2 * kMaxN;      // dB_ and dC_ values a step
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -88,176 +109,279 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return r;
 }
 
-// rows [t0, t0 + kTC) of a (batch, L, N) tensor into dst[kTC][kMaxN] as
-// float32, zeros past L and N
-template <typename T>
-__device__ __forceinline__ void stage_bc(float (*dst)[kMaxN],
-                                         const T* __restrict__ src,
-                                         int64_t row0, int t0, int L, int N) {
-  for (int i = threadIdx.x; i < kTC * kMaxN; i += kCH) {
-    const int tt = i / kMaxN, n = i % kMaxN;
-    dst[tt][n] = (t0 + tt < L && n < N)
-                     ? to_f32(src[(row0 + t0 + tt) * N + n])
-                     : 0.f;
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kCH)
-states_kernel(const T* __restrict__ u, const float* __restrict__ dt,
-              const T* __restrict__ bm, const float* __restrict__ A,
-              float* __restrict__ hck, int L, int d, int N) {
-  __shared__ float bs[kTC][kMaxN];
-  const int c = blockIdx.x * kCH + threadIdx.x;
-  const bool live = c < d;
-  const int b = blockIdx.y;
-  const int64_t row0 = static_cast<int64_t>(b) * L;
-  const int chunks = (L + kTC - 1) / kTC;
-  float a2[kMaxN], h[kMaxN];
-#pragma unroll
-  for (int n = 0; n < kMaxN; ++n) {
-    a2[n] = (live && n < N)
-                ? __fmul_rn(A[static_cast<int64_t>(c) * N + n], kLog2e)
-                : 0.f;
-    h[n] = 0.f;
-  }
-  for (int k = 0; k < chunks; ++k) {
-    const int t0 = k * kTC;
-    if (k > 0 && live) {
-#pragma unroll
-      for (int n = 0; n < kMaxN; ++n)
-        if (n < N)
-          hck[((static_cast<int64_t>(b) * chunks + k) * N + n) * d + c] =
-              h[n];
+// Copies rows [t0, t0 + kTC) x channels [c0, c0 + kCH) of a (batch, L, d)
+// tensor into dst[kTC][kCH], zeros outside [0, L) x [0, d).
+template <typename E>
+__device__ __forceinline__ void stage_rows(E* dst, const E* __restrict__ src,
+                                           int64_t row0, int t0, int c0,
+                                           int L, int d, bool vec) {
+  if (vec) {   // 16-byte copies: d and the pointer 16-byte aligned
+    constexpr int kEl = 16 / sizeof(E);
+    constexpr int kSeg = kCH / kEl;            // copies a row
+    for (int i = threadIdx.x; i < kTC * kSeg; i += kThreads) {
+      const int tt = i / kSeg, c = c0 + (i % kSeg) * kEl;
+      const bool ok = t0 + tt < L && c < d;
+      const E* s = ok ? src + (row0 + t0 + tt) * d + c : src;
+      cp_async16(dst + tt * kCH + (i % kSeg) * kEl, s, ok);
     }
-    __syncwarp();
-    stage_bc<T>(bs, bm, row0, t0, L, N);
-    __syncwarp();
-    const int tc = min(kTC, L - t0);
-    for (int tt = 0; tt < tc; ++tt) {
-      const int64_t i = (row0 + t0 + tt) * d + c;
-      const float ut = live ? to_f32(u[i]) : 0.f;
-      const float dtt = live ? dt[i] : 0.f;
-      const float dtu = __fmul_rn(dtt, ut);
-#pragma unroll
-      for (int n = 0; n < kMaxN; ++n)
-        h[n] = fmaf(ex2_ftz(__fmul_rn(dtt, a2[n])), h[n],
-                    __fmul_rn(dtu, bs[tt][n]));
+  } else {
+    for (int i = threadIdx.x; i < kTC * kCH; i += kThreads) {
+      const int tt = i / kCH, c = c0 + i % kCH;
+      dst[i] = (t0 + tt < L && c < d) ? src[(row0 + t0 + tt) * d + c]
+                                      : E(0.f);
     }
   }
 }
 
+// rows [t0, t0 + kTC) x the block's channels of src[kTC][kCH] into a
+// (batch, L, d) tensor, inside [0, L) x [0, d)
+template <typename E>
+__device__ __forceinline__ void store_rows(E* __restrict__ dst, const E* src,
+                                           int64_t row0, int t0, int c0,
+                                           int L, int d, bool vec) {
+  if (vec) {
+    constexpr int kEl = 16 / sizeof(E);
+    constexpr int kSeg = kCH / kEl;
+    for (int i = threadIdx.x; i < kTC * kSeg; i += kThreads) {
+      const int tt = i / kSeg, c = c0 + (i % kSeg) * kEl;
+      if (t0 + tt < L && c < d)
+        *reinterpret_cast<int4*>(dst + (row0 + t0 + tt) * d + c) =
+            *reinterpret_cast<const int4*>(src + tt * kCH + (i % kSeg) * kEl);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTC * kCH; i += kThreads) {
+      const int tt = i / kCH, c = c0 + i % kCH;
+      if (t0 + tt < L && c < d) dst[(row0 + t0 + tt) * d + c] = src[i];
+    }
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kCH)
+__global__ void __launch_bounds__(kThreads, 2)
 scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
             const T* __restrict__ bm, const T* __restrict__ cm,
             const float* __restrict__ A, const float* __restrict__ D,
             const T* __restrict__ dy, const float* __restrict__ hck,
             T* __restrict__ du, float* __restrict__ ddt,
             float* __restrict__ part, float* __restrict__ dA_part,
-            float* __restrict__ dD_part, int L, int d, int N) {
-  __shared__ float hs[kTC][kMaxN][kCH];
-  __shared__ float bs[kTC][kMaxN];
-  __shared__ float cs[kTC][kMaxN];
-  const int lane = threadIdx.x;
-  const int c = blockIdx.x * kCH + lane;
+            float* __restrict__ dD_part, int L, int d, int N, bool vec) {
+  __shared__ __align__(16) unsigned char u_raw[kStages * kTC * kCH *
+                                               sizeof(T)];
+  __shared__ __align__(16) unsigned char dy_raw[kStages * kTC * kCH *
+                                                sizeof(T)];
+  __shared__ __align__(16) float dts[kStages][kTC][kCH];
+  __shared__ __align__(16) float bs[kStages][kTC][kMaxN];
+  __shared__ __align__(16) float cs[kStages][kTC][kMaxN];
+  __shared__ float ps[kWarps][kTC][kParts];   // a warp's channel sums
+  T* us = reinterpret_cast<T*>(u_raw);        // [kStages][kTC][kCH]
+  T* dys = reinterpret_cast<T*>(dy_raw);
+
+  const int g = threadIdx.x / kG;      // channel of the block
+  const int j = threadIdx.x % kG;      // lane of the group
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = blockIdx.x * kCH;
+  const int c = c0 + g;
   const bool live = c < d;
   const int b = blockIdx.y;
   const int64_t row0 = static_cast<int64_t>(b) * L;
   const int chunks = (L + kTC - 1) / kTC;
   const int64_t part0 =
       (static_cast<int64_t>(b) * gridDim.x + blockIdx.x) * L;
+  // after the warp's halving over lanes ^4, ^8, ^16 this lane holds value
+  // v = 4 bit2 + 2 bit3 + bit4 of its 8 (dB_ for v < 4, dC_ after), state
+  // n = j kS + v % 4, summed over the warp's 8 channels
+  const int v = 4 * ((lane >> 2) & 1) + 2 * ((lane >> 3) & 1) +
+                ((lane >> 4) & 1);
+  const int slot = (v < kS ? 0 : kMaxN) + j * kS + v % kS;
 
-  float a2[kMaxN], af[kMaxN], g[kMaxN], dA[kMaxN];
+  float a2[kS], af[kS], gc[kS], dA[kS];
 #pragma unroll
-  for (int n = 0; n < kMaxN; ++n) {
-    af[n] = (live && n < N) ? A[static_cast<int64_t>(c) * N + n] : 0.f;
-    a2[n] = __fmul_rn(af[n], kLog2e);
-    g[n] = 0.f;
-    dA[n] = 0.f;
+  for (int q = 0; q < kS; ++q) {
+    const int n = j * kS + q;
+    af[q] = (live && n < N) ? A[static_cast<int64_t>(c) * N + n] : 0.f;
+    a2[q] = __fmul_rn(af[q], kLog2e);
+    gc[q] = 0.f;
+    dA[q] = 0.f;
   }
   const float dd = live ? D[c] : 0.f;
   float dD = 0.f;
 
-  for (int k = chunks - 1; k >= 0; --k) {
-    const int t0 = k * kTC;
-    const int tc = min(kTC, L - t0);
-    __syncwarp();   // the previous chunk is done with bs, cs and hs
-    stage_bc<T>(bs, bm, row0, t0, L, N);
-    stage_bc<T>(cs, cm, row0, t0, L, N);
-    float h0[kMaxN], h[kMaxN];
-#pragma unroll
-    for (int n = 0; n < kMaxN; ++n) {
-      h0[n] = (k > 0 && live && n < N)
-                  ? hck[((static_cast<int64_t>(b) * chunks + k) * N + n) * d +
-                        c]
-                  : 0.f;
-      h[n] = h0[n];
+  float h0[kS], h0n[kS];               // this chunk's start state, the next
+                                       // one's
+  auto load_h0 = [&](int k, float (&h)[kS]) {
+    float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live)
+      r = *reinterpret_cast<const float4*>(
+          hck + ((static_cast<int64_t>(b) * chunks + k) * d + c) * kMaxN +
+          j * kS);
+    h[0] = r.x; h[1] = r.y; h[2] = r.z; h[3] = r.w;
+  };
+  float pb, pc;                        // the next chunk's B_, C_ value
+  const int bc_t = threadIdx.x / kMaxN, bc_n = threadIdx.x % kMaxN;
+  auto load_bc = [&](int t0) {
+    const bool ok = t0 + bc_t < L && bc_n < N;
+    const int64_t off = (row0 + t0 + bc_t) * N + bc_n;
+    pb = ok ? to_f32(bm[off]) : 0.f;
+    pc = ok ? to_f32(cm[off]) : 0.f;
+  };
+  auto store_bc = [&](int st) {
+    bs[st][bc_t][bc_n] = pb;
+    cs[st][bc_t][bc_n] = pc;
+  };
+  auto stage = [&](int t0, int st) {
+    stage_rows<T>(us + st * kTC * kCH, u, row0, t0, c0, L, d, vec);
+    stage_rows<T>(dys + st * kTC * kCH, dy, row0, t0, c0, L, d, vec);
+    stage_rows<float>(&dts[st][0][0], dt, row0, t0, c0, L, d, vec);
+    cp_async_commit();
+  };
+  static_assert(kTC * kMaxN == kThreads, "one B_, C_ value a thread");
+
+  stage((chunks - 1) * kTC, 0);
+  load_bc((chunks - 1) * kTC);
+  store_bc(0);
+  load_h0(chunks - 1, h0);
+  for (int i = 0; i < chunks; ++i) {
+    const int k = chunks - 1 - i, st = i % kStages, t0 = k * kTC;
+    cp_async_wait_all();
+    __syncthreads();   // chunk k visible; the other stage's du, ddt and the
+                       // warps' sums are stored
+    const bool more = k > 0;
+    if (more) {
+      stage(t0 - kTC, st ^ 1);
+      load_bc(t0 - kTC);
+      load_h0(k - 1, h0n);
     }
-    __syncwarp();
-    // the chunk's states, as states_kernel computes them
-    for (int tt = 0; tt < tc; ++tt) {
-      const int64_t i = (row0 + t0 + tt) * d + c;
-      const float ut = live ? to_f32(u[i]) : 0.f;
-      const float dtt = live ? dt[i] : 0.f;
-      const float dtu = __fmul_rn(dtt, ut);
+    T* ur = us + st * kTC * kCH;
+    const T* yr = dys + st * kTC * kCH;
+    float* dr = &dts[st][0][0];
+
+    // the chunk's states, as the forward computes them: hs[0] its start,
+    // hs[tt + 1] the state after step tt
+    float hs[kTC + 1][kS];
 #pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        h[n] = fmaf(ex2_ftz(__fmul_rn(dtt, a2[n])), h[n],
-                    __fmul_rn(dtu, bs[tt][n]));
-        hs[tt][n][lane] = h[n];
-      }
+    for (int q = 0; q < kS; ++q) hs[0][q] = h0[q];
+#pragma unroll
+    for (int tt = 0; tt < kTC; ++tt) {
+      const float ut = to_f32(ur[tt * kCH + g]);
+      const float dtt = dr[tt * kCH + g];
+      const float dtu = __fmul_rn(dtt, ut);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[st][tt][j * kS]);
+      const float bq[kS] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int q = 0; q < kS; ++q)
+        hs[tt + 1][q] = fmaf(ex2_ftz(__fmul_rn(dtt, a2[q])), hs[tt][q],
+                             __fmul_rn(dtu, bq[q]));
     }
-    // reverse walk
-    for (int tt = tc - 1; tt >= 0; --tt) {
-      const int64_t i = (row0 + t0 + tt) * d + c;
-      const float ut = live ? to_f32(u[i]) : 0.f;
-      const float dtt = live ? dt[i] : 0.f;
-      const float dyt = live ? to_f32(dy[i]) : 0.f;
-      const float dtu = __fmul_rn(dtt, ut);
-      float vals[kParts];
-      float ddt_acc = 0.f, du_acc = 0.f;
+    // the reverse walk, kG steps at a time
 #pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        const float hprev = tt > 0 ? hs[tt - 1][n][lane] : h0[n];
-        const float e = ex2_ftz(__fmul_rn(dtt, a2[n]));
-        const float dh = fmaf(dyt, cs[tt][n], g[n]);
-        const float eh = __fmul_rn(e, hprev);
-        ddt_acc = fmaf(dh, fmaf(af[n], eh, __fmul_rn(ut, bs[tt][n])),
-                       ddt_acc);
-        dA[n] = fmaf(__fmul_rn(dh, dtt), eh, dA[n]);
-        du_acc = fmaf(dh, bs[tt][n], du_acc);
-        vals[n] = __fmul_rn(dh, dtu);
-        vals[kMaxN + n] = __fmul_rn(dyt, hs[tt][n][lane]);
-        g[n] = __fmul_rn(e, dh);
+    for (int grp = kTC / kG - 1; grp >= 0; --grp) {
+      float pdu[kG], pddt[kG];
+#pragma unroll
+      for (int s4 = kG - 1; s4 >= 0; --s4) {
+        const int tt = grp * kG + s4;
+        const float ut = to_f32(ur[tt * kCH + g]);
+        const float dtt = dr[tt * kCH + g];
+        const float dyt = to_f32(yr[tt * kCH + g]);
+        const float dtu = __fmul_rn(dtt, ut);
+        const float4 bv =
+            *reinterpret_cast<const float4*>(&bs[st][tt][j * kS]);
+        const float4 cv =
+            *reinterpret_cast<const float4*>(&cs[st][tt][j * kS]);
+        const float bq[kS] = {bv.x, bv.y, bv.z, bv.w};
+        const float cq[kS] = {cv.x, cv.y, cv.z, cv.w};
+        float vals[2 * kS];
+        float du_acc = 0.f, ddt_acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < kS; ++q) {
+          const float hprev = hs[tt][q];
+          const float e = ex2_ftz(__fmul_rn(dtt, a2[q]));
+          const float dh = fmaf(dyt, cq[q], gc[q]);
+          const float eh = __fmul_rn(e, hprev);
+          ddt_acc = fmaf(dh, fmaf(af[q], eh, __fmul_rn(ut, bq[q])), ddt_acc);
+          dA[q] = fmaf(__fmul_rn(dh, dtt), eh, dA[q]);
+          du_acc = fmaf(dh, bq[q], du_acc);
+          vals[q] = __fmul_rn(dh, dtu);
+          vals[kS + q] = __fmul_rn(dyt, hs[tt + 1][q]);
+          gc[q] = __fmul_rn(e, dh);
+        }
+        pdu[s4] = du_acc;
+        pddt[s4] = ddt_acc;
+        dD = fmaf(dyt, ut, dD);
+        // the warp's 8 channels: in the round of offset o a lane keeps the
+        // half of its m values whose index has the bit of o in its lane,
+        // sends the other half to lane ^ o and adds what it receives
+#pragma unroll
+        for (int o = kG, m = 2 * kS; o < 32; o <<= 1, m >>= 1) {
+          const bool hi = lane & o;
+#pragma unroll
+          for (int q = 0; q < m / 2; ++q) {
+            const float keep = hi ? vals[q + m / 2] : vals[q];
+            const float send = hi ? vals[q] : vals[q + m / 2];
+            vals[q] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
+          }
+        }
+        ps[warp][tt][slot] = vals[0];
       }
-      if (live) {
-        du[i] = from_f32<T>(fmaf(dtt, du_acc, __fmul_rn(dyt, dd)));
-        ddt[i] = ddt_acc;
-      }
-      dD = fmaf(dyt, ut, dD);
-      // recursive halving over the warp: in the round of offset o a lane
-      // keeps the half of its m values whose index has bit o of its lane,
-      // sends the other half to lane ^ o and adds what it receives; lane j
-      // ends with value j summed over all 32 lanes
+      // the channel's 4 lanes: recursive halving over lanes ^1, ^2, so that
+      // lane j ends with step grp kG + j's sums, (p_0 + p_1) + (p_2 + p_3)
 #pragma unroll
-      for (int o = kCH / 2, m = kParts; o >= 1; o >>= 1, m >>= 1) {
-        const bool hi = lane & o;
+      for (int o = 1, n = kG; o < kG; o <<= 1, n >>= 1) {
+        const bool hi = j & o;
 #pragma unroll
-        for (int q = 0; q < m / 2; ++q) {
-          const float keep = hi ? vals[q + m / 2] : vals[q];
-          const float send = hi ? vals[q] : vals[q + m / 2];
-          vals[q] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        for (int q = 0; q < n / 2; ++q) {
+          const float keep_u = hi ? pdu[2 * q + 1] : pdu[2 * q];
+          const float send_u = hi ? pdu[2 * q] : pdu[2 * q + 1];
+          const float keep_t = hi ? pddt[2 * q + 1] : pddt[2 * q];
+          const float send_t = hi ? pddt[2 * q] : pddt[2 * q + 1];
+          pdu[q] = __fadd_rn(keep_u, __shfl_xor_sync(0xffffffffu, send_u, o));
+          pddt[q] =
+              __fadd_rn(keep_t, __shfl_xor_sync(0xffffffffu, send_t, o));
         }
       }
-      part[(part0 + t0 + tt) * kParts + lane] = vals[0];
+      // du and ddt of step grp kG + j over its u and dt, which every lane
+      // of the channel has read
+      const int tt = grp * kG + j;
+      const float dtt = dr[tt * kCH + g];
+      const float dyt = to_f32(yr[tt * kCH + g]);
+      ur[tt * kCH + g] = from_f32<T>(fmaf(dtt, pdu[0], __fmul_rn(dyt, dd)));
+      dr[tt * kCH + g] = pddt[0];
+    }
+    if (more) store_bc(st ^ 1);
+    __syncthreads();   // the chunk's du, ddt and the warps' sums are stored
+    store_rows<T>(du, ur, row0, t0, c0, L, d, vec);
+    store_rows<float>(ddt, dr, row0, t0, c0, L, d, vec);
+    for (int idx = threadIdx.x; idx < kTC * kParts; idx += kThreads) {
+      const int tt = idx / kParts, jj = idx % kParts;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += ps[w][tt][jj];
+      if (t0 + tt < L) part[(part0 + t0 + tt) * kParts + jj] = sum;
+    }
+    if (more) {
+#pragma unroll
+      for (int q = 0; q < kS; ++q) h0[q] = h0n[q];
     }
   }
   if (live) {
 #pragma unroll
-    for (int n = 0; n < kMaxN; ++n)
-      if (n < N) dA_part[(static_cast<int64_t>(b) * d + c) * N + n] = dA[n];
-    dD_part[static_cast<int64_t>(b) * d + c] = dD;
+    for (int q = 0; q < kS; ++q) {
+      const int n = j * kS + q;
+      if (n < N) dA_part[(static_cast<int64_t>(b) * d + c) * N + n] = dA[q];
+    }
+    if (j == 0) dD_part[static_cast<int64_t>(b) * d + c] = dD;
   }
 }
 
@@ -299,28 +423,30 @@ reduce_kernel(const float* __restrict__ part,
   }
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <typename T>
 int launch(const void* u, const void* dt, const void* bm, const void* cm,
-           const void* A, const void* D, const void* dy, float* hck,
+           const void* A, const void* D, const void* dy, const float* hck,
            float* part, float* dA_part, float* dD_part, void* du, void* ddt,
            void* dB, void* dC, void* dA, void* dD, int batch, int L, int d,
            int N, void* stream) {
   if (N < 1 || N > kMaxN || batch > 65535) return cudaErrorInvalidValue;
   if (batch <= 0 || L <= 0 || d <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = aligned16(u) && aligned16(dt) && aligned16(dy) &&
+                   aligned16(du) && aligned16(ddt) &&
+                   d % (16 / sizeof(T)) == 0 && d % 4 == 0;
   const dim3 grid((d + kCH - 1) / kCH, batch);
-  states_kernel<T><<<grid, kCH, 0, s>>>(
-      static_cast<const T*>(u), static_cast<const float*>(dt),
-      static_cast<const T*>(bm), static_cast<const float*>(A), hck, L, d, N);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  scan_kernel<T><<<grid, kCH, 0, s>>>(
+  scan_kernel<T><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(u), static_cast<const float*>(dt),
       static_cast<const T*>(bm), static_cast<const T*>(cm),
       static_cast<const float*>(A), static_cast<const float*>(D),
       static_cast<const T*>(dy), hck, static_cast<T*>(du),
-      static_cast<float*>(ddt), part, dA_part, dD_part, L, d, N);
-  e = cudaGetLastError();
+      static_cast<float*>(ddt), part, dA_part, dD_part, L, d, N, vec);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t total = static_cast<int64_t>(batch) * L * kParts +
                         static_cast<int64_t>(d) * N + d;
@@ -337,16 +463,18 @@ int launch(const void* u, const void* dt, const void* bm, const void* cm,
 // u, dt, dy, du, ddt (batch, L, d); B_, C_, dB_, dC_ (batch, L, N); A, dA
 // (d, N); D, dD (d,): all contiguous on the current device; u, B_, C_, dy,
 // du, dB_, dC_ of the suffix's type, dt, A, D, ddt, dA, dD float32;
-// 1 <= N <= 16. Scratch, float32: hck (batch, ceil(L / 16), N, d), part
-// (batch, ceil(d / 32), L, 32), dA_part (batch, d, N), dD_part (batch, d).
-// Returns the CUDA error of the launches (0 on success).
+// 1 <= N <= 16. hck (batch, ceil(L / 16), d, 16) float32: the states at
+// chunk starts as the forward stores them. Scratch, float32: part (batch,
+// ceil(d / 64), L, 32), dA_part (batch, d, N), dD_part (batch, d). Returns
+// the CUDA error of the launches (0 on success).
 extern "C" int ssm_scan_bwd_f32(const void* u, const void* dt,
                                 const void* bm, const void* cm,
                                 const void* A, const void* D, const void* dy,
-                                float* hck, float* part, float* dA_part,
-                                float* dD_part, void* du, void* ddt, void* dB,
-                                void* dC, void* dA, void* dD, int batch,
-                                int L, int d, int N, void* stream) {
+                                const float* hck, float* part,
+                                float* dA_part, float* dD_part, void* du,
+                                void* ddt, void* dB, void* dC, void* dA,
+                                void* dD, int batch, int L, int d, int N,
+                                void* stream) {
   return launch<float>(u, dt, bm, cm, A, D, dy, hck, part, dA_part, dD_part,
                        du, ddt, dB, dC, dA, dD, batch, L, d, N, stream);
 }
@@ -354,10 +482,10 @@ extern "C" int ssm_scan_bwd_f32(const void* u, const void* dt,
 extern "C" int ssm_scan_bwd_bf16(const void* u, const void* dt,
                                  const void* bm, const void* cm,
                                  const void* A, const void* D, const void* dy,
-                                 float* hck, float* part, float* dA_part,
-                                 float* dD_part, void* du, void* ddt,
-                                 void* dB, void* dC, void* dA, void* dD,
-                                 int batch, int L, int d, int N,
+                                 const float* hck, float* part,
+                                 float* dA_part, float* dD_part, void* du,
+                                 void* ddt, void* dB, void* dC, void* dA,
+                                 void* dD, int batch, int L, int d, int N,
                                  void* stream) {
   return launch<__nv_bfloat16>(u, dt, bm, cm, A, D, dy, hck, part, dA_part,
                                dD_part, du, ddt, dB, dC, dA, dD, batch, L, d,

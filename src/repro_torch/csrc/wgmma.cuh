@@ -1,0 +1,227 @@
+// Shared pieces of the wgmma bodies of K5's forward (flash_attention.cu)
+// and backward (flash_attention_bwd.cu) on Hopper (sm_90a): mbarriers, TMA
+// loads of 128-byte swizzled boxes, the wgmma shared-memory descriptor, the
+// two m64n64k16 bf16 products both kernels are built from, and the tensor
+// maps of (batch, len, heads, hd) bf16 tensors.
+//
+//  * A TMA box is 64 bf16 (128 bytes) wide and `rows` rows long, 128-byte
+//    swizzled, in its own 1024-byte aligned region: 8 rows of 128 bytes form
+//    one swizzle atom. A row of hd = 128 comes as two boxes.
+//  * desc_sw128 says the same to wgmma: swizzle mode 1 (128 B) in bits
+//    62-63, stride byte offset 1024 between 8-row groups. A K-major operand
+//    (rows of the box are the M or N index, the 64 columns the K index)
+//    takes a k16 step by advancing the start address 32 bytes inside the
+//    swizzled row; an MN-major one (rows are the K index, read through
+//    wgmma's transpose bit) by 2048 bytes, two 8-row groups.
+//  * mma_ss: D (64 x 64) (+)= A B^T, both K-major from shared memory.
+//    mma_rs: D += A B with A (64 x 16) from registers and B (16 x 64)
+//    MN-major from shared memory. The PTX ISA's m64nNk16 accumulator and A
+//    layouts agree (rows lane / 4 and + 8 of the warp's 16, columns
+//    2 (lane % 4) + {0, 1} and + 8), so an accumulator packed pairwise to
+//    bf16 (pack_bf16) is the A fragment of the next product.
+//  * Ordering: wgmma.fence before a group whose accumulators or A
+//    fragments ordinary code wrote, commit_group, wait_group 0 before
+//    ordinary code reads an accumulator; fence_regs keeps the compiler from
+//    moving accesses to the accumulators across the asynchronous product.
+//    Only TMA and wgmma touch the staged tiles, both in the async proxy, so
+//    no proxy fence is needed after the barrier init's.
+//  * Tensor maps are encoded on the host for every call (the pointers
+//    change) by cuTensorMapEncodeTiled, reached through
+//    cudaGetDriverEntryPoint so that no library links -lcuda, and passed by
+//    value as __grid_constant__ kernel parameters.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace wg {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// mbarrier init visible to the async proxy; one thread, then a block
+// barrier
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing on ``bar``
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ``bytes`` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory, completing on ``bar``
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a 128-byte swizzled operand: start
+// address >> 4 (bits 0-13), leading byte offset >> 4 (16-29; unused by the
+// shapes here), stride byte offset 1024 >> 4 between 8-row groups (32-45),
+// swizzle mode 1 = 128 B (62-63); base offset 0, every tile being 1024-byte
+// aligned
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, bf16, K-major, shared) B^T (B: 64 x 16,
+// K-major, shared)
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16, registers) B (16 x 64, bf16,
+// MN-major in shared memory: the transpose bit set)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (batch, len, heads, HD) bf16 tensor with element strides (sb, st, sh)
+// and unit stride along HD as a 4-D map (HD, heads, len, batch) read in
+// boxes of 64 x 1 x rows x 1, 128-byte swizzled; rows past len read as
+// zeros. The stride of an extent-1 dimension is never used; it is replaced
+// by the dense one so that a broadcast (stride 0) view encodes.
+//
+// cuTensorMapEncodeTiled, a libcuda call below the runtime, needs the
+// device's context current on the calling thread, which a thread's first
+// runtime call that needs one makes so. Autograd runs a backward on a
+// thread of its own, where this may be the first CUDA call: cudaSetDevice
+// of the current device (which makes its primary context current, CUDA 12)
+// comes first.
+inline bool encode(CUtensorMap* map, const void* ptr, int HD, int heads,
+                   int len, int batch, int64_t sb, int64_t st, int64_t sh,
+                   int rows) {
+  const EncodeTiled fn = encoder();
+  int device = 0;
+  if (fn == nullptr || cudaGetDevice(&device) != cudaSuccess ||
+      cudaSetDevice(device) != cudaSuccess)
+    return false;
+  const int64_t h = heads > 1 ? sh : HD;
+  const int64_t t = len > 1 ? st : h * heads;
+  const int64_t bb = batch > 1 ? sb : t * len;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(h) * 2,
+                                 static_cast<cuuint64_t>(t) * 2,
+                                 static_cast<cuuint64_t>(bb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace wg

@@ -10,7 +10,9 @@ those of K2 and K4 that took their tensor-core (``mma.sync``) body (bf16 x);
 body (every population whose table fits in 227 KB at one sample a block).
 ``LAUNCHES["flash_attention_bwd"]`` and ``LAUNCHES["ssm_scan_bwd"]`` count
 the backward kernels of K5 and K6, one a wrapper call (each call runs its
-file's kernels in order on one stream).
+file's kernels in order on one stream);
+``LAUNCHES["flash_attention_bwd_wgmma"]`` counts, in addition, those of
+K5's backward that took its wgmma body (bf16 at head_dim 64 or 128).
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
                              "block_sparse_matmul": 0,
                              "quant_matmul_mma": 0,
                              "block_sparse_matmul_mma": 0,
-                             "flash_attention_bwd": 0, "ssm_scan_bwd": 0}
+                             "flash_attention_bwd": 0,
+                             "flash_attention_bwd_wgmma": 0,
+                             "ssm_scan_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -4,7 +4,7 @@ gives the gradient on CUDA."""
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
     FlashAttentionFn, flash_attention, flash_attention_bound,
     flash_attention_bwd, flash_attention_plain, flash_attention_with_lse,
-    takes_wgmma)
+    takes_wgmma, takes_wgmma_bwd)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     flash_attention_bwd_plain, flash_attention_bwd_tolerance,
     flash_attention_lse_plain, flash_attention_lse_tolerance,
@@ -15,4 +15,4 @@ __all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bound",
            "flash_attention_bwd_tolerance", "flash_attention_lse_plain",
            "flash_attention_lse_tolerance", "flash_attention_plain",
            "flash_attention_ref", "flash_attention_tolerance",
-           "flash_attention_with_lse", "takes_wgmma"]
+           "flash_attention_with_lse", "takes_wgmma", "takes_wgmma_bwd"]

@@ -21,7 +21,9 @@ On CUDA, when grad mode is on and an input requires grad,
 `flash_attention` goes through `FlashAttentionFn`: its forward launches K5
 with the log-sum-exp output (B, H, T), and its backward is the hand-written
 kernel ``csrc/flash_attention_bwd.cu`` (`flash_attention_bwd`, counted in
-``LAUNCHES["flash_attention_bwd"]``), so the output always carries a
+``LAUNCHES["flash_attention_bwd"]``; bf16 at head_dim 64 and 128 that TMA
+can read, `takes_wgmma_bwd`, takes its wgmma body, counted also in
+``LAUNCHES["flash_attention_bwd_wgmma"]``), so the output always carries a
 ``grad_fn`` there. Otherwise K5 launches without lse, as the serve and
 prefill paths do. On the CPU the plain version's own autograd gives the
 gradient.
@@ -44,6 +46,8 @@ from repro_torch.kernels.flash_attention.ref import (
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
+WGMMA_BWD_HEAD_DIMS = (64, 128)
+BWD_ROWS = 64           # rows of a tile of the backward's wgmma body
 _FNS: Dict[str, object] = {}
 
 
@@ -87,10 +91,24 @@ def takes_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     multiple of 16 bytes (the stride of an extent-1 dimension is never
     used) and a 16-byte aligned start."""
     return (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS
-            and all(a.data_ptr() % 16 == 0
-                    and all(s % 8 == 0 for s, n in zip(a.stride()[:3],
-                                                       a.shape[:3]) if n > 1)
-                    for a in (q, k, v)))
+            and _tma_readable(q, k, v))
+
+
+def takes_wgmma_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, do: torch.Tensor) -> bool:
+    """Whether the backward's wgmma body serves these tensors: bf16,
+    head_dim 64 or 128 (192 and 256 would need more accumulator registers
+    than a warpgroup has), and `takes_wgmma`'s TMA terms for each of q, k,
+    v, o and do."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_BWD_HEAD_DIMS
+            and _tma_readable(q, k, v, o, do))
+
+
+def _tma_readable(*tensors: torch.Tensor) -> bool:
+    return all(a.data_ptr() % 16 == 0
+               and all(s % 8 == 0 for s, n in zip(a.stride()[:3],
+                                                  a.shape[:3]) if n > 1)
+               for a in tensors)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -210,7 +228,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     from the forward's o and lse (B, H, T), in the inputs' dtype: dq
     (B, T, H, hd), dk and dv (B, S, KV, hd), contiguous. CUDA tensors launch
     the backward kernel (counted in ``LAUNCHES["flash_attention_bwd"]``) or
-    raise, reading q, k, v, o and do by strides; CPU tensors run the plain
+    raise, reading q, k, v, o and do by strides; those `takes_wgmma_bwd`
+    accepts go through its wgmma body, counted also in
+    ``LAUNCHES["flash_attention_bwd_wgmma"]``. CPU tensors run the plain
     version `flash_attention_bwd_plain`."""
     _check(q, k, v)
     B, T, H, hd = q.shape
@@ -237,10 +257,15 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     dq = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, KV, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    wgmma = takes_wgmma_bwd(q, k, v, o, do)
+    # the wgmma body's scratch: D and lse log2 e, padded to whole tiles
+    delta = torch.empty((2, B, H, -(-T // BWD_ROWS) * BWD_ROWS) if wgmma
+                        else (B, H, T), dtype=torch.float32,
+                        device=q.device)
     strides = (ctypes.c_int64 * 15)(*(s for a in (q, k, v, o, do)
                                       for s in a.stride()[:3]))
-    fn = _kernel("bwd_" + _SUFFIX[q.dtype])
+    name = "bwd_bf16_wgmma" if wgmma else "bwd_" + _SUFFIX[q.dtype]
+    fn = _kernel(name)
 
     def launch():
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -252,6 +277,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
             raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                                f"CUDA error {rc}")
         LAUNCHES["flash_attention_bwd"] += 1
+        if wgmma:
+            LAUNCHES["flash_attention_bwd_wgmma"] += 1
 
     if not TR.active():
         launch()
@@ -260,7 +287,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                              causal=causal, window=window)
     with PF.dispatch("kernels.flash_attention_bwd",
                      ("flash_attention_bwd", (B, T, S, H, KV, hd),
-                      str(q.dtype), bool(causal), int(window)),
+                      str(q.dtype), bool(causal), int(window), name),
                      device=q.device, args=(q, k, v, o, do, lse),
                      flops=flops, bytes_accessed=nbytes,
                      library="flash_attention_bwd", b=B, t=T, s=S,
@@ -345,4 +372,5 @@ def flash_attention_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 __all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bound",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_lse_plain", "flash_attention_plain",
-           "flash_attention_ref", "flash_attention_with_lse", "takes_wgmma"]
+           "flash_attention_ref", "flash_attention_with_lse", "takes_wgmma",
+           "takes_wgmma_bwd"]

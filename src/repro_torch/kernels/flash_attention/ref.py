@@ -155,9 +155,10 @@ def flash_attention_bwd_tolerance(q, k, v, o, do, lse, refs, *,
     (dq, dk, dv).
 
     Both sides take the same q, k, v, o, do and lse and compute in float32;
-    the plain version (like the kernel) recomputes P in float32 from lse,
-    so no bf16 rounding of P enters. Per side, with eps one float32 ulp and
-    a = hd^-1/2, for a visible pair (t, s):
+    the plain version (like the kernel's CUDA-core body) recomputes P in
+    float32 from lse, so no bf16 rounding of P enters (the wgmma body's
+    roundings are the bf16 terms at the end). Per side, with eps one
+    float32 ulp and a = hd^-1/2, for a visible pair (t, s):
 
     * raw = a q_t . k_s: hd products summed in some order, within
       (hd + 1) eps M_ts, M = a |q| |k|^T. The softcap's x = cap tanh(raw /
@@ -180,13 +181,38 @@ def flash_attention_bwd_tolerance(q, k, v, o, do, lse, refs, *,
       dq: a sum_s err_dS |k| + (S + 2) eps a sum_s |dS| |k|
     The bound is twice that (two sides), 1% more for the float32 rounding
     of the bound's own sums, and for a bf16 output one rounding of each
-    side, 1.01 * 2^-7 |ref|. It materializes a handful of (B, H, T, S)
-    float32 matrices."""
+    side, 1.01 * 2^-7 |ref|.
+
+    Inputs that take the backward's wgmma body (`takes_wgmma_bwd`: bf16 at
+    head_dim 64 or 128 whose strides TMA can read) take further terms for
+    its roundings (one side only: the plain version, like the CUDA-core
+    body, keeps P and dS in float32), with 1% slack each for the
+    second-order products of these roundings with the errors above:
+
+    * P in the log2 domain: the kernel takes P = exp2f(y) with y =
+      fma(s, c, -L), s = q_t . k_s, c = d^-1/2 log2 e and L = lse log2 e
+      each rounded once to float32 from log2 e rounded once (the softcap's
+      y = fma(x, log2 e, -L)). Against (x - lse) log2 e, y is off by at
+      most log2 e (eps |x| + eps |lse| + eps/2 |x - lse|), and exp2 turns
+      an error of y into ln 2 times as much relative error of P: rel_P
+      gains eps (|x| + |lse|) (the eps/2 |x - lse| lies inside the eps
+      |x - lse| above). exp2f's 2 ulp are the 2 eps above. This term
+      enters the two-sided sums like the others.
+    * P rounded to bf16 before dv += P^T do: round to nearest moves each
+      P by at most 2^-8 P, so dv_s moves by at most 2^-8 sum_t P |do|.
+    * dS rounded to bf16 before dk += dS^T q and dq += dS k: dk_s moves by
+      at most 2^-8 a sum_t |dS| |q|, dq_t by 2^-8 a sum_s |dS| |k|.
+
+    Every other input keeps the bound above. It materializes a handful
+    of (B, H, T, S) float32 matrices."""
+    # imported here: ops imports this module
+    from repro_torch.kernels.flash_attention.ops import takes_wgmma_bwd
     eps = torch.finfo(torch.float32).eps
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     a = hd ** -0.5
+    wgmma = takes_wgmma_bwd(q, k, v, o, do)
     raw, x, th, ok = _scores(q, k, causal, window, softcap)
     del raw
     qa, ka = _heads(q, 1).abs(), _heads(k, G).abs()
@@ -199,6 +225,8 @@ def flash_attention_bwd_tolerance(q, k, v, o, do, lse, refs, *,
     lse_fin = torch.where(torch.isinf(lsef), torch.zeros_like(lsef), lsef)
     p = torch.where(ok, torch.exp(x - lsef), zero)
     rel_p = err_x + eps * (x - lse_fin).abs() + 2 * eps
+    if wgmma:
+        rel_p = rel_p + eps * (x.abs() + lse_fin.abs())
     dof = _heads(do, 1)
     dmd = (torch.einsum("bhtd,bhsd->bhts", dof, _heads(v, G))
            - (dof * _heads(o, 1)).sum(-1)[..., None]).abs()
@@ -216,22 +244,27 @@ def flash_attention_bwd_tolerance(q, k, v, o, do, lse, refs, *,
     def per_kv(a_):
         return a_.reshape(B, KV, G, S, hd).sum(2).permute(0, 2, 1, 3)
 
+    p_do = torch.einsum("bhts,bhtd->bhsd", p, doa)
+    ds_q = torch.einsum("bhts,bhtd->bhsd", ads, qa)
+    ds_k = torch.einsum("bhts,bhsd->bhtd", ads, ka).permute(0, 2, 1, 3)
     t_dv = per_kv(torch.einsum("bhts,bhtd->bhsd", rel_p * p, doa)
-                  + (n + 1) * eps * torch.einsum("bhts,bhtd->bhsd", p, doa))
+                  + (n + 1) * eps * p_do)
     t_dk = per_kv(a * torch.einsum("bhts,bhtd->bhsd", err_ds, qa)
-                  + (n + 2) * eps * a
-                  * torch.einsum("bhts,bhtd->bhsd", ads, qa))
+                  + (n + 2) * eps * a * ds_q)
     t_dq = (a * torch.einsum("bhts,bhsd->bhtd", err_ds, ka)
-            + (S + 2) * eps * a
-            * torch.einsum("bhts,bhsd->bhtd", ads, ka)).permute(0, 2, 1, 3)
+            ).permute(0, 2, 1, 3) + (S + 2) * eps * a * ds_k
+    # the bf16 roundings of P and dS (wgmma body), one side
+    u = 2.0 ** -8 if wgmma else 0.0
+    extra = (u * a * ds_k, u * a * per_kv(ds_q), u * per_kv(p_do))
 
-    def done(t, ref):
-        t = 2.02 * t
+    def done(t, x, ref):
+        t = 2.02 * t + 1.01 * x
         if ref.dtype == torch.bfloat16:
             t = t + 1.01 * 2.0 ** -7 * ref.float().abs()
         return t
 
-    return tuple(done(t, r) for t, r in zip((t_dq, t_dk, t_dv), refs))
+    return tuple(done(t, x, r)
+                 for t, x, r in zip((t_dq, t_dk, t_dv), extra, refs))
 
 
 def flash_attention_lse_tolerance(q, k, lse, *, softcap: float = 0.0

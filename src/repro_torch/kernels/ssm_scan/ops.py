@@ -11,10 +11,12 @@ does it run the plain version `ssm_scan_ref`, whose own autograd gives the
 gradient there.
 
 On CUDA, when grad mode is on and an input requires grad, `ssm_scan` goes
-through `SsmScanFn`, whose backward is the hand-written kernel
-``csrc/ssm_scan_bwd.cu`` (`ssm_scan_bwd`, counted in
-``LAUNCHES["ssm_scan_bwd"]``), so y always carries a ``grad_fn`` there.
-Otherwise it launches K6 as the serve and prefill paths do.
+through `SsmScanFn`, whose forward has K6 also store the states at the
+start of every 16 steps (`ssm_scan_with_states`) and whose backward is the
+hand-written kernel ``csrc/ssm_scan_bwd.cu`` (`ssm_scan_bwd`, counted in
+``LAUNCHES["ssm_scan_bwd"]``) reading them, so y always carries a
+``grad_fn`` there. Otherwise it launches K6 without the states, as the
+serve and prefill paths do.
 """
 from __future__ import annotations
 
@@ -27,12 +29,13 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.obs import prof as PF
 from repro_torch.obs import trace as TR
 from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_plain,
-                                               ssm_scan_ref)
+                                               ssm_scan_ref,
+                                               ssm_scan_states_plain)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_STATE = 16          # the state values a channel holds in registers
-BWD_CHUNK = 16          # steps between the backward's saved states
-BWD_CHANNELS = 32       # channels a block of the backward
+BWD_CHUNK = 16          # steps between the states the forward saves
+BWD_CHANNELS = 64       # channels a block of the backward
 _FNS: Dict[str, object] = {}
 
 
@@ -41,7 +44,7 @@ def _kernel(dtype: torch.dtype, lib: str = "ssm_scan"):
     if name not in _FNS:
         from repro_torch.kernels import build
         fn = getattr(build.load(lib), name)
-        n_ptr = 7 if lib == "ssm_scan" else 17
+        n_ptr = 8 if lib == "ssm_scan" else 17
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -94,7 +97,8 @@ def bwd_cost(B: int, T: int, d: int, N: int, x_bytes: int
     channel) (du, ddt, dD: 4); u, dt, B_, C_, dy, A, D read once, du, ddt,
     dB_, dC_, dA, dD written once; the B T d N exps of exp(dt A) the
     gradient needs. The counts behind the backward's bound (the kernel
-    itself takes 3 B T d N exps, as it rebuilds the states twice)."""
+    itself takes 2 B T d N exps, as it rebuilds each chunk's states, and
+    reads the forward's chunk-start states beside these bytes)."""
     nbytes = (3 * B * T * d * x_bytes + 2 * B * T * d * 4
               + 4 * B * T * N * x_bytes + 2 * (d * N * 4 + d * 4))
     return B * T * d * (14 * N + 4), nbytes, B * T * d * N
@@ -115,15 +119,16 @@ def _launch_checks(u, dt, B_, C_, A, D) -> None:
         raise ValueError(f"u lies on {u.device}, not the current device")
 
 
-def ssm_scan_bwd(u, dt, B_, C_, A, D, dy):
+def ssm_scan_bwd(u, dt, B_, C_, A, D, dy, states):
     """(du, ddt, dB_, dC_, dA, dD) of `ssm_scan`'s y for the gradient dy,
-    in the dtypes of (u, dt, B_, C_, A, D). CUDA tensors launch the
-    backward kernel (counted in ``LAUNCHES["ssm_scan_bwd"]``) or raise; CPU
-    tensors run the plain version `ssm_scan_bwd_plain`. The wrapper makes
-    dy contiguous (a copy only when it is not) and allocates the kernel's
-    float32 scratch: the states at chunk starts (B, T/16, N, d), the
-    per-block sums of dB_ and dC_ (B, d/32, T, 32), dA and dD per batch
-    row."""
+    in the dtypes of (u, dt, B_, C_, A, D). ``states`` are the chunk-start
+    states K6's forward stores (`ssm_scan_with_states`). CUDA tensors
+    launch the backward kernel, which reads them (counted in
+    ``LAUNCHES["ssm_scan_bwd"]``), or raise; CPU tensors run the plain
+    version `ssm_scan_bwd_plain`, which rebuilds the states itself. The
+    wrapper makes dy contiguous (a copy only when it is not) and allocates
+    the kernel's float32 scratch: the per-block sums of dB_ and dC_ (B,
+    d/64, T, 32), dA and dD per batch row."""
     _check(u, dt, B_, C_, A, D)
     if dy.shape != u.shape or dy.dtype != u.dtype or dy.device != u.device:
         raise ValueError(f"dy must match u: got {tuple(dy.shape)} "
@@ -133,13 +138,17 @@ def ssm_scan_bwd(u, dt, B_, C_, A, D, dy):
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on CUDA or CPU, not {u.device}")
     _launch_checks(u, dt, B_, C_, A, D)
-    dy = dy.contiguous()
     Bsz, T, d = u.shape
     N = A.shape[1]
+    if tuple(states.shape) != _states_shape(Bsz, T, d) or \
+            states.dtype != torch.float32 or states.device != u.device or \
+            not states.is_contiguous():
+        raise ValueError(f"states must be {_states_shape(Bsz, T, d)} "
+                         f"float32 contiguous on {u.device}, got "
+                         f"{tuple(states.shape)} {states.dtype}")
+    dy = dy.contiguous()
     f32 = dict(dtype=torch.float32, device=u.device)
-    chunks = -(-T // BWD_CHUNK)
     blocks = -(-d // BWD_CHANNELS)
-    hck = torch.empty((Bsz, chunks, N, d), **f32)
     part = torch.empty((Bsz, blocks, T, 2 * MAX_STATE), **f32)
     dA_part = torch.empty((Bsz, d, N), **f32)
     dD_part = torch.empty((Bsz, d), **f32)
@@ -150,7 +159,7 @@ def ssm_scan_bwd(u, dt, B_, C_, A, D, dy):
 
     def launch():
         rc = fn(u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-                A.data_ptr(), D.data_ptr(), dy.data_ptr(), hck.data_ptr(),
+                A.data_ptr(), D.data_ptr(), dy.data_ptr(), states.data_ptr(),
                 part.data_ptr(), dA_part.data_ptr(), dD_part.data_ptr(),
                 du.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
                 dA.data_ptr(), dD.data_ptr(), Bsz, T, d, N,
@@ -175,17 +184,26 @@ def ssm_scan_bwd(u, dt, B_, C_, A, D, dy):
     return out
 
 
+def _states_shape(Bsz: int, T: int, d: int) -> Tuple[int, int, int, int]:
+    """The chunk-start states K6's forward stores: (B, ceil(T / 16), d, 16)
+    float32, slots past N zero."""
+    return (Bsz, -(-T // BWD_CHUNK), d, MAX_STATE)
+
+
 class SsmScanFn(torch.autograd.Function):
-    """K6 forward, K6's backward kernel as its gradient (CUDA only)."""
+    """K6's forward storing its chunk-start states, K6's backward kernel
+    reading them as its gradient (CUDA only)."""
 
     @staticmethod
     def forward(ctx, u, dt, B_, C_, A, D):
-        ctx.save_for_backward(u, dt, B_, C_, A, D)
-        return _launch_forward(u, dt, B_, C_, A, D)
+        y, states = _launch_forward(u, dt, B_, C_, A, D, True)
+        ctx.save_for_backward(u, dt, B_, C_, A, D, states)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        return ssm_scan_bwd(*ctx.saved_tensors, dy)
+        *ins, states = ctx.saved_tensors
+        return ssm_scan_bwd(*ins, dy, states)
 
 
 def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
@@ -205,15 +223,35 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     return _launch_forward(u, dt, B_, C_, A, D)
 
 
-def _launch_forward(u, dt, B_, C_, A, D) -> torch.Tensor:
+def ssm_scan_with_states(u, dt, B_, C_, A, D):
+    """(y, states) with no autograd: y as `ssm_scan` gives it and the
+    states at the start of every 16 steps, (B, ceil(T / 16), d, 16)
+    float32 (state slots past N zero), what `ssm_scan_bwd` reads. CUDA
+    tensors launch K6 once; CPU tensors run the plain versions."""
+    _check(u, dt, B_, C_, A, D)
+    if u.device.type == "cpu":
+        return (ssm_scan_ref(u, dt, B_, C_, A, D),
+                ssm_scan_states_plain(u, dt, B_, C_, A, D, BWD_CHUNK,
+                                      MAX_STATE))
+    if u.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on CUDA or CPU, not {u.device}")
+    _launch_checks(u, dt, B_, C_, A, D)
+    return _launch_forward(u, dt, B_, C_, A, D, True)
+
+
+def _launch_forward(u, dt, B_, C_, A, D, with_states: bool = False):
+    """K6 on CUDA tensors: y, and with ``with_states`` (y, states)."""
     Bsz, T, d = u.shape
     N = A.shape[1]
     y = torch.empty_like(u)
+    states = torch.empty(_states_shape(Bsz, T, d), dtype=torch.float32,
+                         device=u.device) if with_states else None
     fn = _kernel(u.dtype)
 
     def launch():
         rc = fn(u.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-                A.data_ptr(), D.data_ptr(), y.data_ptr(), Bsz, T, d, N,
+                A.data_ptr(), D.data_ptr(), y.data_ptr(),
+                None if states is None else states.data_ptr(), Bsz, T, d, N,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error "
@@ -222,17 +260,18 @@ def _launch_forward(u, dt, B_, C_, A, D) -> torch.Tensor:
 
     if not TR.active():
         launch()
-        return y
-    ops, nbytes = cost(Bsz, T, d, N, u.element_size())
-    with PF.dispatch("kernels.ssm_scan",
-                     ("ssm_scan", (Bsz, T, d), N, str(u.dtype)),
-                     device=u.device, args=(u, dt, B_, C_, A, D), flops=ops,
-                     bytes_accessed=nbytes, library="ssm_scan",
-                     b=Bsz, t=T, d=d, n=N) as call:
-        launch()
-        call.outputs = y
-    return y
+    else:
+        ops, nbytes = cost(Bsz, T, d, N, u.element_size())
+        with PF.dispatch("kernels.ssm_scan",
+                         ("ssm_scan", (Bsz, T, d), N, str(u.dtype),
+                          with_states),
+                         device=u.device, args=(u, dt, B_, C_, A, D),
+                         flops=ops, bytes_accessed=nbytes,
+                         library="ssm_scan", b=Bsz, t=T, d=d, n=N) as call:
+            launch()
+            call.outputs = y
+    return (y, states) if with_states else y
 
 
 __all__ = ["SsmScanFn", "ssm_scan", "ssm_scan_bwd", "ssm_scan_bwd_plain",
-           "ssm_scan_ref"]
+           "ssm_scan_ref", "ssm_scan_states_plain", "ssm_scan_with_states"]

@@ -46,6 +46,28 @@ def ssm_scan_ref(u, dt, B_, C_, A, D) -> torch.Tensor:
     return y.to(u.dtype)
 
 
+def ssm_scan_states_plain(u, dt, B_, C_, A, D, chunk: int = 16,
+                          slots: Optional[int] = None) -> torch.Tensor:
+    """The states of `selective_scan` at the start of every ``chunk`` steps,
+    h_{chunk k - 1} for k = 0 .. ceil(T / chunk) - 1 (zeros for k = 0):
+    (B, ceil(T / chunk), d, slots) float32 (float64 for float64 inputs),
+    state slots past N zero. What kernel K6 stores for its backward when
+    autograd runs it (``slots`` = 16)."""
+    Bsz, T, d = u.shape
+    N = A.shape[1]
+    uf, dtf, bf = (_work(a) for a in (u, dt, B_))
+    Af = _work(A)
+    h = torch.zeros((Bsz, d, N), dtype=uf.dtype, device=u.device)
+    out = torch.zeros((Bsz, -(-T // chunk), d, slots or N), dtype=uf.dtype,
+                      device=u.device)
+    for t in range(T):
+        if t % chunk == 0:
+            out[:, t // chunk, :, :N] = h
+        h = torch.exp(dtf[:, t, :, None] * Af) * h \
+            + (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
+    return out
+
+
 def ssm_scan_tolerance(u, dt, B_, C_, A, D, ref: torch.Tensor
                        ) -> torch.Tensor:
     """Elementwise bound on |kernel - plain version| for the same inputs.

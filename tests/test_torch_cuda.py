@@ -275,6 +275,20 @@ def card():
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [True, False])
+def test_search_leaves_the_callers_tf32_flag(card, flag):
+    """The QAT finetunes of a search run with TF32 off and put the caller's
+    ``allow_tf32`` back: a small search on the card ends with the flag as
+    the caller set it (the card fixture restores it after the test)."""
+    from repro_torch import paper
+    torch.backends.cuda.matmul.allow_tf32 = flag
+    out = paper.run("seeds", population=4, generations=2, epochs=8,
+                    device=card)
+    assert torch.backends.cuda.matmul.allow_tf32 is flag
+    assert out["pareto_front"]
+
 # (M, K, N): qwen3-0.6b's 7 weight shapes at the decode batch of 8 (q, k/v,
 # o, gate/up, down), a ragged shape, N not a multiple of 4 (byte loads),
 # more rows than one block; falcon-mamba-7b's in_proj, x_proj, dt_proj
@@ -1043,6 +1057,7 @@ def _traced_cases(device):
     fa_o, fa_lse = FA.flash_attention_with_lse(*fa)
     fa_do, ss_dy = normal(2, 128, 4, 64, dtype=bf), normal(2, 64, 256,
                                                           dtype=bf)
+    _, ss_states = SS.ssm_scan_with_states(*ss)
     rng = np.random.default_rng(5)
     smem_pop = NS.pack_population(CASES["mixed"][0]())
     smem_x = torch.as_tensor(rng.integers(0, 16, (smem_pop.n_candidates,
@@ -1059,7 +1074,8 @@ def _traced_cases(device):
         "kernels.ssm_scan": lambda: SS.ssm_scan(*ss),
         "kernels.flash_attention_bwd": lambda: FA.flash_attention_bwd(
             *fa, fa_o, fa_do, fa_lse)[0],
-        "kernels.ssm_scan_bwd": lambda: SS.ssm_scan_bwd(*ss, ss_dy)[0],
+        "kernels.ssm_scan_bwd": lambda: SS.ssm_scan_bwd(*ss, ss_dy,
+                                                        ss_states)[0],
         "kernels.netlist_sim.smem": lambda: NS.netlist_sim(smem_pop,
                                                            smem_x)[0],
         "kernels.netlist_sim.global": lambda: NS.netlist_sim(glob_pop,
@@ -1175,22 +1191,100 @@ def test_flash_attention_bwd_kernel_matches_plain(card, case):
     lse_ref = FA.flash_attention_lse_plain(q, k, v, **kw)
     assert bool(((lse - lse_ref).abs() <= FA.flash_attention_lse_tolerance(
         q, k, lse_ref, softcap=cap)).all())
+    _check_flash_bwd(q, k, v, do, kw, FA.takes_wgmma_bwd(q, k, v, o, do))
+
+
+def _check_flash_bwd(q, k, v, do, kw, wgmma):
+    """K5's backward on these inputs: the body the counters name, the
+    gradients within `flash_attention_bwd_tolerance` of the plain
+    version's, a rerun equal to the bit, autograd's gradients equal to the
+    kernel's."""
+    o, lse = FA.flash_attention_with_lse(q, k, v, **kw)
     reset_launches()
     got = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_attention_bwd"] == 1
+    assert (LAUNCHES["flash_attention_bwd"],
+            LAUNCHES["flash_attention_bwd_wgmma"]) == (1, int(wgmma))
     ref = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
     for a, b, tol in zip(got, ref, FA.flash_attention_bwd_tolerance(
             q, k, v, o, do, lse, ref, **kw)):
-        assert a.dtype == dt and a.shape == b.shape
+        assert a.dtype == q.dtype and a.shape == b.shape
         assert bool(((a.float() - b.float()).abs() <= tol).all())
     again = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    # leaves with the views' strides, so that autograd takes the same body
+    qq, kk, vv = (torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                      device=x.device).copy_(x)
+                  .requires_grad_(True) for x in (q, k, v))
     out = FA.flash_attention(qq, kk, vv, **kw)
     assert out.grad_fn is not None
     out.backward(do)
     assert all(torch.equal(x.grad, y) for x, y in zip((qq, kk, vv), got))
+
+
+# name: (B, T, H, KV, hd, window, softcap, views), bf16 and causal, all
+# through the backward's wgmma body: head_dim 64 and 128, GQA groups of 1,
+# 2 and 4, T not a multiple of the 64-row tiles, a window, a softcap, and
+# q, k, v as strided views TMA still reads (q a head slice of a wider
+# tensor, k and v halves of one fused tensor)
+WGMMA_BWD_CASES = {
+    "hd64_g2_t100": (2, 100, 4, 2, 64, 0, 0.0, False),
+    "hd64_g4_window_softcap": (1, 333, 8, 2, 64, 50, 30.0, False),
+    "hd64_g1_views": (2, 130, 4, 4, 64, 0, 0.0, True),
+    "hd128_g2_t1000": (1, 1000, 16, 8, 128, 0, 0.0, False),
+    "hd128_g4_t77": (3, 77, 8, 2, 128, 0, 0.0, False),
+    "hd128_g2_window": (1, 700, 8, 4, 128, 256, 0.0, False),
+    "hd128_g4_softcap_views": (2, 300, 8, 2, 128, 0, 50.0, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_BWD_CASES))
+def test_flash_attention_bwd_wgmma_body_matches_plain(card, case):
+    B, Tq, H, KV, hd, window, cap, views = WGMMA_BWD_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + H + hd)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=card).to(
+            torch.bfloat16)
+
+    if views:
+        q = randn(B, Tq, H + 2, hd)[:, :, 1:H + 1]
+        kv = randn(B, Tq, 2 * KV, hd)
+        k, v = kv[:, :, :KV], kv[:, :, KV:]
+    else:
+        q, k, v = randn(B, Tq, H, hd), randn(B, Tq, KV, hd), \
+            randn(B, Tq, KV, hd)
+    do = randn(B, Tq, H, hd)
+    kw = dict(causal=True, window=window, softcap=cap)
+    assert FA.takes_wgmma_bwd(q, k, v, q, do)
+    _check_flash_bwd(q, k, v, do, kw, True)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_bodies_by_type_head_dim_and_alignment(card):
+    """The backward takes its wgmma body for bf16 at head_dim 64 and 128
+    with TMA-readable strides, and its CUDA-core body for float32, head_dim
+    32, 192 and 256, and a view whose token stride is not a multiple of 16
+    bytes; every one within the bound."""
+    g = torch.Generator(device=card).manual_seed(9)
+
+    def qkv(hd, dt, pad=0):
+        full = torch.randn((1, 90, 6, hd + pad), generator=g,
+                           device=card).to(dt)
+        return (full[:, :, :2, :hd], full[:, :, 2:4, :hd],
+                full[:, :, 4:, :hd], full[:, :, :2, :hd].contiguous())
+
+    for hd, dt, pad, wgmma in ((64, torch.bfloat16, 0, True),
+                               (128, torch.bfloat16, 0, True),
+                               (128, torch.float32, 0, False),
+                               (32, torch.bfloat16, 0, False),
+                               (192, torch.bfloat16, 0, False),
+                               (256, torch.bfloat16, 0, False),
+                               (64, torch.bfloat16, 4, False)):
+        q, k, v, do = qkv(hd, dt, pad)
+        assert FA.takes_wgmma_bwd(q, k, v, q, do) == wgmma
+        _check_flash_bwd(q, k, v, do, dict(causal=True), wgmma)
 
 
 @pytest.mark.cuda
@@ -1237,8 +1331,9 @@ def test_ssm_scan_bwd_kernel_matches_plain(card, case):
     g = torch.Generator(device=card).manual_seed(Tq + d + N)
     args = ssm_inputs(g, B, Tq, d, N, DTYPES[dtype], card)
     dy = torch.randn((B, Tq, d), generator=g, device=card).to(DTYPES[dtype])
+    _, states = SS.ssm_scan_with_states(*args)
     reset_launches()
-    got = SS.ssm_scan_bwd(*args, dy)
+    got = SS.ssm_scan_bwd(*args, dy, states)
     torch.cuda.synchronize()
     assert LAUNCHES["ssm_scan_bwd"] == 1
     ref = SS.ssm_scan_bwd_plain(*args, dy)
@@ -1246,13 +1341,58 @@ def test_ssm_scan_bwd_kernel_matches_plain(card, case):
                                                              ref)):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert bool(((a.float() - b.float()).abs() <= tol).all())
-    again = SS.ssm_scan_bwd(*args, dy)
+    again = SS.ssm_scan_bwd(*args, dy, states)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     leaves = [x.clone().requires_grad_(True) for x in args]
     y = SS.ssm_scan(*leaves)
     assert y.grad_fn is not None
     y.backward(dy)
     assert all(torch.equal(x.grad, w) for x, w in zip(leaves, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["falcon_train_bf16", "ragged_t_333_f32",
+                                  "state_3_f32", "one_step_bf16"])
+def test_ssm_scan_bwd_reads_the_forwards_states(card, case):
+    """K6's forward stores its chunk-start states when asked and leaves y
+    unchanged to the bit; the states lie within ssm_scan_tolerance's state
+    bound (16 eps E_t, its magnitude recurrence) of the plain version's;
+    the backward reading them launches no forward, repeats itself to the
+    bit, and stays within `ssm_scan_bwd_tolerance` of the plain version."""
+    B, Tq, d, N, dtype = SSM_BWD_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + d + N + 1)
+    args = ssm_inputs(g, B, Tq, d, N, DTYPES[dtype], card)
+    dy = torch.randn((B, Tq, d), generator=g, device=card).to(DTYPES[dtype])
+    reset_launches()
+    y, states = SS.ssm_scan_with_states(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan"] == 1
+    assert torch.equal(y, SS.ssm_scan(*args))
+    assert states.shape == (B, -(-Tq // 16), d, 16)
+    want = SS.ssm_scan_states_plain(*args, 16, 16)
+    eps = torch.finfo(torch.float32).eps
+    uf, dtf, bf = args[0].float(), args[1], args[2].float().abs()
+    H = torch.zeros((B, d, N), device=card)
+    E = torch.zeros_like(H)
+    bound = torch.zeros_like(want)
+    for t in range(Tq):
+        if t % 16 == 0:
+            bound[:, t // 16, :, :N] = 16 * eps * E
+        e = torch.exp(dtf[:, t, :, None] * args[4][None])
+        inc = (dtf[:, t] * uf[:, t]).abs()[..., None] * bf[:, t, None, :]
+        E = e * E + H + inc
+        H = e * H + inc
+    assert bool(((states - want).abs() <= bound).all())
+    reset_launches()
+    got = SS.ssm_scan_bwd(*args, dy, states)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["ssm_scan"], LAUNCHES["ssm_scan_bwd"]) == (0, 1)
+    again = SS.ssm_scan_bwd(*args, dy, states)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = SS.ssm_scan_bwd_plain(*args, dy)
+    for a, b, tol in zip(got, ref, SS.ssm_scan_bwd_tolerance(*args, dy,
+                                                             ref)):
+        assert bool(((a.float() - b.float()).abs() <= tol).all())
 
 
 @pytest.mark.cuda

@@ -162,6 +162,108 @@ def test_flash_attention_bwd_tolerance_covers_float32_rounding(case, dtype):
     assert bool(((lse.double() - lse64).abs() <= lse_tol).all())
 
 
+def _fma(a, b, c):
+    """a b + c rounded once to float32 (a, b float32: their product is exact
+    in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _flash_bwd_wgmma_order(q, k, v, o, do, lse, *, window, softcap):
+    """The arithmetic of the backward's wgmma body (``csrc/
+    flash_attention_bwd.cu``) in plain PyTorch, causal: S = q k^T and
+    dP = do v^T of bf16 inputs summed in float32; P = exp2f(fma(s,
+    d^-1/2 log2 e, -lse log2 e)) (softcap: fma(cap tanh(s d^-1/2 / cap),
+    log2 e, -lse log2 e)), the constants rounded to float32 as the kernel
+    rounds them; D = rowsum(do o) and dS = P (dP - D) (1 - tanh^2) in
+    float32; P rounded to bf16 before dv = P^T do, dS before dk = dS^T q
+    and dq = dS k; dk and dq scaled by d^-1/2 after their sums; outputs
+    in bf16."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale = torch.tensor(1.0, dtype=torch.float32) / torch.sqrt(
+        torch.tensor(float(hd), dtype=torch.float32))
+    scale_log2 = scale * log2e
+
+    def heads(a, g):
+        return a.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+
+    qf, kf, vf = heads(q, 1), heads(k, G), heads(v, G)
+    of, dof = heads(o, 1), heads(do, 1)
+    s = qf @ kf.transpose(-1, -2)
+    dp = dof @ vf.transpose(-1, -2)
+    l2 = (lse.float() * log2e)[..., None].expand_as(s)
+    if softcap:
+        th = torch.tanh(s * scale / softcap)
+        fac = 1 - th * th
+        y = _fma(th * softcap, log2e.expand_as(s), -l2)
+    else:
+        fac = torch.ones_like(s)
+        y = _fma(s, scale_log2.expand_as(s), -l2)
+    t_, s_ = torch.arange(T)[:, None], torch.arange(S)[None, :]
+    ok = s_ <= t_
+    if window:
+        ok &= s_ > t_ - window
+    p = torch.where(ok, torch.exp2(y), torch.zeros_like(y))
+    ds = p * (dp - (dof * of).sum(-1)[..., None]) * fac
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+
+    def per_kv(a):
+        return a.reshape(B, KV, G, S, hd).sum(2).permute(0, 2, 1, 3)
+
+    dv = per_kv(pb.transpose(-1, -2) @ dof)
+    dk = per_kv(dsb.transpose(-1, -2) @ qf) * scale
+    dq = (dsb @ kf).permute(0, 2, 1, 3) * scale
+    return tuple(a.to(torch.bfloat16) for a in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_attention_bwd_tolerance_covers_the_wgmma_bodys_roundings(
+        case):
+    """An emulation of the wgmma body's arithmetic (bf16 P and dS, exp2 in
+    the log2 domain) against the float64 plain version stays inside
+    `flash_attention_bwd_tolerance` for inputs that take that body, whose
+    bf16 terms are what it needs, and the bound stays tight. The cases run
+    at the body's head_dims (16 -> 64, 32 -> 128)."""
+    B, T, H, KV, hd, window, cap = CASES[case]
+    hd *= 4
+    q, k, v, do = (_t(a, torch.float32).to(torch.bfloat16)
+                   for a in _qkv_do(B, T, H, KV, hd, seed=5 + T + hd))
+    kw = dict(causal=True, window=window, softcap=cap)
+    o, lse = TFA.flash_attention_with_lse(q, k, v, **kw)
+    assert TFA.takes_wgmma_bwd(q, k, v, o, do)
+    got = _flash_bwd_wgmma_order(q, k, v, o, do, lse, window=window,
+                                 softcap=cap)
+    exact = TFA.flash_attention_bwd_plain(
+        *(a.double() for a in (q, k, v, o, do)), lse.double(), **kw)
+    tols = TFA.flash_attention_bwd_tolerance(q, k, v, o, do, lse, got, **kw)
+    for g, e, tol in zip(got, exact, tols):
+        assert g.shape == e.shape == tol.shape
+        assert bool(((g.double() - e).abs() <= tol).all())
+        assert bool((tol < 0.05 * e.abs().max() + 1e-3).all())
+
+
+def test_flash_attention_bwd_tolerance_takes_the_bf16_terms_with_the_body():
+    """The bf16 terms enter only for inputs that take the wgmma body: a
+    bf16 view TMA cannot read (the CUDA-core body, which keeps P and dS in
+    float32) keeps the bound without them, below the bound of the same
+    values laid out contiguously."""
+    q, k, v, do = (_t(a, torch.float32).to(torch.bfloat16)
+                   for a in _qkv_do(1, 40, 4, 2, 64, seed=9))
+    full = torch.zeros((1, 40, 4, 68), dtype=torch.bfloat16)
+    full[..., :64] = q
+    qv = full[..., :64]
+    o, lse = TFA.flash_attention_with_lse(q, k, v)
+    ref = TFA.flash_attention_bwd_plain(q, k, v, o, do, lse)
+    assert TFA.takes_wgmma_bwd(q, k, v, o, do)
+    assert not TFA.takes_wgmma_bwd(qv, k, v, o, do)
+    wide = TFA.flash_attention_bwd_tolerance(q, k, v, o, do, lse, ref)
+    tight = TFA.flash_attention_bwd_tolerance(qv, k, v, o, do, lse, ref)
+    for w, t in zip(wide, tight):
+        assert bool((t <= w).all()) and bool((t < w).any())
+
+
 @pytest.mark.parametrize("T,S,window,causal", [
     (1000, 1000, 0, True), (77, 77, 0, True), (130, 333, 0, False),
     (700, 700, 256, True), (45, 45, 16, True), (200, 200, 100, False),
@@ -212,6 +314,26 @@ def test_flash_attention_keeps_a_gradient_on_the_cpu():
     o.sum().backward()
     assert q.grad is not None and k.grad is not None
     assert LAUNCHES["flash_attention"] == LAUNCHES["flash_attention_bwd"] == 0
+
+
+def test_takes_wgmma_bwd_by_type_head_dim_and_strides():
+    """The backward's body follows from the tensors alone: bf16 at head_dim
+    64 and 128 whose (b, t, head) strides TMA can read takes the wgmma
+    body; float32, head_dim 32, 192 and 256, and a view whose head stride is
+    not a multiple of 8 elements take the CUDA-core body."""
+    def five(hd, dt, pad=0):
+        full = torch.zeros((2, 10, 6, hd + pad), dtype=dt)
+        q, k, v = (full[:, :, 2 * i:2 * i + 2, :hd] for i in range(3))
+        return q, k, v, q.contiguous(), q.contiguous()
+
+    for hd, dt, pad, want in ((64, torch.bfloat16, 0, True),
+                              (128, torch.bfloat16, 0, True),
+                              (128, torch.float32, 0, False),
+                              (32, torch.bfloat16, 0, False),
+                              (192, torch.bfloat16, 0, False),
+                              (256, torch.bfloat16, 0, False),
+                              (64, torch.bfloat16, 4, False)):
+        assert TFA.takes_wgmma_bwd(*five(hd, dt, pad)) is want
 
 
 def test_flash_attention_bwd_checks_its_inputs():
@@ -268,8 +390,8 @@ def test_ssm_scan_bwd_plain_matches_jax_grad(shape):
 
     want = jax.jit(jax.grad(f, argnums=tuple(range(6))))(
         *(jnp.asarray(a) for a in (u, dt, Bm, Cm, A, D)))
-    got = TSS.ssm_scan_bwd(*(_t(a, torch.float32)
-                             for a in (u, dt, Bm, Cm, A, D, dy)))
+    ins = [_t(a, torch.float32) for a in (u, dt, Bm, Cm, A, D, dy)]
+    got = TSS.ssm_scan_bwd(*ins, TSS.ssm_scan_with_states(*ins[:6])[1])
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         _close(g, np.asarray(w), 1e-4)
@@ -282,7 +404,8 @@ def test_ssm_scan_bwd_tolerance_covers_float32_rounding(shape, dtype):
     lowp = getattr(torch, dtype)
     u, dt, Bm, Cm, A, D, dy = ins
     u, Bm, Cm, dy = (a.to(lowp) for a in (u, Bm, Cm, dy))
-    got = TSS.ssm_scan_bwd(u, dt, Bm, Cm, A, D, dy)
+    _, states = TSS.ssm_scan_with_states(u, dt, Bm, Cm, A, D)
+    got = TSS.ssm_scan_bwd(u, dt, Bm, Cm, A, D, dy, states)
     exact = TSS.ssm_scan_bwd_plain(*(a.double() for a in
                                      (u, dt, Bm, Cm, A, D, dy)))
     tols = TSS.ssm_scan_bwd_tolerance(u, dt, Bm, Cm, A, D, dy, got)
@@ -291,13 +414,25 @@ def test_ssm_scan_bwd_tolerance_covers_float32_rounding(shape, dtype):
         assert bool(((g.double() - e).abs() <= tol).all())
 
 
-def _scan_bwd_kernel_order(u, dt, Bm, Cm, A, D, dy, chunk=16, lanes=32):
+def _tree(xs):
+    """A fixed pairwise tree over a power-of-two list: ((x0 + x1) + (x2 +
+    x3)) + ..."""
+    while len(xs) > 1:
+        xs = [xs[i] + xs[i + 1] for i in range(0, len(xs), 2)]
+    return xs[0]
+
+
+def _scan_bwd_kernel_order(u, dt, Bm, Cm, A, D, dy, chunk=16, lanes=4,
+                           slots=16, warp_channels=8, warps=8):
     """The arithmetic of ``csrc/ssm_scan_bwd.cu`` in plain PyTorch: the
-    states at chunk starts from a first forward walk, each chunk's states
-    rebuilt from its start, the reverse walk in chunks, dB_ and dC_ summed
-    over blocks of ``lanes`` channels and then over the blocks in order,
-    dA and dD per batch row and then over the rows. exp by exp2 of
-    dt (A log2 e)."""
+    states at chunk starts as K6's forward stores them
+    (`ssm_scan_states_plain`), each chunk's states rebuilt from its start,
+    the reverse walk in chunks. du and ddt sum over the N (padded to 16)
+    states in 4 lanes of 4 values, an fma chain a lane, and the lanes'
+    partial sums by the xor tree (p_0 + p_1) + (p_2 + p_3). dB_ and dC_ sum
+    over each warp's 8 channels by a tree, then over a block's 8 warps in
+    order, then over the blocks of 64 channels in order; dA and dD per
+    batch row, then over the rows. exp by exp2 of dt (A log2 e)."""
     Bsz, T, d = u.shape
     N = A.shape[1]
     a2 = A * 1.4426950408889634
@@ -305,63 +440,102 @@ def _scan_bwd_kernel_order(u, dt, Bm, Cm, A, D, dy, chunk=16, lanes=32):
     def e_of(t):
         return torch.exp2(dt[:, t, :, None] * a2)
 
+    def pad_n(x):                         # (..., N) -> (..., 16)
+        return torch.nn.functional.pad(x, (0, slots - N))
+
+    def lane_sum(x):                      # (B, d, 16) -> (B, d)
+        per = lanes * [None]
+        for j in range(lanes):
+            acc = torch.zeros_like(x[..., 0])
+            for q in range(slots // lanes):
+                acc = acc + x[..., j * (slots // lanes) + q]
+            per[j] = acc
+        return _tree(per)
+
+    block = warp_channels * warps
+    blocks = -(-d // block)
+
+    def channel_sum(x):                   # (B, d, N) -> (B, N)
+        x = torch.nn.functional.pad(x, (0, 0, 0, blocks * block - d))
+        total = torch.zeros_like(x[:, 0])
+        for blk in range(blocks):
+            s_blk = torch.zeros_like(total)
+            for w in range(warps):
+                c0 = blk * block + w * warp_channels
+                s_blk = s_blk + _tree([x[:, c0 + i]
+                                       for i in range(warp_channels)])
+            total = total + s_blk
+        return total
+
     chunks = -(-T // chunk)
-    h = torch.zeros((Bsz, d, N), dtype=u.dtype)
-    starts = []
-    for k in range(chunks):
-        starts.append(h.clone())
-        for t in range(k * chunk, min(T, (k + 1) * chunk)):
-            h = e_of(t) * h + (dt[:, t] * u[:, t])[..., None] * Bm[:, t,
-                                                                  None, :]
-    g = torch.zeros_like(h)
+    starts = TSS.ssm_scan_states_plain(u, dt, Bm, Cm, A, D, chunk, slots)
+    g = torch.zeros((Bsz, d, N), dtype=u.dtype)
     dA_part = torch.zeros((Bsz, d, N), dtype=u.dtype)
     du, ddt = torch.zeros_like(u), torch.zeros_like(u)
-    blocks = -(-d // lanes)
-    part = torch.zeros((Bsz, blocks, T, 2, N), dtype=u.dtype)
+    dB = torch.zeros((Bsz, T, N), dtype=u.dtype)
+    dC = torch.zeros_like(dB)
     for k in reversed(range(chunks)):
         t0, t1 = k * chunk, min(T, (k + 1) * chunk)
-        hs, h = [], starts[k]
+        h0 = starts[:, k, :, :N]
+        hs, h = [], h0
         for t in range(t0, t1):
             h = e_of(t) * h + (dt[:, t] * u[:, t])[..., None] * Bm[:, t,
                                                                   None, :]
             hs.append(h)
         for t in reversed(range(t0, t1)):
-            hprev = hs[t - t0 - 1] if t > t0 else starts[k]
+            hprev = hs[t - t0 - 1] if t > t0 else h0
             e = e_of(t)
             dh = dy[:, t, :, None] * Cm[:, t, None, :] + g
             eh = e * hprev
-            ddt[:, t] = (dh * (A * eh + u[:, t, :, None]
-                               * Bm[:, t, None, :])).sum(-1)
+            ddt[:, t] = lane_sum(pad_n(dh * (A * eh + u[:, t, :, None]
+                                             * Bm[:, t, None, :])))
             dA_part += dh * dt[:, t, :, None] * eh
-            du[:, t] = dt[:, t] * (dh * Bm[:, t, None, :]).sum(-1) \
+            du[:, t] = dt[:, t] * lane_sum(pad_n(dh * Bm[:, t, None, :])) \
                 + dy[:, t] * D
-            vb = dh * (dt[:, t] * u[:, t])[..., None]
-            vc = dy[:, t, :, None] * hs[t - t0]
-            for blk in range(blocks):
-                sl = slice(blk * lanes, (blk + 1) * lanes)
-                part[:, blk, t, 0] = vb[:, sl].sum(1)
-                part[:, blk, t, 1] = vc[:, sl].sum(1)
+            dB[:, t] = channel_sum(dh * (dt[:, t] * u[:, t])[..., None])
+            dC[:, t] = channel_sum(dy[:, t, :, None] * hs[t - t0])
             g = e * dh
-    dB = torch.zeros((Bsz, T, N), dtype=u.dtype)
-    dC = torch.zeros_like(dB)
-    for blk in range(blocks):
-        dB += part[:, blk, :, 0]
-        dC += part[:, blk, :, 1]
     return du, ddt, dB, dC, dA_part.sum(0), (dy * u).sum(1).sum(0)
 
 
 @pytest.mark.parametrize("shape", [(2, 40, 70, 16), (1, 16, 32, 3),
                                    (2, 17, 5, 4), (1, 1, 40, 16)], ids=str)
 def test_ssm_scan_bwd_chunked_walk_matches_plain(shape):
-    """The kernel's chunked walk (states saved every 16 steps, rebuilt per
-    chunk, partial sums over blocks of 32 channels) computes the plain
-    backward: in float64 they agree to rounding, ragged chunks and
-    ragged blocks included."""
+    """The kernel's chunked walk (the forward's states every 16 steps,
+    rebuilt per chunk, sums over n in 4 lanes, over channels in warps of 8,
+    blocks of 64 and their partials) computes the plain backward: in
+    float64 they agree to rounding, ragged chunks, states and blocks
+    included."""
     ins = [_t(a) for a in _scan_inputs(*shape, seed=11)]
     got = _scan_bwd_kernel_order(*ins)
     want = TSS.ssm_scan_bwd_plain(*ins)
     for g, w in zip(got, want):
         _close(g, w.numpy(), 1e-10)
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 70, 16), (1, 16, 32, 3),
+                                   (2, 17, 5, 4), (1, 1, 40, 16)], ids=str)
+def test_ssm_scan_states_plain_are_selective_scans_states(shape):
+    """The chunk-start states K6's forward stores for its backward, as the
+    plain version gives them (and `ssm_scan_with_states` on the CPU): slot
+    k holds `selective_scan`'s state after the first 16 k steps, state
+    slots past N zero."""
+    ins = [_t(a) for a in _scan_inputs(*shape, seed=13)][:6]
+    B, T, d, N = shape
+    states = TSS.ssm_scan_states_plain(*ins, 16, 16)
+    assert states.shape == (B, -(-T // 16), d, 16)
+    assert not bool(states[..., N:].any())
+    for k in range(states.shape[1]):
+        if k == 0:
+            assert not bool(states[:, 0].any())
+            continue
+        _, h = TSS.selective_scan(*(a[:, :16 * k] if a.dim() == 3 and
+                                    a.shape[1] == T else a for a in ins))
+        assert torch.equal(states[:, k, :, :N], h)
+    y, st32 = TSS.ssm_scan_with_states(*(a.float() for a in ins))
+    assert torch.equal(y, TSS.ssm_scan_ref(*(a.float() for a in ins)))
+    assert torch.equal(st32, TSS.ssm_scan_states_plain(
+        *(a.float() for a in ins), 16, 16))
 
 
 def test_ssm_scan_keeps_a_gradient_on_the_cpu():
@@ -377,7 +551,8 @@ def test_ssm_scan_keeps_a_gradient_on_the_cpu():
 
 def test_ssm_scan_bwd_checks_its_inputs():
     ins = [_t(a, torch.float32) for a in _scan_inputs(1, 4, 4, 2, seed=1)]
+    _, states = TSS.ssm_scan_with_states(*ins[:6])
     with pytest.raises(ValueError, match="dy"):
-        TSS.ssm_scan_bwd(*ins[:6], ins[6][:, :2])
+        TSS.ssm_scan_bwd(*ins[:6], ins[6][:, :2], states)
     with pytest.raises(ValueError, match="dy"):
-        TSS.ssm_scan_bwd(*ins[:6], ins[6].double())
+        TSS.ssm_scan_bwd(*ins[:6], ins[6].double(), states)

@@ -160,6 +160,32 @@ def test_pretrain_loop_matches_reference_from_injected_init():
     assert _maxdiff(p0, got) <= TRAIN_ATOL
 
 
+def test_train_restores_callers_tf32_flag():
+    """`_train` turns TF32 off for its own products only: a caller that set
+    ``allow_tf32`` finds it as it was, and the weights are those of a run
+    with the flag off (the CPU never uses TF32, so they are bit-equal)."""
+    cfg = PRINTED_MLPS["seeds"]
+    _, (xtr, ytr, _, _) = _ref_pretrained("seeds")
+    init = _np_params(RMZ.M.mlp_init(jax.random.PRNGKey(0), cfg.layer_dims))
+    saved = torch.backends.cuda.matmul.allow_tf32
+
+    def run(flag):
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        got = TMZ._train(TM.params_from_numpy(init, "cpu"),
+                         *TMZ._tensors(xtr, ytr, "cpu"), epochs=40, lr=5e-3,
+                         w_transform=lambda i, w: w)
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        return got
+
+    try:
+        off, on = run(False), run(True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for lo, ln in zip(off["layers"], on["layers"]):
+        for k in ("w", "b"):
+            assert torch.equal(lo[k], ln[k])
+
+
 def test_adam_update_float32_step_counter():
     r = np.random.default_rng(0)
     g, m, v = (r.normal(size=(4, 5)).astype(np.float32) for _ in range(3))

@@ -34,8 +34,12 @@ Phases, each fatal on failure, each with its seconds printed:
    shape, a ragged length, a window and a softcap case, bf16 (the wgmma
    body) and float32 (the CUDA-core body); bf16 at head_dim 64 and 256, GQA
    groups of 1, a window with a softcap; head_dim 192 at nemotron-4-340b's
-   96/8 heads, T = 512 and 333, in both bodies; each case checks the body
-   it took;
+   96/8 heads, T = 512 and 333, in both bodies; recurrentgemma-9b's MQA
+   (16 query heads over one kv head, head_dim 256, window 2048 passed) and
+   gemma2-2b's 8/4 heads (head_dim 256, window 4096 passed, softcap 50);
+   each case checks the body it took, and each windowed case past its
+   window is also held against ``attend_local_banded``, the JAX package's
+   banded path;
 8. LM serving, prefill: ``make_prefill_step`` on qwen3-0.6b at full width
    (seeded random bf16 weights, 4 prompts of 1024 tokens), K5's launches
    counted (28, all through the wgmma body), the last-position logits held
@@ -160,7 +164,28 @@ Phases, each fatal on failure, each with its seconds printed:
    rtol 2e-3 of the uninterrupted run's (and whether bit-equal); one step
    with ``--qat-bits 8``; then falcon-mamba-7b at full width with 4 of its
    64 layers (its 7.27 B parameters with gradients and AdamW state pass
-   the card's 80 GB), 3 steps at B 2, T 1024, K6's backward 4 times a step.
+   the card's 80 GB), 3 steps at B 2, T 1024, K6's backward 4 times a step;
+28. gemma2-2b at full width and depth (seeded random bf16 weights):
+   ``make_prefill_step`` on 4 x 1024 tokens, K5's 26 launches counted by
+   window (13 windowed, 13 global) and body, the logits held against K5's
+   plain version; the w8 decode at batch 8 (16 prompt + 16 greedy steps),
+   K2's launches counted (7 a layer, 182 a step, all through its
+   tensor-core body), teacher-forced against K2's plain version, the busy
+   share; then one repeat (local, global) at full width decodes 4096 + 64
+   tokens one at a time at batch 2 through the ring buffer, its logits at
+   three positions past the window held against the last-position logits
+   of a cache-free prefill over the same tokens (K5 with its window);
+29. recurrentgemma-9b at full width and depth (38 layers, 26 RG-LRU and
+   12 local): the prefill as in 28 (K5 12 launches, all windowed), the
+   RG-LRU scan's share of it, the w8 decode (K2 240 a step: 6 a
+   recurrent layer, 7 a local one), the dense ``ServeEngine``, and the
+   ring wrap on one repeat (rec, rec, local) past its 2048 positions,
+   which also holds RG-LRU's step-by-step state against its scan;
+30. phi3.5-moe-42b-a6.6b at full width with 4 of its 32 layers (all 32 are
+   84 GB in bf16): the prefill (K5 4 launches), the logits held against
+   K5's plain version with the kernel run's routing replayed (the choices
+   the plain run would flip counted), the dropped-token share at capacity
+   factor 1.25, the router's aux loss (finite, > 0), the dense engine.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -499,6 +524,14 @@ def lm_serving(card: str, dev):
                                dtypes),
             "hd192_ragged_333": (1, 333, 333, 96, 8, 192, True, 0, 0.0,
                                  dtypes),
+            # recurrentgemma-9b's local layers: MQA, 16 query heads over one
+            # kv head, window 2048 passed; gemma2-2b's: 8/4 heads, window
+            # 4096 passed, softcap 50 (phases 28 and 29)
+            "hd256_g16_window_2048": (1, 2500, 2500, 16, 1, 256, True, 2048,
+                                      0.0, {"bf16": torch.bfloat16}),
+            "hd256_gemma2_window_4096_softcap_50": (
+                1, 4200, 4200, 8, 4, 256, True, 4096, 50.0,
+                {"bf16": torch.bfloat16}),
         }
         for name, (B, Tq, S, H, KV, hd, causal, window, cap, dts) in \
                 cases.items():
@@ -527,6 +560,20 @@ def lm_serving(card: str, dev):
                       f"{err:.3e}, largest share of the bound {share:.3e}, "
                       f"within={ok}")
                 check(ok, f"flash_attention disagrees on {name} {dname}")
+                if window and Tq > window:
+                    # the JAX package's banded path, the windowed yardstick
+                    banded = A.attend_local_banded(q, k, v, window=window,
+                                                   softcap=cap)
+                    err, share, ok = _within(got, banded,
+                                             FA.flash_attention_bound(
+                                                 q, k, v, banded, **kw))
+                    print(f"[7] flash_attention {name} {dname} vs "
+                          f"attend_local_banded: max abs err {err:.3e}, "
+                          f"largest share of the bound {share:.3e}, "
+                          f"within={ok}")
+                    check(ok, f"flash_attention disagrees with the banded "
+                          f"path on {name}")
+                    del banded
                 del q, k, v, got, ref
 
     # -- 8. prefill at full width ----------------------------------------
@@ -2846,6 +2893,520 @@ def lm_training(card: str, dev):
     return [fa_entry, ssm_entry], numbers
 
 
+# phases 28-30: the prefill batch, the w8 decode (batch, prompt, greedy
+# steps), the tokens decoded past the window in the ring wraps, the steps
+# timed at full depth past the window, and the engine's waves (waves,
+# prompt tokens, new tokens; ``HYBRID_DECODE[0]`` requests a wave)
+HYBRID_PREFILL = (4, 1024)
+HYBRID_DECODE = (8, 16, 16)
+RING_PAST_WINDOW = 64
+PAST_WINDOW_STEPS = 8
+ENGINE_WAVES = (3, 16, 16)
+# relative L2 bounds of phases 28-30's comparisons: the prefill's last
+# logits against K5's plain version ("prefill"), the w8 decode's against
+# K2's plain version ("w8"), the ring wrap's decode against the windowed
+# forward ("ring"), and each ring slot's k and v against the forward's at
+# the position the slot must hold ("slot"). Each is about 4x the largest
+# reading on an H100, which repeated to the digit from run to run; a wrong
+# or stale slot is a relative L2 of order 1.
+HYBRID_BOUNDS = {
+    "gemma2-2b": {"prefill": 0.028, "w8": 0.028, "ring": 0.008,
+                  "slot": 0.004},
+    "recurrentgemma-9b": {"prefill": 0.014, "w8": 0.015, "ring": 0.0034,
+                          "slot": 0.008},
+    "phi3.5-moe": {"prefill": 0.025},
+}
+# phi3.5-moe: the layers kept of its 32 (all 32 are 84 GB in bf16)
+PHI_LAYERS = 4
+# parameters and active parameters at these depths, as the JAX package's
+# `param_count` and `active_param_count` count them
+HYBRID_PARAMS = {"gemma2-2b": (2614341888, 2614341888),
+                 "recurrentgemma-9b": (9396408320, 9396408320),
+                 "phi3.5-moe-42b-a6.6b": (5463904256, 1059885056)}
+
+
+def hybrid_serving(card: str, dev):
+    """Phases 28-30: gemma2-2b, recurrentgemma-9b and phi3.5-moe (4 of its
+    32 layers) at full width through their prefill, w8 decode, dense engine
+    and ring-buffer decode. The 4 x 1024 prefills sit below both windows
+    (4096, 2048), so their windowed K5 launches mask no key; K5's window is
+    held by phase 7 and by the ring wraps' forwards past the window.
+    Returns each path's K5 and K2 launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import Segment
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import moe as M
+    from repro_torch.nn import rglru as R
+    from repro_torch.nn import transformer as T
+    from repro_torch.serve import quantized as QS
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.train_state import make_prefill_step
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    out = {"k5": {}, "k2": {}}
+
+    def draw(n, name, cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = T.init(gen, cfg, device=dev)
+        torch.cuda.synchronize()
+        counts = (T.param_count(params), T.active_param_count(params, cfg))
+        print(f"[{n}] {name}: {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, window {cfg.window_size}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}: {counts[0]} parameters "
+              f"({counts[1]} active) drawn in "
+              f"{time.perf_counter() - t0:.3f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+        want = HYBRID_PARAMS.get(cfg.name)
+        check(want is None or counts == want, f"{counts} parameters and "
+              f"active parameters, not the JAX package's {want}")
+        return params
+
+    def prefill(n, name, cfg, params, *, windowed, bound,
+                replay_routing=False):
+        """make_prefill_step on 4 x 1024 tokens, K5's launches counted by
+        the window each took and by body, timed, and held against the
+        same step on K5's plain version."""
+        step = make_prefill_step(cfg)
+        Bp, Tp = HYBRID_PREFILL
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (Bp, Tp),
+                                         generator=gen, device=dev)}
+        windows = []
+        kernel = A.flash_attention
+
+        def recording(q, k, v, **kw):
+            windows.append(kw.get("window", 0))
+            return kernel(q, k, v, **kw)
+
+        routes = []
+        route = M.route_tokens
+
+        def recording_route(p, xf, c):
+            routes.append(route(p, xf, c))
+            return routes[-1]
+
+        A.flash_attention = recording
+        M.route_tokens = recording_route
+        try:
+            reset_launches()
+            last = step(params, batch)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        finally:
+            A.flash_attention = kernel
+            M.route_tokens = route
+        n_attn = sum(s.mixer in ("attn", "local") for seg in cfg.segments
+                     for s in seg.pattern for _ in range(seg.repeats))
+        k5 = launches["flash_attention"]
+        n_win = sum(w > 0 for w in windows)
+        print(f"[{n}] {name} prefill {Bp} x {Tp} tokens: launches "
+              f"{launches}; K5 windowed {n_win}, global {k5 - n_win}")
+        check(k5 == n_attn == len(windows),
+              f"prefill launched flash_attention {k5} times, not {n_attn}")
+        check(n_win == windowed, f"{n_win} windowed K5 launches, not "
+              f"{windowed}")
+        check(launches["flash_attention_wgmma"] == k5,
+              f"{launches['flash_attention_wgmma']} of {k5} K5 launches "
+              f"took the wgmma body")
+        check(tuple(last.shape) == (Bp, cfg.vocab_size)
+              and bool(torch.isfinite(last).all()),
+              "prefill logits not finite or of the wrong shape")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        print(f"[{n}] {card}: {name} prefill {prefill_s:.4f} s "
+              f"({Bp * Tp / prefill_s:.0f} tokens/s)")
+        # K5's plain version on the same step; an MoE layer replays the
+        # kernel run's routing, so that a float32 near-tie between two
+        # experts cannot flip a choice (the flips it would make are counted)
+        replay = iter(routes)
+        flips = [0, 0]
+
+        def replayed_route(p, xf, c):
+            mine, theirs = route(p, xf, c), next(replay)
+            flips[0] += int((mine["topi"] != theirs["topi"]).sum())
+            flips[1] += int((mine["keep"] != theirs["keep"]).sum())
+            return theirs
+
+        A.flash_attention = FA.flash_attention_plain
+        if replay_routing:
+            M.route_tokens = replayed_route
+        try:
+            last_plain = step(params, batch)
+        finally:
+            A.flash_attention = kernel
+            M.route_tokens = route
+        rel = _rel(last, last_plain)
+        agree = float((last.argmax(-1) == last_plain.argmax(-1)).float()
+                      .mean())
+        print(f"[{n}] last-position logits vs K5's plain version: relative "
+              f"L2 {rel:.3e} (bound {bound:.3e}), max abs "
+              f"{float((last - last_plain).abs().max()):.3e}, argmax "
+              f"agreement {agree:.3f}"
+              + (f"; routing replayed: the plain run would have chosen "
+                 f"{flips[0]} other experts and kept {flips[1]} other "
+                 f"pairs" if replay_routing else ""))
+        check(rel <= bound, f"{name} prefill logits differ from the plain "
+              f"version's beyond the bound")
+        out["k5"][f"{name} prefill (phase {n})"] = k5
+        return batch, routes, prefill_s
+
+    def w8_decode(n, name, cfg, params, per_step, bound):
+        """The w8 serve step at batch 8 with K2's launches counted, the
+        same tokens teacher-forced through K2's plain version, and the
+        device's busy share over 4 steps. Returns the w8 parameters."""
+        qparams = QS.quantize_params(params, bits=8)
+        serve = QS.make_quant_serve_step(cfg)
+        Bd, P, G = HYBRID_DECODE
+        prompt = torch.randint(0, cfg.vocab_size, (Bd, P), generator=gen,
+                               device=dev)
+        state = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+        fed, nxt = [], None
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for t in range(P + G):
+            inp = prompt[:, t:t + 1] if t < P else nxt
+            fed.append(inp)
+            nxt, state = serve(qparams, state, inp)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (P + G) * 1e3
+        launches = dict(LAUNCHES)
+        k2 = launches["quant_matmul"]
+        print(f"[{n}] {name} w8 decode, batch {Bd}, {P} prompt + {G} greedy "
+              f"steps: launches {launches} ({k2 / (P + G):.0f} quant_matmul "
+              f"a step); {card}: {step_ms:.3f} ms a step, "
+              f"{Bd / step_ms * 1e3:.1f} tokens/s")
+        check(k2 == per_step * (P + G), f"quant_matmul launched {k2} times "
+              f"in {P + G} steps, not {per_step} a step")
+        missed = k2 - launches["quant_matmul_mma"]
+        check(missed == 0, f"{missed} quant_matmul launches missed the "
+              f"tensor-core body")
+        check(launches["flash_attention"] == 0, "decode launched K5")
+
+        def teacher_forced():
+            st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+            lg = []
+            for inp in fed:
+                x, st = T.decode_step(qparams, st, inp, cfg)
+                lg.append(x[:, 0])
+            return torch.stack(lg)
+
+        kern = teacher_forced()
+        L.quant_matmul = QM.quant_matmul_ref
+        try:
+            plain = teacher_forced()
+        finally:
+            L.quant_matmul = QM.quant_matmul
+        rels = [_rel(kern[i], plain[i]) for i in range(P + G)]
+        same = bool((torch.cat(fed[P:], 1)
+                     == kern[P - 1:-1].argmax(-1).t()).all())
+        print(f"[{n}] teacher-forced logits, kernel vs K2's plain version: "
+              f"largest relative L2 of a step {max(rels):.3e} (bound "
+              f"{bound:.3e}); the serve step's greedy tokens reproduced: "
+              f"{same}")
+        check(bool(torch.isfinite(kern).all()), "decode logits not finite")
+        check(same, "teacher-forced kernel run does not reproduce the "
+              "greedy tokens of the serve step")
+        check(max(rels) <= bound, "w8 decode logits differ from the plain "
+              "version's beyond the bound")
+
+        def four_steps():
+            st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+            for inp in fed[:4]:
+                serve(qparams, st, inp)
+
+        wall_s, busy_s, n_k = device_busy(four_steps)
+        print(f"[{n}] {card}: 4 w8 decode steps: wall {wall_s:.4f} s, "
+              f"device busy {busy_s:.4f} s in {n_k} kernels, busy share "
+              f"{busy_s / wall_s:.3f}")
+        out["k2"][f"{name} w8 decode, {P + G} steps (phase {n})"] = k2
+        del kern, plain
+        return qparams
+
+    def past_window(n, name, cfg, params, qparams, per_step):
+        """The dense and the w8 decode step at full depth and batch 8, 64
+        positions past the window: each local layer reads its ring of
+        ``window`` slots, each global one ``window + 64`` positions. A
+        step's cost does not depend on what the caches hold, so the state
+        starts at ``kv_len = window + 64`` over zeroed caches instead of
+        after as many real steps. Each timed over 8 steps after 2, K2's
+        launches of the w8 run counted, busy shares over 4 steps."""
+        Bd, W = HYBRID_DECODE[0], cfg.window_size
+        kv0 = W + RING_PAST_WINDOW
+        serve = QS.make_quant_serve_step(cfg)
+        tok = torch.randint(0, cfg.vocab_size, (Bd, 1), generator=gen,
+                            device=dev)
+
+        def fresh():
+            st = T.init_decode_state(cfg, Bd, kv0 + RING_PAST_WINDOW,
+                                     cfg.dtype, device=dev)
+            st["kv_len"] = kv0
+            return st
+
+        slots = {spec.mixer: c["k"].shape[2] for seg, cs in
+                 zip(cfg.segments, fresh()["caches"])
+                 for spec, c in zip(seg.pattern, cs) if "k" in c}
+        check(slots.get("local") == W, f"the local layers' caches hold "
+              f"{slots.get('local')} slots, not a ring of {W}")
+        steps = {"dense": lambda st: T.decode_step(params, st, tok, cfg),
+                 "w8": lambda st: serve(qparams, st, tok)}
+        for label, step in steps.items():
+            st = fresh()
+            reset_launches()
+            for _ in range(2):
+                res, st = step(st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PAST_WINDOW_STEPS):
+                res, st = step(st)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / PAST_WINDOW_STEPS * 1e3
+            k2 = LAUNCHES["quant_matmul"]
+            check(st["kv_len"] == kv0 + 2 + PAST_WINDOW_STEPS
+                  and bool(torch.isfinite(res.float()).all()),
+                  f"{label} decode past the window")
+
+            def four_steps():
+                s4 = fresh()
+                for _ in range(4):
+                    _, s4 = step(s4)
+
+            wall_s, busy_s, _ = device_busy(four_steps)
+            print(f"[{n}] {card}: {name} {label} decode step past the "
+                  f"window, full depth, batch {Bd}, kv_len {kv0}-"
+                  f"{kv0 + 1 + PAST_WINDOW_STEPS} (rings of {W} slots, "
+                  f"{slots}): {ms:.3f} ms a step, {Bd / ms * 1e3:.1f} "
+                  f"tokens/s, busy share {busy_s / wall_s:.3f}; "
+                  f"quant_matmul {k2}")
+            if label == "w8":
+                check(k2 == per_step * (2 + PAST_WINDOW_STEPS),
+                      f"quant_matmul launched {k2} times past the window")
+                out["k2"][f"{name} w8 decode past the window, "
+                          f"{2 + PAST_WINDOW_STEPS} steps (phase {n})"] = k2
+            else:
+                check(k2 == 0, "the dense decode launched quant_matmul")
+
+    def engine(n, name, cfg, params, max_len):
+        """The dense ServeEngine at batch 8 over three waves, its caches
+        made for ``max_len`` positions (past the window, the local layers
+        take their rings)."""
+        waves, P, G = ENGINE_WAVES
+        Bd = HYBRID_DECODE[0]
+        rng = np.random.default_rng(n)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   P).tolist(),
+                        max_new_tokens=G) for i in range(waves * Bd)]
+        eng = ServeEngine(params, cfg, batch=Bd, max_len=max_len,
+                          dtype=cfg.dtype, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        check(all(r.done and len(r.output) == G
+                  and all(0 <= t < cfg.vocab_size for t in r.output)
+                  for r in reqs), "ServeEngine left a request unanswered")
+        print(f"[{n}] {card}: {name} ServeEngine batch {Bd}, max_len "
+              f"{max_len} (window {cfg.window_size}), {waves} waves of {Bd} "
+              f"requests x ({P} + {G}) tokens: {s:.3f} s, "
+              f"{eng.stats.steps} steps ({s / eng.stats.steps * 1e3:.3f} ms "
+              f"a step), {eng.stats.tokens_generated / s:.1f} tokens/s; "
+              f"request 0 output {reqs[0].output}")
+
+    def ring_wrap(n, name, cfg, checks, bounds):
+        """One repeat of the pattern at full width decodes window + 64
+        tokens one at a time at batch 2 through the ring buffer; at each
+        step of ``checks`` (past the window) the logits are held against
+        the last-position logits of a cache-free forward over the same
+        tokens (K5 with its window, over more positions than it). After
+        the last step each ring slot's k and v are held against the
+        forward's at the position the slot must hold."""
+        one = dataclasses.replace(
+            cfg, segments=(Segment(cfg.segments[0].pattern, 1),))
+        params = T.init(gen, one, device=dev)
+        W, B = one.window_size, 2
+        steps = W + RING_PAST_WINDOW
+        tok = torch.randint(0, one.vocab_size, (B, steps), generator=gen,
+                            device=dev)
+        state = T.init_decode_state(one, B, steps, one.dtype, device=dev)
+        ring = [c for spec, c in zip(one.segments[0].pattern,
+                                     state["caches"][0])
+                if spec.mixer == "local"]
+        check(len(ring) == 1 and ring[0]["k"].shape[2] == W,
+              "the local layer's cache is not a ring of window slots")
+        got = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            logits, state = T.decode_step(params, state, tok[:, t:t + 1], one)
+            if t in checks:
+                got[t] = logits[:, 0].clone()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        step = make_prefill_step(one)
+        rels, seen = {}, []
+        kernel = A.flash_attention
+
+        def capturing(q, k, v, **kw):
+            if kw.get("window", 0):
+                seen.append((k, v))
+            return kernel(q, k, v, **kw)
+
+        for t in checks:
+            A.flash_attention = capturing if t == steps - 1 else kernel
+            try:
+                rels[t] = _rel(got[t], step(params,
+                                            {"tokens": tok[:, :t + 1]}))
+            finally:
+                A.flash_attention = kernel
+        check(len(seen) == 1 and seen[0][0].shape[1] == steps,
+              f"{len(seen)} windowed K5 launches in the forward over "
+              f"{steps} tokens, not 1")
+        # slot p mod W holds position p, for the last W positions
+        pos = torch.arange(steps - W, steps, device=dev)
+        slot_rel = {}
+        for which, fwd in zip("kv", seen[0]):
+            diff = ring[0][which][0][:, pos % W].float() - fwd[:, pos].float()
+            slot_rel[which] = float(
+                (torch.linalg.vector_norm(diff, dim=(0, 2, 3))
+                 / torch.linalg.vector_norm(fwd[:, pos].float(),
+                                            dim=(0, 2, 3))).max())
+        bound = bounds["ring"]
+        print(f"[{n}] {card}: {name} ring wrap, one repeat "
+              f"{[s.mixer for s in one.segments[0].pattern]}, {steps} "
+              f"tokens at batch {B} through a ring of {W} slots: "
+              f"{s:.3f} s ({s / steps * 1e3:.3f} ms a step); decode vs the "
+              f"windowed forward, relative L2 at positions "
+              + ", ".join(f"{t}: {r:.3e}" for t, r in rels.items())
+              + f" (bound {bound:.3e}); every slot's k, v against the "
+              f"forward's at its position: largest relative L2 "
+              f"{slot_rel['k']:.3e}, {slot_rel['v']:.3e} (bound "
+              f"{bounds['slot']:.3e})")
+        check(max(rels.values()) <= bound, f"{name} ring decode differs "
+              f"from the windowed forward beyond the bound")
+        check(max(slot_rel.values()) <= bounds["slot"], f"{name} ring "
+              f"slots differ from the forward's k, v beyond the bound")
+        del params, state, seen
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def n_mixers(cfg, mixer):
+        return sum(s.mixer == mixer for seg in cfg.segments
+                   for s in seg.pattern for _ in range(seg.repeats))
+
+    # -- 28. gemma2-2b ----------------------------------------------------
+    with Phase(28, "gemma2-2b prefill, w8 decode, engine, ring wrap"):
+        cfg = ARCHS["gemma2-2b"]
+        bounds = HYBRID_BOUNDS["gemma2-2b"]
+        params = draw(28, "gemma2-2b", cfg)
+        prefill(28, "gemma2-2b", cfg, params,
+                windowed=n_mixers(cfg, "local"), bound=bounds["prefill"])
+        per_step = 7 * cfg.num_layers
+        qparams = w8_decode(28, "gemma2-2b", cfg, params, per_step,
+                            bounds["w8"])
+        past_window(28, "gemma2-2b", cfg, params, qparams, per_step)
+        del qparams
+        free()
+        W = cfg.window_size
+        engine(28, "gemma2-2b", cfg, params, W + RING_PAST_WINDOW)
+        del params
+        free()
+        ring_wrap(28, "gemma2-2b", cfg, (W, W + 31, W + 63), bounds)
+        free()
+
+    # -- 29. recurrentgemma-9b -----------------------------------------------
+    with Phase(29, "recurrentgemma-9b prefill, w8 decode, engine, ring wrap"):
+        cfg = ARCHS["recurrentgemma-9b"]
+        bounds = HYBRID_BOUNDS["recurrentgemma-9b"]
+        params = draw(29, "recurrentgemma-9b", cfg)
+        n_rec = n_mixers(cfg, "rec")
+        scan = R._rglru_scan
+        scan_s = []
+
+        def timed_scan(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = scan(*a)
+            torch.cuda.synchronize()
+            scan_s.append(time.perf_counter() - t0)
+            return res
+
+        batch, _, prefill_s = prefill(29, "recurrentgemma-9b", cfg, params,
+                                      windowed=n_mixers(cfg, "local"),
+                                      bound=bounds["prefill"])
+        R._rglru_scan = timed_scan
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            make_prefill_step(cfg)(params, batch)
+            torch.cuda.synchronize()
+            timed_s = time.perf_counter() - t0
+        finally:
+            R._rglru_scan = scan
+        check(len(scan_s) == n_rec, f"{len(scan_s)} RG-LRU scans, not "
+              f"{n_rec}")
+        print(f"[29] {card}: RG-LRU scan (plain PyTorch, a loop over "
+              f"{HYBRID_PREFILL[1]} steps) in the prefill: {sum(scan_s):.4f} "
+              f"s over {n_rec} layers ({sum(scan_s) / n_rec * 1e3:.3f} ms a "
+              f"layer), share {sum(scan_s) / timed_s:.3f} of the same "
+              f"prefill timed with a synchronize around each scan "
+              f"({timed_s:.4f} s; {prefill_s:.4f} s without)")
+        per_step = 6 * n_rec + 7 * (cfg.num_layers - n_rec)
+        qparams = w8_decode(29, "recurrentgemma-9b", cfg, params, per_step,
+                            bounds["w8"])
+        past_window(29, "recurrentgemma-9b", cfg, params, qparams, per_step)
+        del qparams
+        free()
+        W = cfg.window_size
+        engine(29, "recurrentgemma-9b", cfg, params, W + RING_PAST_WINDOW)
+        del params
+        free()
+        ring_wrap(29, "recurrentgemma-9b", cfg, (W, W + 31, W + 63), bounds)
+        free()
+
+    # -- 30. phi3.5-moe, 4 of its 32 layers ------------------------------------
+    with Phase(30, "phi3.5-moe prefill, routing, engine"):
+        full = ARCHS["phi3.5-moe-42b-a6.6b"]
+        cfg = dataclasses.replace(
+            full, segments=(Segment(full.segments[0].pattern, PHI_LAYERS),))
+        params = draw(30, f"phi3.5-moe-42b-a6.6b ({PHI_LAYERS} of "
+                      f"{full.num_layers} layers)", cfg)
+        _, routes, _ = prefill(30, "phi3.5-moe", cfg, params, windowed=0,
+                               bound=HYBRID_BOUNDS["phi3.5-moe"]["prefill"],
+                               replay_routing=True)
+        check(len(routes) == PHI_LAYERS, f"{len(routes)} routings recorded, "
+              f"not {PHI_LAYERS}")
+        kept = sum(int(r["keep"].sum()) for r in routes)
+        pairs = sum(r["keep"].numel() for r in routes)
+        aux = float(sum(r["aux"] for r in routes))
+        print(f"[30] routing of the prefill ({len(routes)} MoE layers, "
+              f"{routes[0]['topi'].shape[0]} tokens, top {cfg.moe.top_k} of "
+              f"{cfg.moe.num_experts}, capacity {routes[0]['C']} at factor "
+              f"{cfg.moe.capacity_factor}): dropped share "
+              f"{1 - kept / pairs:.4f} ({pairs - kept} of {pairs} pairs); "
+              f"aux loss {aux:.6f} (summed over layers; 1 a layer for a "
+              f"uniform router)")
+        check(np.isfinite(aux) and aux > 0, f"aux loss {aux}")
+        engine(30, "phi3.5-moe", cfg, params, 64)
+        del params
+        free()
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -3197,6 +3758,15 @@ def main() -> None:
     print(f"[27] {card}: training " + ", ".join(
         f"{k}: {v}" for k, v in training.items()
         if not k.startswith("launches")))
+    gc.collect()
+    torch.cuda.empty_cache()        # the training states are gone
+    hybrid = hybrid_serving(card, dev)
+    # every K5 launch of phases 28-30 was checked to take the wgmma body
+    fa_entry["launches_by_path"].update(hybrid["k5"])
+    fa_entry["launches"] = sum(fa_entry["launches_by_path"].values())
+    fa_entry["launches_wgmma_body"] += sum(hybrid["k5"].values())
+    qmm_entry["launches_by_path"].update(hybrid["k2"])
+    qmm_entry["launches"] = sum(qmm_entry["launches_by_path"].values())
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
                                   bsmm_entry, fa_entry, ssm_entry]
                       + bwd_entries}))

@@ -2,8 +2,10 @@
 
 Runs the batched engine on synthetic requests against seeded random
 weights of the reduced config (``ArchConfig.reduced``), on CUDA unless
-``--device cpu`` is given. Architectures whose mixers are later slices of
-the port raise ``NotImplementedError``.
+``--device cpu`` is given. Every attention, local (ring-buffer), Mamba-1
+and RG-LRU mixer and every dense and MoE FFN is ported; the architectures
+with MLA (deepseek-v2-236b), an encoder (whisper-base) or vision inputs
+(llama-3.2-vision-11b) are later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

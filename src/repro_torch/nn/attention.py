@@ -1,6 +1,6 @@
 """Attention mixers of the LM track: grouped-query self-attention ("attn"
-and "local" without a ring buffer), the PyTorch counterpart of
-`repro.nn.attention`.
+and "local", with the sliding-window ring buffer), the PyTorch counterpart
+of `repro.nn.attention`.
 
 * GQA grouping is explicit, as in the JAX package: q heads are viewed as
   (KV, G) so k and v are never repeated.
@@ -11,14 +11,24 @@ and "local" without a ring buffer), the PyTorch counterpart of
   computes this case with its chunked einsum path and names the Pallas
   kernel as its TPU-native version. A sliding-window layer without a cache
   takes the same kernel with its window, which computes exactly what the
-  JAX package's banded path computes.
-* Every other case (decode over the cache with ``kv_len``) is the JAX
-  package's single-chunk path in plain PyTorch. Its chunked online-softmax
-  scan, which only bounds XLA's peak memory, has no counterpart here.
+  JAX package's banded path computes; `attend_local_banded`, that path in
+  plain PyTorch, is the windowed yardstick K5 is held against and lies on
+  no path of the model.
+* Every other case (decode over the cache with ``kv_len``, or over a ring
+  buffer with explicit key positions) is the JAX package's single-chunk
+  path in plain PyTorch. Its chunked online-softmax scan, which only bounds
+  XLA's peak memory, has no counterpart here.
 * Caches are updated in place: a decode step writes this step's k and v
-  into the preallocated buffers at ``kv_len``.
-* MLA, cross attention, the whisper encoder and the sliding-window ring
-  buffer are later slices of the port and raise ``NotImplementedError``.
+  into the preallocated buffers at ``kv_len``. A "local" layer whose cache
+  has exactly ``window`` slots is a ring buffer: one token a step is
+  written at slot ``kv_len mod window``, and slot ``j`` holds absolute
+  position ``kv_len - ((kv_len - j) mod window)`` (negative, so masked,
+  for a slot not written yet). As in the JAX package this is right for
+  one token a step only; the JAX package's ring path gives wrong key
+  positions for several (fault C6 in ROADMAP.md), and the port refuses
+  them.
+* MLA, cross attention and the whisper encoder are later slices of the
+  port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -124,6 +135,44 @@ def attend(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
     return o.reshape(B, T, H, vd).to(q.dtype)
 
 
+def attend_local_banded(q, k, v, *, window: int, softcap: float = 0.0,
+                        lowp: bool = False):
+    """Exact sliding-window causal attention in O(T * 2W), the JAX
+    package's banded path. q: (B,T,H,hd); k/v: (B,T,KV,hd); T need not be
+    a multiple of ``window`` (padded inside). Each query block of W
+    attends to key blocks i-1 and i with an in-band mask; the first block
+    does not see the zero "previous" block."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    W = window
+    nb = -(-T // W)
+    pad = nb * W - T
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
+    qb = q.reshape(B, nb, W, KV, G, hd)
+    kb = k.reshape(B, nb, W, KV, hd)
+    vb = v.reshape(B, nb, W, KV, hd)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], 1),
+                    kb], dim=2)                          # (B,nb,2W,KV,hd)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], 1),
+                    vb], dim=2)
+    scale = 1.0 / math.sqrt(hd)
+    sdt = torch.bfloat16 if lowp else torch.float32
+    s = torch.einsum("bnqkgh,bnskh->bnkgqs", qb.to(sdt), k2.to(sdt)) * scale
+    s = L.softcap(s, softcap)
+    dev = q.device
+    q_pos = torch.arange(W, device=dev)[:, None]        # within-block q idx
+    k_pos = torch.arange(2 * W, device=dev)[None, :] - W
+    ok = (k_pos <= q_pos) & (k_pos > q_pos - W)
+    first = torch.arange(nb, device=dev)[:, None, None] == 0
+    ok = ok[None] & ~(first & (k_pos[None] < 0))         # (nb, W, 2W)
+    s = s + torch.where(ok, 0.0, NEG_INF).to(sdt)[:, None, None]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bnkgqs,bnskh->bnqkgh", p, v2.to(sdt))
+    return o.reshape(B, nb * W, H, hd)[:, :T].to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # full mixer: project -> rope -> attend -> out
 # ---------------------------------------------------------------------------
@@ -161,17 +210,28 @@ def attn_apply(p, x, cfg: ArchConfig, *, mixer: str, cache=None,
     if cache is not None:
         S_buf = cache["k"].shape[1]
         if mixer == "local" and S_buf == cfg.window_size:
-            raise NotImplementedError("the sliding-window ring buffer is a "
-                                      "later slice of the port")
-        if kv_len + T > S_buf:
+            # the ring buffer: one token a step, written at slot
+            # kv_len mod window and read with each slot's absolute position
+            if T != 1:
+                raise ValueError(f"a ring-buffer cache takes one token a "
+                                 f"step, not {T} (the JAX package's ring "
+                                 f"path mislabels the key positions of "
+                                 f"several: fault C6)")
+            start, valid = kv_len % S_buf, None
+            j = torch.arange(S_buf, dtype=torch.int64, device=x.device)
+            k_pos = kv_len - torch.remainder(kv_len - j, S_buf)
+        elif kv_len + T > S_buf:
             raise ValueError(f"cache of {S_buf} slots cannot take "
                              f"{kv_len} + {T} positions")
-        cache["k"][:, kv_len:kv_len + T] = k.to(cache["k"].dtype)
-        cache["v"][:, kv_len:kv_len + T] = v.to(cache["v"].dtype)
+        else:
+            start, valid, k_pos = kv_len, kv_len + T, None
+        cache["k"][:, start:start + T] = k.to(cache["k"].dtype)
+        cache["v"][:, start:start + T] = v.to(cache["v"].dtype)
         new_cache = cache
         o = attend(q, cache["k"], cache["v"], causal=True, window=window,
                    softcap=cfg.attn_softcap, q_offset=kv_len,
-                   kv_len=kv_len + T, lowp=cfg.attn_lowp_probs)
+                   kv_len=valid, k_positions=k_pos,
+                   lowp=cfg.attn_lowp_probs)
     else:
         o = attend(q, k, v, causal=True, window=window,
                    softcap=cfg.attn_softcap, lowp=cfg.attn_lowp_probs)
@@ -181,8 +241,9 @@ def attn_apply(p, x, cfg: ArchConfig, *, mixer: str, cache=None,
 def make_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
                     mixer: str = "attn", lead=(), device=None):
     """Cache for one attention layer (``lead`` stacks a segment's repeats).
-    A "local" layer gets at most ``window`` slots, as in the JAX package;
-    `attn_apply` refuses the ring buffer that needs."""
+    A "local" layer gets ``min(max_len, window)`` slots, as in the JAX
+    package: with ``max_len >= window`` that is the ring buffer, below it
+    an ordinary cache read under the window's mask."""
     S = max_len if mixer != "local" else min(max_len, cfg.window_size)
     shape = tuple(lead) + (batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
     dt = L.torch_dtype(dtype)

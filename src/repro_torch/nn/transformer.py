@@ -7,16 +7,18 @@ each segment stacks the parameters of its repeating pattern along a leading
 takes one repeat at a time (a view, no copy). `params_from_numpy` and
 `params_to_numpy` carry the tree across as numpy arrays.
 
-The port covers blocks with an "attn" (or cache-free "local") or a Mamba-1
-"ssm" mixer and a dense or absent FFN. MLA, MoE, RG-LRU, cross attention,
-the encoder and vision inputs are later slices and raise
-``NotImplementedError``.
+The port covers blocks with an "attn" or "local" (sliding-window, with
+its ring buffer) attention, a Mamba-1 "ssm" or an RG-LRU "rec" mixer, and
+a dense, MoE or absent FFN. `forward` returns the summed router aux loss
+of the MoE layers. MLA, cross attention, the encoder and vision inputs are
+later slices and raise ``NotImplementedError``.
 
 Public entry points:
   init(generator, cfg)                     -> params
   forward(params, batch, cfg, remat=True)  -> (logits, aux)  (train / prefill)
   decode_step(params, state, tokens, cfg)  -> (logits, state)  (one token)
   init_decode_state(cfg, batch, max_len, dtype) -> cache state
+  active_param_count(params, cfg)          -> parameters a token uses
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as M
+from repro_torch.nn import rglru as R
 from repro_torch.nn import ssm as S
 
 
@@ -39,11 +43,9 @@ def _unsupported(cfg: ArchConfig, spec: LayerSpec) -> None:
     if cfg.encoder is not None or cfg.vision is not None:
         raise NotImplementedError("encoder and vision inputs are a later "
                                   "slice of the port")
-    if spec.mixer not in ("attn", "local", "ssm"):
+    if spec.mixer not in ("attn", "local", "ssm", "rec"):
         raise NotImplementedError(f"the {spec.mixer!r} mixer is a later "
                                   "slice of the port")
-    if spec.ffn == "moe":
-        raise NotImplementedError("MoE is a later slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -59,12 +61,17 @@ def _block_init(generator, cfg: ArchConfig, spec: LayerSpec, dtype, *,
                                               **kw)}
     if spec.mixer == "ssm":
         p["mixer"] = S.ssm_init(generator, cfg, dtype, **kw)
+    elif spec.mixer == "rec":
+        p["mixer"] = R.rglru_init(generator, cfg, dtype, **kw)
     else:
         p["mixer"] = A.attn_init(generator, cfg, dtype, **kw)
     if spec.ffn == "dense":
         p["norm2"] = L.norm_init(cfg.d_model, cfg.norm_type, **kw)
         p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff,
                               cfg.mlp_type, dtype, **kw)
+    elif spec.ffn == "moe":
+        p["norm2"] = L.norm_init(cfg.d_model, cfg.norm_type, **kw)
+        p["moe"] = M.moe_init(generator, cfg, dtype, **kw)
     if cfg.post_norm:
         p["post_norm1"] = L.norm_init(cfg.d_model, cfg.norm_type, **kw)
         if spec.ffn != "none":
@@ -79,24 +86,31 @@ def _norm(p, x, cfg: ArchConfig):
 
 def _block_apply(p, x, cfg: ArchConfig, spec: LayerSpec, *, cache=None,
                  kv_len=None):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux); aux is the router's loss of an MoE
+    FFN, else None."""
     _unsupported(cfg, spec)
     h = _norm(p["norm1"], x, cfg)
     if spec.mixer == "ssm":
         o, new_cache = S.ssm_apply(p["mixer"], h, cfg, cache=cache)
+    elif spec.mixer == "rec":
+        o, new_cache = R.rglru_apply(p["mixer"], h, cfg, cache=cache)
     else:
         o, new_cache = A.attn_apply(p["mixer"], h, cfg, mixer=spec.mixer,
                                     cache=cache, kv_len=kv_len)
     if cfg.post_norm:
         o = _norm(p["post_norm1"], o, cfg)
     x = x + o
-    if spec.ffn == "dense":
-        o = L.mlp_apply(p["mlp"], _norm(p["norm2"], x, cfg), cfg.mlp_type,
-                        dtype=cfg.dtype)
+    aux = None
+    if spec.ffn != "none":
+        h = _norm(p["norm2"], x, cfg)
+        if spec.ffn == "moe":
+            o, aux = M.moe_apply(p["moe"], h, cfg)
+        else:
+            o = L.mlp_apply(p["mlp"], h, cfg.mlp_type, dtype=cfg.dtype)
         if cfg.post_norm:
             o = _norm(p["post_norm2"], o, cfg)
         x = x + o
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -118,27 +132,31 @@ def _take(tree, r: int):
 
 def _segment_apply(seg_params, x, cfg: ArchConfig, seg, *, caches=None,
                    kv_len=None, remat: bool = False):
-    """Returns x; caches are updated in place. ``remat``: each repeat of
-    the pattern runs under `torch.utils.checkpoint.checkpoint`, which keeps
-    only its input and runs it again in the backward pass, as the JAX
-    package's `jax.checkpoint` of its scan body does."""
+    """Returns (x, the summed aux of the MoE layers); caches are updated
+    in place. ``remat``: each repeat of the pattern runs under
+    `torch.utils.checkpoint.checkpoint`, which keeps only its input and
+    runs it again in the backward pass, as the JAX package's
+    `jax.checkpoint` of its scan body does."""
 
-    def body(x, params, cache_r):
+    def body(x, aux, params, cache_r):
         for i, spec in enumerate(seg.pattern):
-            x, _ = _block_apply(params[i], x, cfg, spec,
-                                cache=None if cache_r is None else cache_r[i],
-                                kv_len=kv_len)
-        return x
+            x, _, a = _block_apply(
+                params[i], x, cfg, spec,
+                cache=None if cache_r is None else cache_r[i], kv_len=kv_len)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(seg.repeats):
         params = _take(seg_params, r)
         cache_r = None if caches is None else _take(caches, r)
         if remat and cache_r is None:
-            x = checkpoint(body, x, params, None, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(body, x, aux, params, None,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            x = body(x, params, cache_r)
-    return x
+            x, aux = body(x, aux, params, cache_r)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +215,8 @@ def _lm_head(p, x, cfg: ArchConfig):
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
             remat: bool = True):
     """Train/prefill forward. batch: {"tokens": (B, T)}.
-    Returns (logits float32 (B, T, V), aux_loss). ``remat`` recomputes each
+    Returns (logits float32 (B, T, V), aux_loss: the router losses of the
+    MoE layers summed, 0 without one). ``remat`` recomputes each
     block in the backward pass instead of keeping its activations (no
     effect without one); the "dots" policy, which keeps the products'
     outputs, is not ported and raises."""
@@ -206,10 +225,11 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
                                   "outputs) is not ported")
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
-    for seg_params, seg in zip(params["segments"], cfg.segments):
-        x = _segment_apply(seg_params, x, cfg, seg, remat=remat)
-    x = _norm(params["final_norm"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg_params, seg in zip(params["segments"], cfg.segments):
+        x, a = _segment_apply(seg_params, x, cfg, seg, remat=remat)
+        aux = aux + a
+    x = _norm(params["final_norm"], x, cfg)
     return _lm_head(params, x, cfg), aux
 
 
@@ -227,13 +247,20 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
     for seg in cfg.segments:
         for spec in seg.pattern:
             _unsupported(cfg, spec)
-        caches.append(tuple(
-            S.make_ssm_cache(cfg, batch, dtype, lead=(seg.repeats,),
-                             device=dev) if spec.mixer == "ssm" else
-            A.make_attn_cache(cfg, batch, max_len, dtype, mixer=spec.mixer,
-                              lead=(seg.repeats,), device=dev)
-            for spec in seg.pattern))
+        caches.append(tuple(_layer_cache(cfg, spec, batch, max_len, dtype,
+                                         (seg.repeats,), dev)
+                            for spec in seg.pattern))
     return {"caches": tuple(caches), "kv_len": 0}
+
+
+def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
+                 dtype, lead, dev):
+    if spec.mixer == "ssm":
+        return S.make_ssm_cache(cfg, batch, dtype, lead=lead, device=dev)
+    if spec.mixer == "rec":
+        return R.make_rglru_cache(cfg, batch, dtype, lead=lead, device=dev)
+    return A.make_attn_cache(cfg, batch, max_len, dtype, mixer=spec.mixer,
+                             lead=lead, device=dev)
 
 
 def decode_step(params, state, tokens, cfg: ArchConfig):
@@ -243,8 +270,8 @@ def decode_step(params, state, tokens, cfg: ArchConfig):
     x = _embed_tokens(params, tokens, cfg)
     for seg_params, seg, caches in zip(params["segments"], cfg.segments,
                                        state["caches"]):
-        x = _segment_apply(seg_params, x, cfg, seg, caches=caches,
-                           kv_len=kv_len)
+        x, _ = _segment_apply(seg_params, x, cfg, seg, caches=caches,
+                              kv_len=kv_len)
     x = _norm(params["final_norm"], x, cfg)
     logits = _lm_head(params, x, cfg)
     new_state = dict(state)
@@ -257,19 +284,30 @@ def decode_step(params, state, tokens, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def _leaves(tree):
+def _leaves(tree, path=()):
+    """(path, leaf) pairs of nested dicts, tuples and lists, in order."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
     elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
     else:
-        yield tree
+        yield path, tree
 
 
 def param_count(params) -> int:
-    return sum(int(x.numel()) for x in _leaves(params))
+    return sum(int(x.numel()) for _, x in _leaves(params))
+
+
+def active_param_count(params, cfg: ArchConfig) -> int:
+    """Parameters one token uses: a routed expert's leaves count at
+    top_k / E of their size (each leaf rounded down, as the JAX package
+    does), everything else (a shared expert included) in full."""
+    moe = cfg.moe
+    return sum(int(x.numel() * moe.top_k / moe.num_experts)
+               if moe is not None and "experts" in path else int(x.numel())
+               for path, x in _leaves(params))
 
 
 # numpy has no bfloat16 or float8 of its own: the JAX package's arrays carry

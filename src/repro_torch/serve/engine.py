@@ -5,8 +5,9 @@ Slots: fixed ``batch`` decode lanes. Every slot shares one ``kv_len``, so a
 wave of up to ``batch`` requests is prefilled token by token (prompts
 left-padded with zeros to the longest) and decoded greedily until every
 request of the wave is done; the next wave starts from a fresh cache
-(barrier batching). Recurrent (Mamba) caches take the same path: the conv
-window and the state are updated in place by every step.
+(barrier batching). Recurrent (Mamba, RG-LRU) caches take the same path:
+the conv window and the state are updated in place by every step, and a
+sliding-window layer's ring buffer takes its one token a step.
 """
 from __future__ import annotations
 

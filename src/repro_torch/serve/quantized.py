@@ -19,7 +19,10 @@ steps therefore agree exactly only at ``dtype="float32"``. Every other
 quantized leaf is dequantized to ``cfg.dtype`` where it is read
 (`nn.layers.real`), as the JAX package dequantizes it. The embedding
 gathers and dequantizes only the rows it needs; the tied LM head
-dequantizes the table (see `transformer._lm_head`).
+dequantizes the table (see `transformer._lm_head`). RG-LRU's ``w_a`` and
+``w_i`` and the MoE expert stacks are read that way too and multiplied in
+the JAX package's dtype (`nn.rglru`, `nn.moe`): the JAX package computes
+them outside any Pallas kernel.
 """
 from __future__ import annotations
 

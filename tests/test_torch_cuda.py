@@ -9,7 +9,9 @@ bounds stated beside them (`quant_matmul_tolerance`,
 model; the backward kernels of K5 and K6 against their plain versions
 (`flash_attention_bwd_tolerance`, `ssm_scan_bwd_tolerance`), gradients
 through autograd and a train step through the kernels; K2-K4 refusing a
-gradient. They import no
+gradient; K5 with a window against the banded path, the ring-buffer
+decode against the windowed forward, a recurrent w8 decode through K2 and
+the MoE layer on the card against the CPU. They import no
 JAX (the machine with the card has none) and skip without a CUDA device;
 on the card run them without the JAX-importing conftest:
 
@@ -368,6 +370,11 @@ WGMMA_CASES = {
     "hd256_t77_g1": (2, 77, 77, 2, 2, 256, True, 0, 0.0),
     "hd256_s333_g8": (1, 150, 333, 8, 1, 256, False, 0, 0.0),
     "hd256_window_g2": (1, 600, 600, 4, 2, 256, True, 100, 0.0),
+    # recurrentgemma-9b's local layers (MQA, G = 16, window 2048) and
+    # gemma2-2b's (8/4 heads, window 4096, softcap 50), past the window
+    "hd256_g16_window_2048": (1, 2500, 2500, 16, 1, 256, True, 2048, 0.0),
+    "hd256_gemma2_window_4096_softcap_50": (1, 4200, 4200, 8, 4, 256, True,
+                                            4096, 50.0),
 }
 
 
@@ -1476,3 +1483,115 @@ def test_train_step_through_the_kernels_matches_plain(card, arch,
             float(m2[key]))
     for a, b in zip(tree_leaves(s1.params), tree_leaves(s2.params)):
         assert float((a - b).abs().max()) <= 1e-5 + 2.2 * opt.lr
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and MoE slice: the ring buffer, RG-LRU, MoE
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hd256_g16_window_2048",
+                                  "hd256_gemma2_window_4096_softcap_50",
+                                  "hd256_window_g2"])
+def test_flash_attention_matches_the_banded_path(card, case):
+    """K5 with a window against `attention.attend_local_banded`, the JAX
+    package's banded path, within the bound stated for its plain
+    version."""
+    B, Tq, S, H, KV, hd, causal, window, cap = WGMMA_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + window)
+    q, k, v = (torch.randn(shape, generator=g, device=card).to(
+        torch.bfloat16) for shape in ((B, Tq, H, hd), (B, S, KV, hd),
+                                      (B, S, KV, hd)))
+    kw = dict(causal=True, window=window, softcap=cap)
+    got = FA.flash_attention(q, k, v, **kw)
+    banded = A.attend_local_banded(q, k, v, window=window, softcap=cap)
+    tol = FA.flash_attention_bound(q, k, v, banded, **kw)
+    assert bool(((got.float() - banded.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemma2-2b", "recurrentgemma-9b"])
+def test_ring_decode_matches_the_windowed_forward(card, name):
+    """Reduced depth, float32, window 16: 40 decode steps through the ring
+    buffer (RG-LRU's step-by-step state too) against the last-position
+    logits of the cache-free forward, whose local layers run K5 with the
+    window; float32 end to end, a few layers of reordered sums."""
+    cfg = ARCHS[name].reduced()
+    params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
+                    device=card)
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), device=card)
+    state = T.init_decode_state(cfg, 2, 40, torch.float32, device=card)
+    reset_launches()
+    for t in range(40):
+        logits, state = T.decode_step(params, state, tok[:, t:t + 1], cfg)
+        if t in (16, 27, 39):
+            want, _ = T.forward(params, {"tokens": tok[:, :t + 1]}, cfg)
+            torch.testing.assert_close(logits[:, 0], want[:, -1], rtol=1e-4,
+                                       atol=1e-4)
+    torch.cuda.synchronize()
+    n_attn = sum(s.mixer in ("attn", "local") for seg in cfg.segments
+                 for s in seg.pattern for _ in range(seg.repeats))
+    assert LAUNCHES["flash_attention"] == 3 * n_attn
+
+
+@pytest.mark.cuda
+def test_w8_recurrent_decode_goes_through_k2(card, monkeypatch):
+    """recurrentgemma-9b at d_model and lru_width 256: K2 takes w_x,
+    w_gate, w_out and the MLP (6 a recurrent layer) and the attention and
+    MLP products (7 a local one); w_a and w_i are read dequantized. The
+    logits equal those through K2's plain version (float32)."""
+    from repro_torch.configs.base import RGLRUConfig
+    cfg = ARCHS["recurrentgemma-9b"].reduced(
+        **dict(QUANT_CFG, num_kv_heads=1, head_dim=128,
+               rglru=RGLRUConfig(lru_width=256)))
+    params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
+                    device=card)
+    qp = QS.quantize_params(params, bits=8)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 20), device=card)
+    n_rec = sum(s.mixer == "rec" for seg in cfg.segments
+                for s in seg.pattern for _ in range(seg.repeats))
+    logits = {}
+    for variant in ("kernel", "plain"):
+        if variant == "plain":
+            monkeypatch.setattr("repro_torch.nn.layers.quant_matmul",
+                                QM.quant_matmul_ref)
+        state = T.init_decode_state(cfg, 8, 32, torch.float32, device=card)
+        reset_launches()
+        out = []
+        for t in range(tokens.shape[1]):
+            lg, state = T.decode_step(qp, state, tokens[:, t:t + 1], cfg)
+            out.append(lg)
+        torch.cuda.synchronize()
+        logits[variant] = torch.cat(out, 1)
+        expect = (6 * n_rec + 7 * (cfg.num_layers - n_rec)) * 20
+        assert LAUNCHES["quant_matmul"] == (expect if variant == "kernel"
+                                            else 0)
+    torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["global", "per_sample"])
+def test_moe_layer_on_the_card_matches_the_cpu(card, dispatch):
+    """phi3.5-moe's MoE layer (reduced, float32) on the card against the
+    same layer on the CPU: routing ids and kept slots equal, the output
+    within 1e-5 (float32 products of 64 terms, reordered)."""
+    import dataclasses
+    from repro_torch.nn import moe as MO
+    base = ARCHS["phi3.5-moe-42b-a6.6b"].reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch=dispatch, capacity_factor=0.5))
+    params = T.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    p_cpu = T._take(params["segments"][0][0]["moe"], 0)
+    p_card = T.map_tree(lambda _, t: t.to(card), p_cpu)
+    x = torch.randn((3, 40, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    r_cpu = MO.route_tokens(p_cpu, x.reshape(120, -1), cfg)
+    r_card = MO.route_tokens(p_card, x.reshape(120, -1).to(card), cfg)
+    for key in ("topi", "st", "slot", "keep"):
+        assert torch.equal(r_card[key].cpu(), r_cpu[key]), key
+    want, aux_cpu = MO.moe_apply(p_cpu, x, cfg)
+    got, aux_card = MO.moe_apply(p_card, x.to(card), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert abs(float(aux_card) - float(aux_cpu)) <= 1e-6 * float(aux_cpu)

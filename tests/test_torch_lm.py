@@ -40,6 +40,9 @@ FORWARD_ARCHS = {
     "gemma-7b": ({}, 9),
     # squared ReLU, untied LM head
     "nemotron-4-340b": ({}, 10),
+    # RG-LRU and local attention past the window (tests/test_torch_hybrid.py
+    # holds the rest of the hybrid slice)
+    "recurrentgemma-9b": ({}, 40),
 }
 
 
@@ -95,11 +98,12 @@ def test_port_init_has_the_reference_shapes():
     assert float(w.abs().max()) <= 2.0 / np.sqrt(cfg.d_model) + 1e-6
 
 
-@pytest.mark.parametrize("cache_dtype", ["float32", "float8_e4m3fn"])
-def test_decode_steps_match_logits_and_caches(cache_dtype):
-    rcfg, tcfg, rparams, tparams = carried("qwen3-0.6b")
-    B, steps, max_len = 2, 6, 16
-    tok = tokens(B, steps, rcfg.vocab_size, seed=7)
+def _check_decode(name, cache_dtype, steps, max_len, seed):
+    """``steps`` one-token decode steps in both packages: every step's
+    logits, then every cache."""
+    rcfg, tcfg, rparams, tparams = carried(name)
+    B = 2
+    tok = tokens(B, steps, rcfg.vocab_size, seed=seed)
     rstate = RT.init_decode_state(rcfg, B, max_len, jnp.dtype(cache_dtype))
     tstate = TT.init_decode_state(tcfg, B, max_len, cache_dtype,
                                   device="cpu")
@@ -128,6 +132,21 @@ def test_decode_steps_match_logits_and_caches(cache_dtype):
             off = np.abs(tc - rc) > 0
             assert np.all(np.abs(tc - rc) <= step + 1e-12)
             assert off.mean() <= 0.01, off.mean()
+    return tstate
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "float8_e4m3fn"])
+def test_decode_steps_match_logits_and_caches(cache_dtype):
+    _check_decode("qwen3-0.6b", cache_dtype, steps=6, max_len=16, seed=7)
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "float8_e4m3fn"])
+def test_ring_decode_steps_match_logits_and_caches(cache_dtype):
+    """gemma2-2b's local layers decode through a ring buffer of ``window``
+    slots (16 reduced): 24 steps at max_len 32 wrap it once."""
+    state = _check_decode("gemma2-2b", cache_dtype, steps=24, max_len=32,
+                          seed=9)
+    assert state["caches"][0][0]["k"].shape[2] == 16
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -156,7 +175,6 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("name,what", [
     ("deepseek-v2-236b", "MLA"),
-    ("phi3.5-moe-42b-a6.6b", "MoE"), ("recurrentgemma-9b", "'rec'"),
     ("whisper-base", "whisper"), ("llama-3.2-vision-11b", "vision")])
 def test_later_slices_raise(name, what):
     with pytest.raises(NotImplementedError, match=what):
@@ -174,16 +192,3 @@ def test_ssm_family_builds():
     logits, _ = TT.decode_step(params, state,
                                torch.zeros((1, 1), dtype=torch.long), cfg)
     assert logits.shape == (1, 1, cfg.vocab_size)
-
-
-def test_sliding_window_ring_buffer_is_a_later_slice():
-    """gemma2's local layers decode through a ring buffer of ``window``
-    slots in the JAX package; the port sizes the cache the same way and
-    refuses to decode through it until that slice."""
-    _, tcfg, _, tparams = carried("gemma2-2b")
-    state = TT.init_decode_state(tcfg, 1, 32, torch.float32, device="cpu")
-    local = state["caches"][0][0]["k"]
-    assert local.shape[2] == tcfg.window_size
-    with pytest.raises(NotImplementedError, match="ring buffer"):
-        TT.decode_step(tparams, state, torch.zeros((1, 1), dtype=torch.long),
-                       tcfg)

@@ -37,9 +37,12 @@ Phases, each fatal on failure, each with its seconds printed:
    96/8 heads, T = 512 and 333, in both bodies; recurrentgemma-9b's MQA
    (16 query heads over one kv head, head_dim 256, window 2048 passed) and
    gemma2-2b's 8/4 heads (head_dim 256, window 4096 passed, softcap 50);
-   each case checks the body it took, and each windowed case past its
-   window is also held against ``attend_local_banded``, the JAX package's
-   banded path;
+   whisper-base's encoder (T = S = 1500, 8/8 heads of 64) and the cross
+   attention of phases 32-33 at prefill (T 1024) and decode (T 1) over
+   1500 frames (8/8 heads of 64) and 1601 patches (32/8 heads of 128),
+   bf16, non-causal; each case checks the body it took, and each windowed
+   case past its window is also held against ``attend_local_banded``, the
+   JAX package's banded path;
 8. LM serving, prefill: ``make_prefill_step`` on qwen3-0.6b at full width
    (seeded random bf16 weights, 4 prompts of 1024 tokens), K5's launches
    counted (28, all through the wgmma body), the last-position logits held
@@ -185,7 +188,34 @@ Phases, each fatal on failure, each with its seconds printed:
    84 GB in bf16): the prefill (K5 4 launches), the logits held against
    K5's plain version with the kernel run's routing replayed (the choices
    the plain run would flip counted), the dropped-token share at capacity
-   factor 1.25, the router's aux loss (finite, > 0), the dense engine.
+   factor 1.25, the router's aux loss (finite, > 0), the dense engine;
+31. deepseek-v2-236b at full width with its dense layer 0 and 3 of its 59
+   MoE layers (13,302,912,000 parameters; all 60 are about 440 GiB in
+   bf16): the prefill through MLA (K5 4 launches at head_dim 192 with v
+   padded from 128), the logits against K5's plain version with the
+   routing replayed; K5 at MLA's shape through ``attend`` and alone, SDPA
+   on v at 128 beside it; MLA's absorbed decode against the last position
+   of a prefill over the same tokens (layer 0 alone); the dense engine;
+   the w8 decode (K2 33 a step; the bf16 weights freed first, as the step
+   dequantizes the expert stacks);
+32. whisper-base at full width and depth, every ``cross_gate`` set to 0.5
+   (0 at init would drop the cross sublayer): the encoder over 4 x 1500
+   seeded frames (K5 6 launches, non-causal) against K5's plain version; the
+   prefill over them (K5 18: 6 encoder, 6 causal, 6 cross over the
+   frames; each non-causal launch also held element by element against
+   K5's plain version on its inputs); over the encoder's output for 8
+   requests, the dense decode teacher-forced for 32 steps (K5 6 a step for
+   the cross attention at T = 1, each launch held element by element, the
+   logits against the same steps on K5's plain version), the dense engine
+   and the w8 decode (K2 61 a step, K5 6 a step);
+33. llama-3.2-vision-11b at full width and depth (40 layers, 8 cross, the
+   gates at 0.5): the prefill over 4 x 1601 seeded patches (K5 48: 40
+   causal, 8 cross, the cross launches held as in 32), the dense decode as
+   in 32 (K5 8 a step), the dense engine, the w8 decode (K2 313 a step, K5
+   8), and the share of the w8 step that the cross K and V projections at
+   M = 8 x 1601 take (made again at every step, as the JAX package does).
+   Phases 28-30 run in ``hybrid_serving``, 31-33 in ``mla_cross_serving``,
+   each callable alone after K2 and K5 are built.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -201,6 +231,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -532,6 +563,21 @@ def lm_serving(card: str, dev):
             "hd256_gemma2_window_4096_softcap_50": (
                 1, 4200, 4200, 8, 4, 256, True, 4096, 50.0,
                 {"bf16": torch.bfloat16}),
+            # phases 32 and 33, non-causal: whisper-base's encoder (8/8
+            # heads of 64 over 1500 frames), and the cross attention at
+            # prefill (T 1024, batch 4) and at decode (T 1, batch 8) over
+            # whisper's 1500 frames and llama-3.2-vision's 1601 patches
+            # (32/8 heads of 128)
+            "whisper_encoder_t_s_1500": (4, 1500, 1500, 8, 8, 64, False, 0,
+                                         0.0, {"bf16": torch.bfloat16}),
+            "whisper_cross_t_1024_s_1500": (4, 1024, 1500, 8, 8, 64, False,
+                                            0, 0.0, {"bf16": torch.bfloat16}),
+            "vision_cross_t_1024_s_1601": (4, 1024, 1601, 32, 8, 128, False,
+                                           0, 0.0, {"bf16": torch.bfloat16}),
+            "whisper_cross_t_1_s_1500": (8, 1, 1500, 8, 8, 64, False, 0, 0.0,
+                                         {"bf16": torch.bfloat16}),
+            "vision_cross_t_1_s_1601": (8, 1, 1601, 32, 8, 128, False, 0,
+                                        0.0, {"bf16": torch.bfloat16}),
         }
         for name, (B, Tq, S, H, KV, hd, causal, window, cap, dts) in \
                 cases.items():
@@ -2893,65 +2939,73 @@ def lm_training(card: str, dev):
     return [fa_entry, ssm_entry], numbers
 
 
-# phases 28-30: the prefill batch, the w8 decode (batch, prompt, greedy
+# phases 28-33: the prefill batch, the w8 decode (batch, prompt, greedy
 # steps), the tokens decoded past the window in the ring wraps, the steps
 # timed at full depth past the window, and the engine's waves (waves,
-# prompt tokens, new tokens; ``HYBRID_DECODE[0]`` requests a wave)
-HYBRID_PREFILL = (4, 1024)
-HYBRID_DECODE = (8, 16, 16)
+# prompt tokens, new tokens; ``SERVING_DECODE[0]`` requests a wave)
+SERVING_PREFILL = (4, 1024)
+SERVING_DECODE = (8, 16, 16)
 RING_PAST_WINDOW = 64
 PAST_WINDOW_STEPS = 8
 ENGINE_WAVES = (3, 16, 16)
-# relative L2 bounds of phases 28-30's comparisons: the prefill's last
-# logits against K5's plain version ("prefill"), the w8 decode's against
-# K2's plain version ("w8"), the ring wrap's decode against the windowed
-# forward ("ring"), and each ring slot's k and v against the forward's at
-# the position the slot must hold ("slot"). Each is about 4x the largest
+# relative L2 bounds of phases 28-33's comparisons: the prefill's last
+# logits against K5's plain version ("prefill"; whisper's encoder output is
+# held to its model's), the w8 decode's against K2's plain version ("w8"),
+# the ring wrap's decode against the windowed forward ("ring"), each ring
+# slot's k and v against the forward's at the position the slot must hold
+# ("slot"), MLA's absorbed decode against the last position of a prefill
+# over the same tokens ("decode"), and the dense decode's against the same
+# steps on K5's plain version ("dense"). Each is about 4x the largest
 # reading on an H100, which repeated to the digit from run to run; a wrong
-# or stale slot is a relative L2 of order 1.
-HYBRID_BOUNDS = {
+# or stale slot, a broken cross attention or MLA is a relative L2 of order
+# 1.
+SERVING_BOUNDS = {
     "gemma2-2b": {"prefill": 0.028, "w8": 0.028, "ring": 0.008,
                   "slot": 0.004},
     "recurrentgemma-9b": {"prefill": 0.014, "w8": 0.015, "ring": 0.0034,
                           "slot": 0.008},
     "phi3.5-moe": {"prefill": 0.025},
+    "deepseek-v2": {"prefill": 0.03, "w8": 0.034, "decode": 0.017},
+    "whisper-base": {"prefill": 0.031, "w8": 0.031, "dense": 0.036},
+    "llama-3.2-vision": {"prefill": 0.08, "w8": 0.092, "dense": 0.084},
 }
-# phi3.5-moe: the layers kept of its 32 (all 32 are 84 GB in bf16)
+# phi3.5-moe: the layers kept of its 32 (all 32 are 84 GB in bf16);
+# deepseek-v2: its dense layer 0 and 3 of its 59 MoE layers (all 60 are
+# about 440 GiB in bf16)
 PHI_LAYERS = 4
+DEEPSEEK_MOE_LAYERS = 3
 # parameters and active parameters at these depths, as the JAX package's
 # `param_count` and `active_param_count` count them
-HYBRID_PARAMS = {"gemma2-2b": (2614341888, 2614341888),
-                 "recurrentgemma-9b": (9396408320, 9396408320),
-                 "phi3.5-moe-42b-a6.6b": (5463904256, 1059885056)}
+SERVING_PARAMS = {"gemma2-2b": (2614341888, 2614341888),
+                  "recurrentgemma-9b": (9396408320, 9396408320),
+                  "phi3.5-moe-42b-a6.6b": (5463904256, 1059885056),
+                  "deepseek-v2-236b": (13302912000, 2402964480),
+                  "whisper-base": (114727942, 114727942),
+                  "llama-3.2-vision-11b": (10110734344, 10110734344)}
 
 
-def hybrid_serving(card: str, dev):
-    """Phases 28-30: gemma2-2b, recurrentgemma-9b and phi3.5-moe (4 of its
-    32 layers) at full width through their prefill, w8 decode, dense engine
-    and ring-buffer decode. The 4 x 1024 prefills sit below both windows
-    (4096, 2048), so their windowed K5 launches mask no key; K5's window is
-    held by phase 7 and by the ring wraps' forwards past the window.
-    Returns each path's K5 and K2 launches."""
-    import dataclasses
+def n_mixers(cfg, mixer: str) -> int:
+    """The layers of ``cfg`` whose mixer is ``mixer``."""
+    return sum(s.mixer == mixer for seg in cfg.segments
+               for s in seg.pattern for _ in range(seg.repeats))
 
+
+def serving_steps(card: str, dev, gen, out):
+    """The steps phases 28-33 share: each draws from ``gen`` and adds its
+    path's K5 and K2 launches to ``out["k5"]`` and ``out["k2"]``. Returns
+    them by name."""
     import numpy as np
     import torch
-    from repro_torch.configs import ARCHS
-    from repro_torch.configs.base import Segment
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.nn import attention as A
     from repro_torch.nn import layers as L
     from repro_torch.nn import moe as M
-    from repro_torch.nn import rglru as R
     from repro_torch.nn import transformer as T
     from repro_torch.serve import quantized as QS
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.train.train_state import make_prefill_step
-
-    gen = torch.Generator(device=dev).manual_seed(28)
-    out = {"k5": {}, "k2": {}}
 
     def draw(n, name, cfg):
         torch.cuda.synchronize()
@@ -2966,52 +3020,109 @@ def hybrid_serving(card: str, dev):
               f"({counts[1]} active) drawn in "
               f"{time.perf_counter() - t0:.3f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
-        want = HYBRID_PARAMS.get(cfg.name)
+        want = SERVING_PARAMS.get(cfg.name)
         check(want is None or counts == want, f"{counts} parameters and "
               f"active parameters, not the JAX package's {want}")
-        return params
+        # init leaves every cross_gate at 0, where tanh(0) = 0 drops the
+        # cross sublayer and no check below could see cross attention
+        return T.map_tree(lambda path, t: torch.full_like(t, 0.5)
+                          if "cross_gate" in path else t, params)
+
+    def with_routes(fn, routes=None):
+        """``fn()`` with every MoE layer's routing recorded, or, given
+        ``routes``, replayed in order: each layer routes as the recorded
+        run did, and the choices it would have made otherwise are counted.
+        Returns (fn's result, the routings recorded, [other experts
+        chosen, other pairs kept])."""
+        route = M.route_tokens
+        seen, flips = [], [0, 0]
+        replay = None if routes is None else iter(routes)
+
+        def routed(p, xf, c):
+            mine = route(p, xf, c)
+            if replay is None:
+                seen.append(mine)
+                return mine
+            theirs = next(replay)
+            flips[0] += int((mine["topi"] != theirs["topi"]).sum())
+            flips[1] += int((mine["keep"] != theirs["keep"]).sum())
+            return theirs
+
+        M.route_tokens = routed
+        try:
+            return fn(), seen, flips
+        finally:
+            M.route_tokens = route
+
+    def context(cfg, B):
+        """Seeded stub frames (whisper) or patches (vision) at d_model in
+        the model's dtype: the batch key and the tensor, or (None, None)."""
+        n, key = ((cfg.encoder.num_frames, "frames") if cfg.encoder else
+                  (cfg.vision.num_patches, "patches") if cfg.vision else
+                  (0, None))
+        if key is None:
+            return None, None
+        return key, torch.randn((B, n, cfg.d_model), generator=gen,
+                                device=dev).to(L.torch_dtype(cfg.dtype))
 
     def prefill(n, name, cfg, params, *, windowed, bound,
                 replay_routing=False):
-        """make_prefill_step on 4 x 1024 tokens, K5's launches counted by
-        the window each took and by body, timed, and held against the
-        same step on K5's plain version."""
+        """make_prefill_step on 4 x 1024 tokens (with seeded frames or
+        patches where the model takes them), K5's launches counted by the
+        window each took, causal or not, and by body, timed, and held
+        against the same step on K5's plain version. Each non-causal launch
+        (an encoder layer's, a cross attention's) is also held element by
+        element against K5's plain version on its own inputs."""
         step = make_prefill_step(cfg)
-        Bp, Tp = HYBRID_PREFILL
+        Bp, Tp = SERVING_PREFILL
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (Bp, Tp),
                                          generator=gen, device=dev)}
-        windows = []
+        key, ctx = context(cfg, Bp)
+        if key:
+            batch[key] = ctx
+        windows, causal, shares = [], [], []
         kernel = A.flash_attention
 
         def recording(q, k, v, **kw):
             windows.append(kw.get("window", 0))
-            return kernel(q, k, v, **kw)
-
-        routes = []
-        route = M.route_tokens
-
-        def recording_route(p, xf, c):
-            routes.append(route(p, xf, c))
-            return routes[-1]
+            causal.append(kw.get("causal", True))
+            o = kernel(q, k, v, **kw)
+            if not causal[-1]:
+                ref = FA.flash_attention_plain(q, k, v, **kw)
+                shares.append(_within(o, ref, FA.flash_attention_bound(
+                    q, k, v, ref, **kw))[1])
+            return o
 
         A.flash_attention = recording
-        M.route_tokens = recording_route
         try:
             reset_launches()
-            last = step(params, batch)
+            last, routes, _ = with_routes(lambda: step(params, batch))
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
         finally:
             A.flash_attention = kernel
-            M.route_tokens = route
-        n_attn = sum(s.mixer in ("attn", "local") for seg in cfg.segments
-                     for s in seg.pattern for _ in range(seg.repeats))
+        # each self-attention (a cross block's too) causal; each cross
+        # attention and each encoder layer not
+        n_causal = sum(n_mixers(cfg, m) for m in ("attn", "local", "cross"))
+        n_free = n_mixers(cfg, "cross") + (cfg.encoder.num_layers
+                                           if cfg.encoder else 0)
         k5 = launches["flash_attention"]
         n_win = sum(w > 0 for w in windows)
-        print(f"[{n}] {name} prefill {Bp} x {Tp} tokens: launches "
-              f"{launches}; K5 windowed {n_win}, global {k5 - n_win}")
-        check(k5 == n_attn == len(windows),
-              f"prefill launched flash_attention {k5} times, not {n_attn}")
+        n_c = sum(causal)
+        print(f"[{n}] {name} prefill {Bp} x {Tp} tokens"
+              + (f" over {tuple(ctx.shape)} {key}" if key else "")
+              + f": launches {launches}; K5 windowed {n_win}, global "
+              f"{k5 - n_win}; causal {n_c}, non-causal {k5 - n_c}")
+        check(k5 == n_causal + n_free == len(windows),
+              f"prefill launched flash_attention {k5} times, not "
+              f"{n_causal + n_free}")
+        check(n_c == n_causal, f"{n_c} causal K5 launches, not {n_causal}")
+        if shares:
+            print(f"[{n}] each non-causal K5 launch against K5's plain "
+                  f"version on its inputs: largest share of the bound "
+                  f"{max(shares):.3e} over {len(shares)} launches")
+            check(max(shares) <= 1.0, f"a non-causal K5 launch of {name}'s "
+                  f"prefill differs from the plain version beyond the bound")
         check(n_win == windowed, f"{n_win} windowed K5 launches, not "
               f"{windowed}")
         check(launches["flash_attention_wgmma"] == k5,
@@ -3028,25 +3139,15 @@ def hybrid_serving(card: str, dev):
         print(f"[{n}] {card}: {name} prefill {prefill_s:.4f} s "
               f"({Bp * Tp / prefill_s:.0f} tokens/s)")
         # K5's plain version on the same step; an MoE layer replays the
-        # kernel run's routing, so that a float32 near-tie between two
-        # experts cannot flip a choice (the flips it would make are counted)
-        replay = iter(routes)
-        flips = [0, 0]
-
-        def replayed_route(p, xf, c):
-            mine, theirs = route(p, xf, c), next(replay)
-            flips[0] += int((mine["topi"] != theirs["topi"]).sum())
-            flips[1] += int((mine["keep"] != theirs["keep"]).sum())
-            return theirs
-
+        # kernel run's routing, so that a near-tie between two experts
+        # cannot flip a choice (the flips it would make are counted)
         A.flash_attention = FA.flash_attention_plain
-        if replay_routing:
-            M.route_tokens = replayed_route
         try:
-            last_plain = step(params, batch)
+            last_plain, _, flips = with_routes(
+                lambda: step(params, batch),
+                routes if replay_routing else None)
         finally:
             A.flash_attention = kernel
-            M.route_tokens = route
         rel = _rel(last, last_plain)
         agree = float((last.argmax(-1) == last_plain.argmax(-1)).float()
                       .mean())
@@ -3062,16 +3163,25 @@ def hybrid_serving(card: str, dev):
         out["k5"][f"{name} prefill (phase {n})"] = k5
         return batch, routes, prefill_s
 
-    def w8_decode(n, name, cfg, params, per_step, bound):
-        """The w8 serve step at batch 8 with K2's launches counted, the
-        same tokens teacher-forced through K2's plain version, and the
-        device's busy share over 4 steps. Returns the w8 parameters."""
-        qparams = QS.quantize_params(params, bits=8)
+    def w8_decode(n, name, cfg, qparams, per_step, bound, enc_out=None,
+                  replay_routing=False):
+        """The w8 serve step at batch 8 with K2's launches counted (and
+        K5's: one a cross layer a step, over ``enc_out``), the same tokens
+        teacher-forced through K2's plain version (with the kernel run's
+        routing replayed, for an MoE model), and the device's busy share
+        over 4 steps. Returns the step's wall and device ms."""
         serve = QS.make_quant_serve_step(cfg)
-        Bd, P, G = HYBRID_DECODE
+        Bd, P, G = SERVING_DECODE
         prompt = torch.randint(0, cfg.vocab_size, (Bd, P), generator=gen,
                                device=dev)
-        state = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+
+        def fresh():
+            st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+            if enc_out is not None:
+                st["enc_out"] = enc_out
+            return st
+
+        state = fresh()
         fed, nxt = [], None
         torch.cuda.synchronize()
         reset_launches()
@@ -3093,20 +3203,25 @@ def hybrid_serving(card: str, dev):
         missed = k2 - launches["quant_matmul_mma"]
         check(missed == 0, f"{missed} quant_matmul launches missed the "
               f"tensor-core body")
-        check(launches["flash_attention"] == 0, "decode launched K5")
+        k5 = n_mixers(cfg, "cross") * (P + G)
+        check(launches["flash_attention"] == k5, f"decode launched K5 "
+              f"{launches['flash_attention']} times, not {k5}")
+        check(launches["flash_attention_wgmma"] == k5, "a decode K5 launch "
+              "missed the wgmma body")
 
         def teacher_forced():
-            st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+            st = fresh()
             lg = []
             for inp in fed:
                 x, st = T.decode_step(qparams, st, inp, cfg)
                 lg.append(x[:, 0])
             return torch.stack(lg)
 
-        kern = teacher_forced()
+        kern, routes, _ = with_routes(teacher_forced)
         L.quant_matmul = QM.quant_matmul_ref
         try:
-            plain = teacher_forced()
+            plain, _, flips = with_routes(
+                teacher_forced, routes if replay_routing else None)
         finally:
             L.quant_matmul = QM.quant_matmul
         rels = [_rel(kern[i], plain[i]) for i in range(P + G)]
@@ -3115,7 +3230,10 @@ def hybrid_serving(card: str, dev):
         print(f"[{n}] teacher-forced logits, kernel vs K2's plain version: "
               f"largest relative L2 of a step {max(rels):.3e} (bound "
               f"{bound:.3e}); the serve step's greedy tokens reproduced: "
-              f"{same}")
+              f"{same}" + (f"; routing replayed: the plain run would have "
+                           f"chosen {flips[0]} other experts and kept "
+                           f"{flips[1]} other pairs" if replay_routing
+                           else ""))
         check(bool(torch.isfinite(kern).all()), "decode logits not finite")
         check(same, "teacher-forced kernel run does not reproduce the "
               "greedy tokens of the serve step")
@@ -3123,7 +3241,7 @@ def hybrid_serving(card: str, dev):
               "version's beyond the bound")
 
         def four_steps():
-            st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+            st = fresh()
             for inp in fed[:4]:
                 serve(qparams, st, inp)
 
@@ -3132,8 +3250,90 @@ def hybrid_serving(card: str, dev):
               f"device busy {busy_s:.4f} s in {n_k} kernels, busy share "
               f"{busy_s / wall_s:.3f}")
         out["k2"][f"{name} w8 decode, {P + G} steps (phase {n})"] = k2
+        if k5:
+            out["k5"][f"{name} w8 decode, cross attention at T = 1, "
+                      f"{P + G} steps (phase {n})"] = k5
         del kern, plain
-        return qparams
+        return step_ms, busy_s / 4 * 1e3
+
+    def engine(n, name, cfg, params, max_len, enc_out=None):
+        """The dense ServeEngine at batch 8 over three waves, its caches
+        made for ``max_len`` positions (past the window, the local layers
+        take their rings), every wave reading ``enc_out``."""
+        waves, P, G = ENGINE_WAVES
+        Bd = SERVING_DECODE[0]
+        rng = np.random.default_rng(n)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   P).tolist(),
+                        max_new_tokens=G) for i in range(waves * Bd)]
+        eng = ServeEngine(params, cfg, batch=Bd, max_len=max_len,
+                          dtype=cfg.dtype, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs, enc_out=enc_out)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        check(all(r.done and len(r.output) == G
+                  and all(0 <= t < cfg.vocab_size for t in r.output)
+                  for r in reqs), "ServeEngine left a request unanswered")
+        print(f"[{n}] {card}: {name} ServeEngine batch {Bd}, max_len "
+              f"{max_len} (window {cfg.window_size}), {waves} waves of {Bd} "
+              f"requests x ({P} + {G}) tokens: {s:.3f} s, "
+              f"{eng.stats.steps} steps ({s / eng.stats.steps * 1e3:.3f} ms "
+              f"a step), {eng.stats.tokens_generated / s:.1f} tokens/s; "
+              f"request 0 output {reqs[0].output}")
+
+    def routing(n, cfg, routes, layers):
+        """The prefill's routing: dropped share and the summed aux."""
+        check(len(routes) == layers, f"{len(routes)} routings recorded, "
+              f"not {layers}")
+        kept = sum(int(r["keep"].sum()) for r in routes)
+        pairs = sum(r["keep"].numel() for r in routes)
+        aux = float(sum(r["aux"] for r in routes))
+        print(f"[{n}] routing of the prefill ({len(routes)} MoE layers, "
+              f"{routes[0]['topi'].shape[0]} tokens, top {cfg.moe.top_k} of "
+              f"{cfg.moe.num_experts}, capacity {routes[0]['C']} at factor "
+              f"{cfg.moe.capacity_factor}): dropped share "
+              f"{1 - kept / pairs:.4f} ({pairs - kept} of {pairs} pairs); "
+              f"aux loss {aux:.6f} (summed over layers; 1 a layer for a "
+              f"uniform router)")
+        check(np.isfinite(aux) and aux > 0, f"aux loss {aux}")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    return SimpleNamespace(draw=draw, with_routes=with_routes,
+                           context=context, prefill=prefill,
+                           w8_decode=w8_decode, engine=engine,
+                           routing=routing, free=free)
+
+
+def hybrid_serving(card: str, dev):
+    """Phases 28-30: gemma2-2b, recurrentgemma-9b and phi3.5-moe (4 of its
+    32 layers) at full width through their prefill, w8 decode, dense engine
+    and ring-buffer decode. The 4 x 1024 prefills sit below both windows
+    (4096, 2048), so their windowed K5 launches mask no key; K5's window is
+    held by phase 7 and by the ring wraps' forwards past the window.
+    Returns each path's K5 and K2 launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import Segment
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import rglru as R
+    from repro_torch.nn import transformer as T
+    from repro_torch.serve import quantized as QS
+    from repro_torch.train.train_state import make_prefill_step
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    out = {"k5": {}, "k2": {}}
+    steps = serving_steps(card, dev, gen, out)
+    draw, prefill, w8_decode, engine, routing, free = (
+        steps.draw, steps.prefill, steps.w8_decode, steps.engine,
+        steps.routing, steps.free)
 
     def past_window(n, name, cfg, params, qparams, per_step):
         """The dense and the w8 decode step at full depth and batch 8, 64
@@ -3143,7 +3343,7 @@ def hybrid_serving(card: str, dev):
         starts at ``kv_len = window + 64`` over zeroed caches instead of
         after as many real steps. Each timed over 8 steps after 2, K2's
         launches of the w8 run counted, busy shares over 4 steps."""
-        Bd, W = HYBRID_DECODE[0], cfg.window_size
+        Bd, W = SERVING_DECODE[0], cfg.window_size
         kv0 = W + RING_PAST_WINDOW
         serve = QS.make_quant_serve_step(cfg)
         tok = torch.randint(0, cfg.vocab_size, (Bd, 1), generator=gen,
@@ -3197,33 +3397,6 @@ def hybrid_serving(card: str, dev):
                           f"{2 + PAST_WINDOW_STEPS} steps (phase {n})"] = k2
             else:
                 check(k2 == 0, "the dense decode launched quant_matmul")
-
-    def engine(n, name, cfg, params, max_len):
-        """The dense ServeEngine at batch 8 over three waves, its caches
-        made for ``max_len`` positions (past the window, the local layers
-        take their rings)."""
-        waves, P, G = ENGINE_WAVES
-        Bd = HYBRID_DECODE[0]
-        rng = np.random.default_rng(n)
-        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                   P).tolist(),
-                        max_new_tokens=G) for i in range(waves * Bd)]
-        eng = ServeEngine(params, cfg, batch=Bd, max_len=max_len,
-                          dtype=cfg.dtype, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run(reqs)
-        torch.cuda.synchronize()
-        s = time.perf_counter() - t0
-        check(all(r.done and len(r.output) == G
-                  and all(0 <= t < cfg.vocab_size for t in r.output)
-                  for r in reqs), "ServeEngine left a request unanswered")
-        print(f"[{n}] {card}: {name} ServeEngine batch {Bd}, max_len "
-              f"{max_len} (window {cfg.window_size}), {waves} waves of {Bd} "
-              f"requests x ({P} + {G}) tokens: {s:.3f} s, "
-              f"{eng.stats.steps} steps ({s / eng.stats.steps * 1e3:.3f} ms "
-              f"a step), {eng.stats.tokens_generated / s:.1f} tokens/s; "
-              f"request 0 output {reqs[0].output}")
 
     def ring_wrap(n, name, cfg, checks, bounds):
         """One repeat of the pattern at full width decodes window + 64
@@ -3300,24 +3473,16 @@ def hybrid_serving(card: str, dev):
               f"slots differ from the forward's k, v beyond the bound")
         del params, state, seen
 
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    def n_mixers(cfg, mixer):
-        return sum(s.mixer == mixer for seg in cfg.segments
-                   for s in seg.pattern for _ in range(seg.repeats))
-
     # -- 28. gemma2-2b ----------------------------------------------------
     with Phase(28, "gemma2-2b prefill, w8 decode, engine, ring wrap"):
         cfg = ARCHS["gemma2-2b"]
-        bounds = HYBRID_BOUNDS["gemma2-2b"]
+        bounds = SERVING_BOUNDS["gemma2-2b"]
         params = draw(28, "gemma2-2b", cfg)
         prefill(28, "gemma2-2b", cfg, params,
                 windowed=n_mixers(cfg, "local"), bound=bounds["prefill"])
         per_step = 7 * cfg.num_layers
-        qparams = w8_decode(28, "gemma2-2b", cfg, params, per_step,
-                            bounds["w8"])
+        qparams = QS.quantize_params(params, bits=8)
+        w8_decode(28, "gemma2-2b", cfg, qparams, per_step, bounds["w8"])
         past_window(28, "gemma2-2b", cfg, params, qparams, per_step)
         del qparams
         free()
@@ -3331,7 +3496,7 @@ def hybrid_serving(card: str, dev):
     # -- 29. recurrentgemma-9b -----------------------------------------------
     with Phase(29, "recurrentgemma-9b prefill, w8 decode, engine, ring wrap"):
         cfg = ARCHS["recurrentgemma-9b"]
-        bounds = HYBRID_BOUNDS["recurrentgemma-9b"]
+        bounds = SERVING_BOUNDS["recurrentgemma-9b"]
         params = draw(29, "recurrentgemma-9b", cfg)
         n_rec = n_mixers(cfg, "rec")
         scan = R._rglru_scan
@@ -3360,14 +3525,15 @@ def hybrid_serving(card: str, dev):
         check(len(scan_s) == n_rec, f"{len(scan_s)} RG-LRU scans, not "
               f"{n_rec}")
         print(f"[29] {card}: RG-LRU scan (plain PyTorch, a loop over "
-              f"{HYBRID_PREFILL[1]} steps) in the prefill: {sum(scan_s):.4f} "
+              f"{SERVING_PREFILL[1]} steps) in the prefill: {sum(scan_s):.4f} "
               f"s over {n_rec} layers ({sum(scan_s) / n_rec * 1e3:.3f} ms a "
               f"layer), share {sum(scan_s) / timed_s:.3f} of the same "
               f"prefill timed with a synchronize around each scan "
               f"({timed_s:.4f} s; {prefill_s:.4f} s without)")
         per_step = 6 * n_rec + 7 * (cfg.num_layers - n_rec)
-        qparams = w8_decode(29, "recurrentgemma-9b", cfg, params, per_step,
-                            bounds["w8"])
+        qparams = QS.quantize_params(params, bits=8)
+        w8_decode(29, "recurrentgemma-9b", cfg, qparams, per_step,
+                  bounds["w8"])
         past_window(29, "recurrentgemma-9b", cfg, params, qparams, per_step)
         del qparams
         free()
@@ -3386,23 +3552,349 @@ def hybrid_serving(card: str, dev):
         params = draw(30, f"phi3.5-moe-42b-a6.6b ({PHI_LAYERS} of "
                       f"{full.num_layers} layers)", cfg)
         _, routes, _ = prefill(30, "phi3.5-moe", cfg, params, windowed=0,
-                               bound=HYBRID_BOUNDS["phi3.5-moe"]["prefill"],
+                               bound=SERVING_BOUNDS["phi3.5-moe"]["prefill"],
                                replay_routing=True)
-        check(len(routes) == PHI_LAYERS, f"{len(routes)} routings recorded, "
-              f"not {PHI_LAYERS}")
-        kept = sum(int(r["keep"].sum()) for r in routes)
-        pairs = sum(r["keep"].numel() for r in routes)
-        aux = float(sum(r["aux"] for r in routes))
-        print(f"[30] routing of the prefill ({len(routes)} MoE layers, "
-              f"{routes[0]['topi'].shape[0]} tokens, top {cfg.moe.top_k} of "
-              f"{cfg.moe.num_experts}, capacity {routes[0]['C']} at factor "
-              f"{cfg.moe.capacity_factor}): dropped share "
-              f"{1 - kept / pairs:.4f} ({pairs - kept} of {pairs} pairs); "
-              f"aux loss {aux:.6f} (summed over layers; 1 a layer for a "
-              f"uniform router)")
-        check(np.isfinite(aux) and aux > 0, f"aux loss {aux}")
+        routing(30, cfg, routes, PHI_LAYERS)
         engine(30, "phi3.5-moe", cfg, params, 64)
         del params
+        free()
+    return out
+
+
+def mla_cross_serving(card: str, dev):
+    """Phases 31-33: deepseek-v2 (MLA, its dense layer and 3 MoE layers),
+    whisper-base (its encoder over 1500 frames and its cross decoder) and
+    llama-3.2-vision (cross layers over 1601 patches) at full width through
+    their prefill, dense decode, w8 decode and dense engine, every
+    ``cross_gate`` at 0.5. Returns each path's K5 and K2 launches, K5's
+    times at MLA's shape and the vision step's cross projections."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import Segment
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops as FAO
+    from repro_torch.kernels.quant_matmul import ops as QMO
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import transformer as T
+    from repro_torch.serve import quantized as QS
+    from repro_torch.train.train_state import make_prefill_step
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {"k5": {}, "k2": {}}
+    steps = serving_steps(card, dev, gen, out)
+    draw, context, prefill, w8_decode, engine, routing, free = (
+        steps.draw, steps.context, steps.prefill, steps.w8_decode,
+        steps.engine, steps.routing, steps.free)
+
+    def mla_attention(n, cfg):
+        """K5 at MLA's prefill shape (q and k at head_dim 192, v at 128,
+        128/128 heads, 4 x 1024, causal) through `attention.attend` (v
+        padded to 192, one launch, the output sliced), the kernel alone on
+        the padded v, SDPA on v at 128 (a yardstick), and the plain
+        version; held against the plain version; device times from CUDA
+        graphs; the bound of the unpadded function."""
+        m = cfg.mla
+        B, Tn = SERVING_PREFILL
+        H, hd, vd = cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim, \
+            m.v_head_dim
+        q, k = (torch.randn((B, Tn, H, hd), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        v = torch.randn((B, Tn, H, vd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v_pad = torch.nn.functional.pad(v, (0, hd - vd))
+        reset_launches()
+        got = A.attend(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        check((LAUNCHES["flash_attention"], LAUNCHES["flash_attention_wgmma"])
+              == (1, 1), "MLA's attend did not make one wgmma K5 launch")
+        ref = FA.flash_attention_plain(q, k, v)
+        tol = FA.flash_attention_bound(q, k, v, ref)
+        err = (got.float() - ref.float()).abs()
+        check(got.shape == ref.shape and bool((err <= tol).all()),
+              "K5 on MLA's padded v differs from the plain version beyond "
+              "the bound")
+        res = {"shape": f"B {B}, T {Tn}, {H}/{H} heads, q/k head_dim {hd}, "
+                        f"v head_dim {vd}, causal, bf16",
+               "max_abs_err": float(err.max()),
+               "worst_share_of_bound": float((err / tol).max())}
+        res["ms"] = _graph_ms(lambda: A.attend(q, k, v, causal=True), [()],
+                              reps=10)
+        res["kernel_ms_padded_v"] = _graph_ms(
+            lambda: FA.flash_attention(q, k, v_pad, causal=True), [()],
+            reps=10)
+        res["plain_ms"] = event_ms(lambda: FA.flash_attention_plain(q, k, v),
+                                   reps=2, warmup=1)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        try:
+            res["library_ms"] = _graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), [()], reps=10)
+        except RuntimeError as e:       # a yardstick only
+            res["library_ms"] = None
+            res["library_note"] = f"SDPA refused v at {vd}: {e}"[:300]
+        flops = 2 * (hd + vd) * B * H * FAO.visible_pairs(Tn, Tn)
+        nbytes = 2 * (2 * B * Tn * H * hd + 2 * B * Tn * H * vd)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+        res["bound_ms"] = max(bytes_ms, ops_ms)
+        res["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"[{n}] {card}: K5 at MLA's shape ({res['shape']}): attend "
+              f"(v padded, one launch) {res['ms']:.4f} ms, the kernel alone "
+              f"{res['kernel_ms_padded_v']:.4f}, SDPA on v at {vd} "
+              f"{res['library_ms']}, plain {res['plain_ms']:.4f}, bound "
+              f"{res['bound_ms']:.5f} ms ({res['bound_by']}); max abs err "
+              f"{res['max_abs_err']:.3e}, {res['worst_share_of_bound']:.3f} "
+              f"of the bound" + (f"; {res['library_note']}"
+                                 if res["library_ms"] is None else ""))
+        out["k5_mla"] = res
+        del q, k, v, v_pad, got, ref, tol, err
+
+    def mla_decode_vs_prefill(n, cfg, params, bound):
+        """MLA's absorbed decode over the compressed bf16 cache, 16 tokens
+        one at a time at batch 2, against the last position of a cache-free
+        prefill over the same tokens (K5 with v padded), on the dense layer
+        0 alone: in the MoE layers a bf16 rounding that differs between the
+        two paths can flip an expert choice, which moves a token by a whole
+        expert."""
+        one = dataclasses.replace(cfg, segments=cfg.segments[:1])
+        p1 = dict(params, segments=params["segments"][:1])
+        B, S = 2, 16
+        tok = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev)
+        state = T.init_decode_state(one, B, S, one.dtype, device=dev)
+        check(set(state["caches"][0][0]) == {"c_kv", "k_rope"},
+              "deepseek-v2's cache is not the compressed one")
+        rels = []
+        step = make_prefill_step(one)
+        for t in range(S):
+            logits, state = T.decode_step(p1, state, tok[:, t:t + 1], one)
+            if t in (0, S // 2, S - 1):
+                rels.append(_rel(logits[:, 0],
+                                 step(p1, {"tokens": tok[:, :t + 1]})))
+        print(f"[{n}] {card}: MLA absorbed decode vs the prefill's last "
+              f"position, layer 0 (MLA, dense FFN) at full width, batch "
+              f"{B}, positions 0, {S // 2}, {S - 1}: "
+              f"relative L2 " + ", ".join(f"{r:.3e}" for r in rels)
+              + f" (bound {bound:.3e})")
+        check(max(rels) <= bound, "MLA's decode differs from the prefill "
+              "beyond the bound")
+
+    def cross_decode(n, name, cfg, params, enc_out, bound):
+        """The dense decode over ``enc_out`` at batch 8, 32 seeded tokens
+        teacher-forced through `decode_step`: every K5 launch (the cross
+        attention at T = 1) held element by element against K5's plain
+        version on its own inputs; then the same steps with
+        `attention.flash_attention` set to the plain version, their logits
+        held against the kernel run's step by step."""
+        Bd, P, G = SERVING_DECODE
+        tok = torch.randint(0, cfg.vocab_size, (Bd, P + G), generator=gen,
+                            device=dev)
+        kernel = A.flash_attention
+        shares = []
+
+        def held(q, k, v, **kw):
+            o = kernel(q, k, v, **kw)
+            ref = FA.flash_attention_plain(q, k, v, **kw)
+            shares.append(_within(o, ref, FA.flash_attention_bound(
+                q, k, v, ref, **kw))[1])
+            return o
+
+        def teacher_forced():
+            st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype, device=dev)
+            st["enc_out"] = enc_out
+            lg = []
+            for t in range(P + G):
+                x, st = T.decode_step(params, st, tok[:, t:t + 1], cfg)
+                lg.append(x[:, 0])
+            return torch.stack(lg)
+
+        A.flash_attention = held
+        try:
+            reset_launches()
+            kern = teacher_forced()
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        finally:
+            A.flash_attention = kernel
+        A.flash_attention = FA.flash_attention_plain
+        try:
+            plain = teacher_forced()
+        finally:
+            A.flash_attention = kernel
+        k5 = n_mixers(cfg, "cross") * (P + G)
+        rels = [_rel(kern[i], plain[i]) for i in range(P + G)]
+        print(f"[{n}] {name} dense decode over {tuple(enc_out.shape)}, "
+              f"batch {Bd}, {P + G} teacher-forced steps: K5 "
+              f"{launches['flash_attention']} launches "
+              f"({launches['flash_attention_wgmma']} wgmma, T = 1, "
+              f"non-causal); each against K5's plain version on its inputs: "
+              f"largest share of the bound {max(shares):.3e}; logits against "
+              f"the same steps on the plain version: largest relative L2 of "
+              f"a step {max(rels):.3e} (bound {bound:.3e})")
+        check(launches["flash_attention"] == k5 == len(shares)
+              == launches["flash_attention_wgmma"],
+              f"the dense decode made {launches['flash_attention']} K5 "
+              f"launches, not {k5} through the wgmma body")
+        check(bool(torch.isfinite(kern).all()), "decode logits not finite")
+        check(max(shares) <= 1.0, f"a cross-attention K5 launch of {name}'s "
+              f"decode differs from the plain version beyond the bound")
+        check(max(rels) <= bound, f"{name}'s dense decode logits differ "
+              f"from the plain version's beyond the bound")
+        out["k5"][f"{name} dense decode, cross attention at T = 1, "
+                  f"{P + G} steps (phase {n})"] = k5
+        del kern, plain
+
+    def cross_projection(n, cfg, qparams, patches, step):
+        """The w8 step's cross K and V projections, which the decode makes
+        again at every step (as the JAX package does): one cross layer's
+        two K2 products at M = batch x patches, device time from a CUDA
+        graph, cuBLAS on the dequantized weights beside it, and the share
+        of the w8 step (wall and device ms a step) their 2 x 8 launches
+        take."""
+        p = T._take(qparams["segments"][0][3]["mixer"], 0)
+        x = patches.to(L.torch_dtype(cfg.dtype))
+        dt = cfg.dtype
+
+        def k2():
+            L.dense_apply(p["c_wk"], x, dtype=dt)
+            L.dense_apply(p["c_wv"], x, dtype=dt)
+
+        w = [L.dequantize(p[c]["kernel"], torch.bfloat16).reshape(
+            cfg.d_model, -1) for c in ("c_wk", "c_wv")]
+        xf = x.reshape(-1, cfg.d_model)
+
+        def cublas():
+            torch.matmul(xf, w[0])
+            torch.matmul(xf, w[1])
+
+        ms, lib_ms = _graph_ms(k2, [()], reps=10), _graph_ms(cublas, [()],
+                                                             reps=10)
+        n_cross = n_mixers(cfg, "cross")
+        M, K, N = xf.shape[0], cfg.d_model, w[0].shape[1]
+        bound = max(2 * M * K * N * 2 / BF16_TENSOR_FLOPS,
+                    2 * QMO.cost(M, K, N, 2)[1] / HBM_BYTES_PER_S) * 1e3
+        res = {"shape": f"M {M}, K {K}, N {N}, bf16 x, two products a "
+                        f"cross layer, {n_cross} cross layers",
+               "ms_a_layer": ms, "library_ms_a_layer": lib_ms,
+               "bound_ms_a_layer": bound,
+               "share_of_wall_step": n_cross * ms / step[0],
+               "share_of_device_step": n_cross * ms / step[1]}
+        print(f"[{n}] {card}: the cross K and V projections of the w8 step "
+              f"({res['shape']}): K2 {ms:.4f} ms a layer on the device, "
+              f"cuBLAS on the dequantized weights {lib_ms:.4f}, bound "
+              f"{bound:.5f}; {n_cross} layers take "
+              f"{n_cross * ms:.3f} ms, {res['share_of_wall_step']:.3f} of "
+              f"the w8 step's {step[0]:.3f} ms wall and "
+              f"{res['share_of_device_step']:.3f} of its {step[1]:.3f} ms "
+              f"device time")
+        out["k2_cross"] = res
+
+    # -- 31. deepseek-v2: MLA, its dense layer and 3 of its MoE layers ------
+    with Phase(31, "deepseek-v2 prefill, MLA decode, engine, w8 decode"):
+        full = ARCHS["deepseek-v2-236b"]
+        dense_seg, moe_seg = full.segments
+        cfg = dataclasses.replace(full, segments=(
+            dense_seg, Segment(moe_seg.pattern, DEEPSEEK_MOE_LAYERS)))
+        bounds = SERVING_BOUNDS["deepseek-v2"]
+        params = draw(31, f"deepseek-v2-236b (its dense layer and "
+                      f"{DEEPSEEK_MOE_LAYERS} of its "
+                      f"{moe_seg.repeats} MoE layers)", cfg)
+        _, routes, _ = prefill(31, "deepseek-v2", cfg, params,
+                               windowed=0, bound=bounds["prefill"],
+                               replay_routing=True)
+        routing(31, cfg, routes, DEEPSEEK_MOE_LAYERS)
+        del routes
+        mla_attention(31, cfg)
+        mla_decode_vs_prefill(31, cfg, params, bounds["decode"])
+        engine(31, "deepseek-v2", cfg, params, 64)
+        qparams = QS.quantize_params(params, bits=8)
+        del params      # the w8 step dequantizes the expert stacks
+        free()
+        # a layer: w_dq, w_uq, w_dkv, w_kr and wo; the dense FFN's or
+        # the shared experts' 3; the LM head
+        w8_decode(31, "deepseek-v2", cfg, qparams,
+                  8 * cfg.num_layers + 1, bounds["w8"],
+                  replay_routing=True)
+        del qparams
+        free()
+
+    # -- 32. whisper-base: the encoder and the cross decoder ------------------
+    with Phase(32, "whisper-base encoder, prefill, decode, engine, w8 decode"):
+        cfg = ARCHS["whisper-base"]
+        bounds = SERVING_BOUNDS["whisper-base"]
+        params = draw(32, "whisper-base", cfg)
+        n_enc = cfg.encoder.num_layers
+        _, frames = context(cfg, SERVING_PREFILL[0])
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        enc = T._encoder_forward(params["encoder"], frames, cfg,
+                                 remat=False)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        kernel = A.flash_attention
+        A.flash_attention = FA.flash_attention_plain
+        try:
+            enc_plain = T._encoder_forward(params["encoder"], frames, cfg,
+                                           remat=False)
+        finally:
+            A.flash_attention = kernel
+        rel = _rel(enc, enc_plain)
+        print(f"[32] {card}: whisper-base encoder over "
+              f"{tuple(frames.shape)} frames: {enc_s:.4f} s (first "
+              f"call), K5 {launches['flash_attention']} launches "
+              f"({launches['flash_attention_wgmma']} wgmma, non-causal, "
+              f"T = S = {frames.shape[1]}); against K5's plain version "
+              f"relative L2 {rel:.3e} (bound {bounds['prefill']:.3e})")
+        check(launches["flash_attention"] == n_enc
+              == launches["flash_attention_wgmma"],
+              f"the encoder made {launches['flash_attention']} K5 "
+              f"launches, not {n_enc} through the wgmma body")
+        check(tuple(enc.shape) == tuple(frames.shape)
+              and bool(torch.isfinite(enc).all())
+              and rel <= bounds["prefill"], "the encoder's output")
+        out["k5"]["whisper-base encoder (phase 32)"] = n_enc
+        del enc, enc_plain
+        prefill(32, "whisper-base", cfg, params, windowed=0,
+                bound=bounds["prefill"])
+        _, frames = context(cfg, SERVING_DECODE[0])
+        enc8 = T._encoder_forward(params["encoder"], frames, cfg,
+                                  remat=False)
+        cross_decode(32, "whisper-base", cfg, params, enc8, bounds["dense"])
+        engine(32, "whisper-base", cfg, params, 64, enc_out=enc8)
+        qparams = QS.quantize_params(params, bits=8)
+        # a layer: 4 self-attention, 4 cross-attention and 2 MLP
+        # products; the LM head
+        w8_decode(32, "whisper-base", cfg, qparams,
+                  10 * cfg.num_layers + 1, bounds["w8"], enc_out=enc8)
+        del params, qparams, enc8
+        free()
+
+    # -- 33. llama-3.2-vision: cross layers over 1601 patches ---------------
+    with Phase(33, "llama-3.2-vision prefill, decode, engine, w8 decode"):
+        cfg = ARCHS["llama-3.2-vision-11b"]
+        bounds = SERVING_BOUNDS["llama-3.2-vision"]
+        params = draw(33, "llama-3.2-vision-11b", cfg)
+        prefill(33, "llama-3.2-vision", cfg, params, windowed=0,
+                bound=bounds["prefill"])
+        _, patches = context(cfg, SERVING_DECODE[0])
+        cross_decode(33, "llama-3.2-vision", cfg, params, patches,
+                     bounds["dense"])
+        engine(33, "llama-3.2-vision", cfg, params, 64, enc_out=patches)
+        qparams = QS.quantize_params(params, bits=8)
+        del params
+        free()
+        # a layer: 7 products; a cross layer 4 more; the LM head
+        step = w8_decode(33, "llama-3.2-vision", cfg, qparams,
+                         7 * cfg.num_layers + 4 * n_mixers(cfg, "cross")
+                         + 1, bounds["w8"], enc_out=patches)
+        cross_projection(33, cfg, qparams, patches, step)
+        del qparams, patches
         free()
     return out
 
@@ -3761,12 +4253,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()        # the training states are gone
     hybrid = hybrid_serving(card, dev)
-    # every K5 launch of phases 28-30 was checked to take the wgmma body
-    fa_entry["launches_by_path"].update(hybrid["k5"])
+    mla_cross = mla_cross_serving(card, dev)
+    # every K5 launch of phases 28-33 was checked to take the wgmma body
+    for part in (hybrid, mla_cross):
+        fa_entry["launches_by_path"].update(part["k5"])
+        fa_entry["launches_wgmma_body"] += sum(part["k5"].values())
+        qmm_entry["launches_by_path"].update(part["k2"])
     fa_entry["launches"] = sum(fa_entry["launches_by_path"].values())
-    fa_entry["launches_wgmma_body"] += sum(hybrid["k5"].values())
-    qmm_entry["launches_by_path"].update(hybrid["k2"])
+    fa_entry["mla_shape"] = mla_cross["k5_mla"]
     qmm_entry["launches"] = sum(qmm_entry["launches_by_path"].values())
+    qmm_entry["vision_cross_projection"] = mla_cross["k2_cross"]
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
                                   bsmm_entry, fa_entry, ssm_entry]
                       + bwd_entries}))

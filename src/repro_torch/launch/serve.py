@@ -2,10 +2,9 @@
 
 Runs the batched engine on synthetic requests against seeded random
 weights of the reduced config (``ArchConfig.reduced``), on CUDA unless
-``--device cpu`` is given. Every attention, local (ring-buffer), Mamba-1
-and RG-LRU mixer and every dense and MoE FFN is ported; the architectures
-with MLA (deepseek-v2-236b), an encoder (whisper-base) or vision inputs
-(llama-3.2-vision-11b) are later slices and raise ``NotImplementedError``.
+``--device cpu`` is given. Every architecture of the registry serves. As in
+the JAX package's launcher, whisper's cross-attention context is the
+encoder's output over zero frames, and the vision model's zero patches.
 """
 from __future__ import annotations
 
@@ -38,12 +37,21 @@ def main(argv=None):
                     device=dev)
     eng = ServeEngine(params, cfg, batch=args.batch, max_len=args.max_len,
                       device=dev)
+    enc_out = None
+    if cfg.encoder is not None:
+        frames = torch.zeros((args.batch, cfg.encoder.num_frames,
+                              cfg.d_model), device=dev)
+        enc_out = T._encoder_forward(params["encoder"], frames, cfg,
+                                     remat=False)
+    elif cfg.vision is not None:
+        enc_out = torch.zeros((args.batch, cfg.vision.num_patches,
+                               cfg.d_model), device=dev)
     reqs = [Request(rid=i, prompt=[(7 * i + 3) % cfg.vocab_size,
                                    (11 * i + 5) % cfg.vocab_size],
                     max_new_tokens=args.max_new_tokens)
             for i in range(args.requests)]
     t0 = time.time()
-    eng.run(reqs)
+    eng.run(reqs, enc_out=enc_out)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0

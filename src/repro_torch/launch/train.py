@@ -6,8 +6,9 @@ unless ``--device cpu`` is given, with the reference launcher's flags:
 resume and periodic asynchronous checkpoints (``--ckpt-dir``), preemption
 (SIGTERM), microbatching, and the paper's compression as a first-class
 flag (``--qat-bits`` / ``--sparsity`` / ``--clusters`` apply the
-`repro_torch.core` QAT forward to every matrix weight). Architectures
-whose mixers are later slices of the port raise ``NotImplementedError``.
+`repro_torch.core` QAT forward to every matrix weight). The token
+pipeline makes no frames or patches, so the encoder-decoder (whisper-base)
+and vision (llama-3.2-vision-11b) models do not train here yet.
 """
 from __future__ import annotations
 

@@ -1,19 +1,25 @@
 """Attention mixers of the LM track: grouped-query self-attention ("attn"
-and "local", with the sliding-window ring buffer), the PyTorch counterpart
-of `repro.nn.attention`.
+and "local", with the sliding-window ring buffer), cross attention,
+the whisper encoder's bidirectional attention and DeepSeek-V2's MLA, the
+PyTorch counterpart of `repro.nn.attention`.
 
 * GQA grouping is explicit, as in the JAX package: q heads are viewed as
   (KV, G) so k and v are never repeated.
-* `attend` sends self-attention over a whole sequence (no cache: causal,
-  ``q_offset == 0``, no ``kv_len``, no explicit key positions) through
-  kernel K5 (`kernels.flash_attention`), with the window and softcap of the
-  layer; that is every layer of the prefill forward. The JAX package
-  computes this case with its chunked einsum path and names the Pallas
-  kernel as its TPU-native version. A sliding-window layer without a cache
-  takes the same kernel with its window, which computes exactly what the
-  JAX package's banded path computes; `attend_local_banded`, that path in
-  plain PyTorch, is the windowed yardstick K5 is held against and lies on
-  no path of the model.
+* `attend` sends every call without a cache (``q_offset == 0``, no
+  ``kv_len``, no explicit key positions) through kernel K5
+  (`kernels.flash_attention`), causal or not, with the window and softcap
+  of the layer: every self-attention layer of a prefill forward, the
+  encoder's bidirectional layers, and cross attention over the encoder's
+  frames or the image patches, at prefill and at decode (one query). The
+  JAX package computes these with its chunked einsum path and names the
+  Pallas kernel as its TPU-native version. Where v's head_dim is smaller
+  than q's (MLA: 128 against 192), v is padded with zero columns to q's
+  and the output sliced back: zero columns of v give zero columns of the
+  output, and the softmax scale stays q's ``1/sqrt(hd)``, so this is
+  exact. A sliding-window layer without a cache takes the same kernel with
+  its window, which computes exactly what the JAX package's banded path
+  computes; `attend_local_banded`, that path in plain PyTorch, is the
+  windowed yardstick K5 is held against and lies on no path of the model.
 * Every other case (decode over the cache with ``kv_len``, or over a ring
   buffer with explicit key positions) is the JAX package's single-chunk
   path in plain PyTorch. Its chunked online-softmax scan, which only bounds
@@ -27,8 +33,14 @@ of `repro.nn.attention`.
   one token a step only; the JAX package's ring path gives wrong key
   positions for several (fault C6 in ROADMAP.md), and the port refuses
   them.
-* MLA, cross attention and the whisper encoder are later slices of the
-  port and raise ``NotImplementedError``.
+* MLA caches the compressed ``c_kv`` and the shared rotary key. Its
+  prefill rebuilds per-head k and v and goes through K5; its decode is the
+  absorbed form over the compressed cache (``w_uk`` folded into q,
+  ``w_uv`` applied after the softmax), in float32 as in the JAX package,
+  in plain PyTorch: the JAX package has no Pallas kernel for it.
+* Cross attention projects the encoder's output (or the patches) again at
+  every call, as the JAX package does; its inputs are cast to the model's
+  dtype first.
 """
 from __future__ import annotations
 
@@ -38,7 +50,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.nn import layers as L
 
@@ -51,7 +63,9 @@ NEG_INF = -2.0e38
 
 
 def attn_init(generator, cfg: ArchConfig, dtype, *, bias: bool = False,
-              lead=(), device=None):
+              cross: bool = False, lead=(), device=None):
+    """``cross`` adds the cross-attention projections ``c_wq``, ``c_wk``,
+    ``c_wv`` and ``c_wo`` of a "cross" block."""
     d, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     kw = dict(bias=bias, lead=lead, device=device)
@@ -67,6 +81,14 @@ def attn_init(generator, cfg: ArchConfig, dtype, *, bias: bool = False,
     if cfg.qk_norm:
         p["q_norm"] = L.norm_init(hd, "rmsnorm", lead=lead, device=device)
         p["k_norm"] = L.norm_init(hd, "rmsnorm", lead=lead, device=device)
+    if cross:
+        p["c_wq"] = L.dense_init(generator, d, H * hd, dtype,
+                                 out_shape=(H, hd), **kw)
+        p["c_wk"] = L.dense_init(generator, d, KV * hd, dtype,
+                                 out_shape=(KV, hd), **kw)
+        p["c_wv"] = L.dense_init(generator, d, KV * hd, dtype,
+                                 out_shape=(KV, hd), **kw)
+        p["c_wo"] = L.dense_in3_init(generator, H, hd, d, dtype, **kw)
     return p
 
 
@@ -97,7 +119,8 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int, kv_len=None):
 def attend(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
            q_offset: int = 0, kv_len: Optional[int] = None,
            k_positions=None, lowp: bool = False):
-    """General attention. q: (B,T,H,hd); k/v: (B,S,KV,hd) -> (B,T,H,hd).
+    """General attention. q: (B,T,H,hd); k/v: (B,S,KV,hd) -> (B,T,H,vd),
+    v's head_dim ``vd`` at most q's.
 
     q_offset:    absolute position of q[0] (decode: cache length).
     kv_len:      valid kv prefix length (decode with preallocated cache).
@@ -106,8 +129,13 @@ def attend(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
                  them in float32 on chip, where the policy's saving (score
                  bytes in device memory) does not arise.
     """
-    if causal and q_offset == 0 and kv_len is None and k_positions is None:
-        return flash_attention(q, k, v, causal=True, window=window,
+    if q_offset == 0 and kv_len is None and k_positions is None:
+        hd, vd = q.shape[-1], v.shape[-1]
+        if vd < hd:     # MLA: zero columns of v give zero columns of o
+            o = flash_attention(q, k, F.pad(v, (0, hd - vd)), causal=causal,
+                                window=window, softcap=softcap)
+            return o[..., :vd]
+        return flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -179,16 +207,19 @@ def attend_local_banded(q, k, v, *, window: int, softcap: float = 0.0,
 
 
 def attn_apply(p, x, cfg: ArchConfig, *, mixer: str, cache=None,
-               kv_len: Optional[int] = None):
-    """Self-attention. Returns (out, new_cache).
+               kv_len: Optional[int] = None, enc_out=None, enc_cache=None):
+    """Self-attention (and, for ``mixer="cross"``, an ungated cross
+    attention added to it). Returns (out, new_cache).
 
     cache: None (prefill, no cache) or dict(k=(B,S,KV,hd), v=...) with
     kv_len giving the number of valid entries (decode); the buffers are
-    written in place and returned as the new cache.
+    written in place and returned as the new cache. enc_out: the encoder's
+    output (B, S, d) that cross attention projects, or enc_cache, its
+    projected dict(k=..., v=...). The model's "cross" block calls this
+    with ``mixer="attn"`` and adds its own gated cross sublayer
+    (`cross_attend`); the ungated branch is the JAX package's, kept so that
+    this function computes what its counterpart does.
     """
-    if mixer == "cross":
-        raise NotImplementedError("cross attention is a later slice of the "
-                                  "port")
     B, T, _ = x.shape
     dt = cfg.dtype
     q = L.dense_apply(p["wq"], x, dtype=dt)     # (B,T,H,hd)
@@ -235,7 +266,42 @@ def attn_apply(p, x, cfg: ArchConfig, *, mixer: str, cache=None,
     else:
         o = attend(q, k, v, causal=True, window=window,
                    softcap=cfg.attn_softcap, lowp=cfg.attn_lowp_probs)
-    return L.dense_in3_apply(p["wo"], o, dtype=dt), new_cache
+    out = L.dense_in3_apply(p["wo"], o, dtype=dt)
+    if mixer == "cross":
+        out = out + cross_attend(p, x, cfg, enc_out=enc_out,
+                                 enc_cache=enc_cache)
+    return out, new_cache
+
+
+def cross_attend(p, x, cfg: ArchConfig, *, enc_out=None, enc_cache=None):
+    """Non-causal attention of x's queries (``c_wq``) over the encoder's
+    output projected by ``c_wk`` and ``c_wv`` (or over ``enc_cache``'s k and
+    v), out through ``c_wo``: (B, T, d)."""
+    dt = cfg.dtype
+    cq = L.dense_apply(p["c_wq"], x, dtype=dt)
+    if enc_cache is not None:
+        ek, ev = enc_cache["k"], enc_cache["v"]
+    elif enc_out is None:
+        raise ValueError("cross attention needs the encoder's output or "
+                         "the patches (enc_out), or their projections "
+                         "(enc_cache)")
+    else:
+        enc = enc_out.to(x.dtype)
+        ek = L.dense_apply(p["c_wk"], enc, dtype=dt)
+        ev = L.dense_apply(p["c_wv"], enc, dtype=dt)
+    co = attend(cq, ek.to(cq.dtype), ev.to(cq.dtype), causal=False)
+    return L.dense_in3_apply(p["c_wo"], co, dtype=dt)
+
+
+def encoder_attn_apply(p, x, cfg: ArchConfig):
+    """Bidirectional self-attention (the whisper encoder): no cache, no
+    rotary positions, through K5 with ``causal=False``."""
+    dt = cfg.dtype
+    q = L.dense_apply(p["wq"], x, dtype=dt)
+    k = L.dense_apply(p["wk"], x, dtype=dt)
+    v = L.dense_apply(p["wv"], x, dtype=dt)
+    o = attend(q, k, v, causal=False)
+    return L.dense_in3_apply(p["wo"], o, dtype=dt)
 
 
 def make_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
@@ -249,3 +315,105 @@ def make_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
     dt = L.torch_dtype(dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(generator, cfg: ArchConfig, dtype, *, lead=(), device=None):
+    m: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk, qr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    kw = dict(lead=lead, device=device)
+    return {
+        "w_dq": L.dense_init(generator, d, m.q_lora_rank, dtype, **kw),
+        "q_norm": L.norm_init(m.q_lora_rank, "rmsnorm", **kw),
+        "w_uq": L.dense_init(generator, m.q_lora_rank, H * (qk + qr), dtype,
+                             out_shape=(H, qk + qr), **kw),
+        "w_dkv": L.dense_init(generator, d, m.kv_lora_rank, dtype, **kw),
+        "kv_norm": L.norm_init(m.kv_lora_rank, "rmsnorm", **kw),
+        "w_uk": L.dense_init(generator, m.kv_lora_rank, H * qk, dtype,
+                             out_shape=(H, qk), **kw),
+        "w_uv": L.dense_init(generator, m.kv_lora_rank, H * m.v_head_dim,
+                             dtype, out_shape=(H, m.v_head_dim), **kw),
+        "w_kr": L.dense_init(generator, d, qr, dtype, **kw),
+        "wo": L.dense_in3_init(generator, H, m.v_head_dim, d, dtype, **kw),
+    }
+
+
+def mla_apply(p, x, cfg: ArchConfig, *, cache=None,
+              kv_len: Optional[int] = None):
+    """Returns (out, new_cache); the cache is the compressed dict(c_kv=(B,
+    S, kv_lora), k_rope=(B, S, qk_rope)), written in place at ``kv_len``.
+
+    Without a cache (train, prefill) k and v are rebuilt per head from
+    ``c_kv`` and attend causally through K5, q and k at head_dim qk_nope +
+    qk_rope, v at v_head_dim. With a cache (decode, or a prompt of T > 1
+    under the causal mask) the absorbed form runs in float32 over the
+    compressed cache. ``w_uk`` and ``w_uv`` are read through `layers.real`:
+    no K2 product consumes them."""
+    m: MLAConfig = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    qk, qr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    dt = cfg.dtype
+    cq = L.norm_apply(p["q_norm"], L.dense_apply(p["w_dq"], x, dtype=dt),
+                      "rmsnorm", dtype=dt)
+    q = L.dense_apply(p["w_uq"], cq, dtype=dt)          # (B,T,H,qk+qr)
+    q_nope, q_rope = q[..., :qk], q[..., qk:]
+    c_kv = L.norm_apply(p["kv_norm"], L.dense_apply(p["w_dkv"], x, dtype=dt),
+                        "rmsnorm", dtype=dt)
+    k_rope = L.dense_apply(p["w_kr"], x, dtype=dt)[:, :, None, :]
+    offset = 0 if kv_len is None else kv_len
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)[
+        None, :] + offset
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = L.apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+    w_uk = L.real(p["w_uk"]["kernel"], dt)
+    w_uv = L.real(p["w_uv"]["kernel"], dt)
+
+    if cache is None:
+        k_nope = torch.einsum("btc,chk->bthk", c_kv, w_uk)
+        v = torch.einsum("btc,chk->bthk", c_kv, w_uv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, qr)],
+                      dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        o = attend(qf, k, v, causal=True, lowp=cfg.attn_lowp_probs)
+        return L.dense_in3_apply(p["wo"], o, dtype=dt), None
+
+    S = cache["c_kv"].shape[1]
+    if kv_len + T > S:
+        raise ValueError(f"cache of {S} slots cannot take {kv_len} + {T} "
+                         f"positions")
+    cache["c_kv"][:, kv_len:kv_len + T] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, kv_len:kv_len + T] = k_rope.to(cache["k_rope"].dtype)
+    ckv = cache["c_kv"].float()
+    ckr = cache["k_rope"].float()
+    # absorb w_uk into q: q' (B,T,H,kv_lora)
+    q_abs = torch.einsum("bthk,chk->bthc", q_nope.float(), w_uk.float())
+    s = (torch.einsum("bthc,bsc->bhts", q_abs, ckv)
+         + torch.einsum("bthr,bsr->bhts", q_rope.float(), ckr)) \
+        * (1.0 / math.sqrt(qk + qr))
+    k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    q_pos = torch.arange(T, dtype=torch.int32, device=x.device) + kv_len
+    s = s + _mask_bias(q_pos, k_pos, causal=True, window=0,
+                       kv_len=kv_len + T)
+    pr = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhts,bsc->bthc", pr, ckv)
+    o = torch.einsum("bthc,chk->bthk", o_c, w_uv.float())
+    return L.dense_in3_apply(p["wo"], o.to(x.dtype), dtype=dt), cache
+
+
+def make_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
+                   lead=(), device=None):
+    """The compressed cache of one MLA layer (``lead`` stacks a segment's
+    repeats)."""
+    m = cfg.mla
+    dt = L.torch_dtype(dtype)
+    lead = tuple(lead)
+    return {"c_kv": torch.zeros(lead + (batch, max_len, m.kv_lora_rank),
+                                dtype=dt, device=device),
+            "k_rope": torch.zeros(lead + (batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dt, device=device)}

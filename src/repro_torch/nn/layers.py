@@ -212,6 +212,22 @@ def embedding_apply(p, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     return t[tokens]
 
 
+def positional_init(generator, max_pos: int, d: int, dtype, device=None):
+    """A learned absolute-position table, truncated normal with std 0.02."""
+    return {"table": trunc_normal(generator, (max_pos, d), 0.02, dtype,
+                                  device)}
+
+
+def table_rows(p, start: int, stop: int, dtype) -> torch.Tensor:
+    """Rows ``start:stop`` of a position table; a quantized table
+    dequantizes only those rows, to ``dtype``."""
+    t = p["table"]
+    if is_qleaf(t):
+        return dequantize({"q": t["q"][start:stop], "scale": t["scale"]},
+                          torch_dtype(dtype))
+    return t[start:stop]
+
+
 # ---------------------------------------------------------------------------
 # activations / MLP variants
 # ---------------------------------------------------------------------------

@@ -4,8 +4,12 @@ of `repro.nn.moe`.
 Routing builds integer slot assignments (a stable argsort of the chosen
 experts and ``searchsorted`` for each expert's first row), tokens are
 gathered into (E, C, d) capacity buffers, the experts run as one batched
-SwiGLU product over E, and the results are added back at their tokens
-(``index_add_``), weighted by the renormalised router weights. A token an
+SwiGLU product over E, and the results, weighted by the renormalised
+router weights, are put back in (token, choice) order and summed over a
+token's k choices. That sum has a fixed order, so a step gives the same
+bits on every run (``index_add_`` on CUDA adds with atomics, in an order
+that varies from run to run; the JAX package's scatter-add adds in the
+sorted order, which the port's float32 tests hold within 1e-5). A token an
 expert has no room for (past its capacity ``C = ceil(S k / E *
 capacity_factor)``) lands in an overflow row ``E*C`` that is dropped: it
 contributes zero, and the residual stream still carries it.
@@ -73,7 +77,8 @@ def route_tokens(p, xf: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
     """Routing of a flat token block (S, d): the router's weights and
     expert ids (``topw``, ``topi``), ``aux``, the capacity ``C``, and for
     each (token, choice) pair in expert order its token ``st``, weight
-    ``sw``, buffer row ``slot`` (``E*C`` where dropped) and ``keep``."""
+    ``sw``, buffer row ``slot`` (``E*C`` where dropped), ``keep``, and
+    ``order``, its index in (token, choice) order."""
     m: MoEConfig = cfg.moe
     S = xf.shape[0]
     E, k = m.num_experts, m.top_k
@@ -91,7 +96,7 @@ def route_tokens(p, xf: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
     keep = pos < C
     slot = torch.where(keep, se * C + pos, E * C)
     return dict(topw=topw, topi=topi, aux=aux, C=C, st=st, sw=sw,
-                slot=slot, keep=keep)
+                slot=slot, keep=keep, order=order)
 
 
 def _moe_tokens(p, xf: torch.Tensor, cfg: ArchConfig):
@@ -113,9 +118,11 @@ def _moe_tokens(p, xf: torch.Tensor, cfg: ArchConfig):
 
     w = (r["sw"] * r["keep"].to(r["sw"].dtype))[:, None].to(y.dtype)
     contrib = y[torch.clamp_max(slot, E * C - 1)] * w
-    out = torch.zeros((S, d), dtype=xf.dtype, device=xf.device)
-    out.index_add_(0, st, contrib.to(xf.dtype))
-    return out, r["aux"]
+    # back to (token, choice) order, then each token's k choices summed
+    pairs = torch.empty_like(contrib)
+    pairs[r["order"]] = contrib
+    out = pairs.reshape(S, -1, d).sum(dim=1)
+    return out.to(xf.dtype), r["aux"]
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ArchConfig):

@@ -7,17 +7,23 @@ each segment stacks the parameters of its repeating pattern along a leading
 takes one repeat at a time (a view, no copy). `params_from_numpy` and
 `params_to_numpy` carry the tree across as numpy arrays.
 
-The port covers blocks with an "attn" or "local" (sliding-window, with
-its ring buffer) attention, a Mamba-1 "ssm" or an RG-LRU "rec" mixer, and
-a dense, MoE or absent FFN. `forward` returns the summed router aux loss
-of the MoE layers. MLA, cross attention, the encoder and vision inputs are
-later slices and raise ``NotImplementedError``.
+Every mixer of the JAX package is ported: "attn" and "local"
+(sliding-window, with its ring buffer) attention, or MLA where the config
+has one (DeepSeek-V2); "cross", a self-attention sublayer followed by a
+gated cross-attention sublayer over the encoder's output or the image
+patches (whisper's decoder, llama-3.2-vision's image layers); a Mamba-1
+"ssm" and an RG-LRU "rec" mixer; and a dense, MoE or absent FFN. An
+encoder-decoder config (whisper) adds a bidirectional encoder over stub
+frame embeddings with learned positions; a vision config takes stub patch
+embeddings as the cross-attention context. `forward` returns the summed
+router aux loss of the MoE layers.
 
 Public entry points:
   init(generator, cfg)                     -> params
   forward(params, batch, cfg, remat=True)  -> (logits, aux)  (train / prefill)
   decode_step(params, state, tokens, cfg)  -> (logits, state)  (one token)
   init_decode_state(cfg, batch, max_len, dtype) -> cache state
+  _encoder_forward(params["encoder"], frames, cfg) -> encoder output
   active_param_count(params, cfg)          -> parameters a token uses
 """
 from __future__ import annotations
@@ -29,23 +35,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.configs.base import ArchConfig, LayerSpec, Segment
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
 from repro_torch.nn import rglru as R
 from repro_torch.nn import ssm as S
-
-
-def _unsupported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA is a later slice of the port")
-    if cfg.encoder is not None or cfg.vision is not None:
-        raise NotImplementedError("encoder and vision inputs are a later "
-                                  "slice of the port")
-    if spec.mixer not in ("attn", "local", "ssm", "rec"):
-        raise NotImplementedError(f"the {spec.mixer!r} mixer is a later "
-                                  "slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -55,16 +50,26 @@ def _unsupported(cfg: ArchConfig, spec: LayerSpec) -> None:
 
 def _block_init(generator, cfg: ArchConfig, spec: LayerSpec, dtype, *,
                 lead=(), device=None):
-    _unsupported(cfg, spec)
     kw = dict(lead=lead, device=device)
     p: Dict[str, Any] = {"norm1": L.norm_init(cfg.d_model, cfg.norm_type,
                                               **kw)}
-    if spec.mixer == "ssm":
+    if spec.mixer in ("attn", "local"):
+        if cfg.mla is not None:
+            p["mixer"] = A.mla_init(generator, cfg, dtype, **kw)
+        else:
+            p["mixer"] = A.attn_init(generator, cfg, dtype, **kw)
+    elif spec.mixer == "cross":
+        p["mixer"] = A.attn_init(generator, cfg, dtype, cross=True, **kw)
+        # tanh(0) = 0: at init the cross sublayer adds nothing
+        p["cross_gate"] = torch.zeros(tuple(lead), dtype=torch.float32,
+                                      device=device)
+        p["norm_cross"] = L.norm_init(cfg.d_model, cfg.norm_type, **kw)
+    elif spec.mixer == "ssm":
         p["mixer"] = S.ssm_init(generator, cfg, dtype, **kw)
     elif spec.mixer == "rec":
         p["mixer"] = R.rglru_init(generator, cfg, dtype, **kw)
     else:
-        p["mixer"] = A.attn_init(generator, cfg, dtype, **kw)
+        raise ValueError(spec.mixer)
     if spec.ffn == "dense":
         p["norm2"] = L.norm_init(cfg.d_model, cfg.norm_type, **kw)
         p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff,
@@ -85,18 +90,36 @@ def _norm(p, x, cfg: ArchConfig):
 
 
 def _block_apply(p, x, cfg: ArchConfig, spec: LayerSpec, *, cache=None,
-                 kv_len=None):
+                 kv_len=None, enc_out=None):
     """Returns (x, new_cache, aux); aux is the router's loss of an MoE
-    FFN, else None."""
-    _unsupported(cfg, spec)
+    FFN, else None. ``enc_out``: the cross-attention context of a "cross"
+    block."""
     h = _norm(p["norm1"], x, cfg)
-    if spec.mixer == "ssm":
+    if spec.mixer in ("attn", "local"):
+        if cfg.mla is not None:
+            o, new_cache = A.mla_apply(p["mixer"], h, cfg, cache=cache,
+                                       kv_len=kv_len)
+        else:
+            o, new_cache = A.attn_apply(p["mixer"], h, cfg,
+                                        mixer=spec.mixer, cache=cache,
+                                        kv_len=kv_len)
+    elif spec.mixer == "cross":
+        # self-attention sublayer, then a gated cross-attention sublayer
+        o, new_cache = A.attn_apply(p["mixer"], h, cfg, mixer="attn",
+                                    cache=cache, kv_len=kv_len)
+        if cfg.post_norm:
+            o = _norm(p["post_norm1"], o, cfg)
+        x = x + o
+        hc = _norm(p["norm_cross"], x, cfg)
+        co = A.cross_attend(p["mixer"], hc, cfg, enc_out=enc_out)
+        x = x + torch.tanh(p["cross_gate"]).to(x.dtype) * co.to(x.dtype)
+        o = torch.zeros_like(x)     # the residual is already applied above
+    elif spec.mixer == "ssm":
         o, new_cache = S.ssm_apply(p["mixer"], h, cfg, cache=cache)
     elif spec.mixer == "rec":
         o, new_cache = R.rglru_apply(p["mixer"], h, cfg, cache=cache)
     else:
-        o, new_cache = A.attn_apply(p["mixer"], h, cfg, mixer=spec.mixer,
-                                    cache=cache, kv_len=kv_len)
+        raise ValueError(spec.mixer)
     if cfg.post_norm:
         o = _norm(p["post_norm1"], o, cfg)
     x = x + o
@@ -131,7 +154,7 @@ def _take(tree, r: int):
 
 
 def _segment_apply(seg_params, x, cfg: ArchConfig, seg, *, caches=None,
-                   kv_len=None, remat: bool = False):
+                   kv_len=None, enc_out=None, remat: bool = False):
     """Returns (x, the summed aux of the MoE layers); caches are updated
     in place. ``remat``: each repeat of the pattern runs under
     `torch.utils.checkpoint.checkpoint`, which keeps only its input and
@@ -142,7 +165,8 @@ def _segment_apply(seg_params, x, cfg: ArchConfig, seg, *, caches=None,
         for i, spec in enumerate(seg.pattern):
             x, _, a = _block_apply(
                 params[i], x, cfg, spec,
-                cache=None if cache_r is None else cache_r[i], kv_len=kv_len)
+                cache=None if cache_r is None else cache_r[i], kv_len=kv_len,
+                enc_out=enc_out)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -171,9 +195,6 @@ def init(generator: torch.Generator, cfg: ArchConfig, dtype=None,
     stacked leaf is drawn one repeat at a time (`layers.trunc_normal`)."""
     dev = resolve_device(device)
     dtype = L.torch_dtype(dtype or cfg.dtype)
-    if cfg.max_position_embeddings:
-        raise NotImplementedError("learned positions (whisper) are a later "
-                                  "slice of the port")
     p: Dict[str, Any] = {
         "embed": L.embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                   dtype, dev),
@@ -187,13 +208,68 @@ def init(generator: torch.Generator, cfg: ArchConfig, dtype=None,
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab_size,
                                     dtype, device=dev)
+    if cfg.max_position_embeddings:
+        p["pos_embed"] = L.positional_init(
+            generator, cfg.max_position_embeddings, cfg.d_model, dtype, dev)
+    if cfg.encoder is not None:
+        # bidirectional: "attn" blocks applied without a causal mask
+        seg = _encoder_segment(cfg)
+        p["encoder"] = {
+            "segments": (tuple(_block_init(generator, cfg, spec, dtype,
+                                           lead=(seg.repeats,), device=dev)
+                               for spec in seg.pattern),),
+            "final_norm": L.norm_init(cfg.d_model, cfg.norm_type, device=dev),
+            "pos_embed": L.positional_init(generator, cfg.encoder.num_frames,
+                                           cfg.d_model, dtype, dev),
+        }
     return p
 
 
-def _embed_tokens(p, tokens, cfg: ArchConfig):
+def _encoder_segment(cfg: ArchConfig) -> Segment:
+    return Segment((LayerSpec("attn", "dense"),), cfg.encoder.num_layers)
+
+
+def _encoder_forward(p, frames, cfg: ArchConfig, *, remat: bool = True):
+    """The whisper encoder over stub frame embeddings (B, F, d_model) (the
+    conv frontend is a stub, as in the JAX package), cast to the model's
+    dtype (the JAX package keeps the frames' dtype; ROADMAP §3), plus
+    learned positions; each layer bidirectional self-attention
+    (K5 with ``causal=False``) and a dense FFN; ``remat`` as in
+    `forward`. Returns (B, F, d_model)."""
+    dt = L.torch_dtype(cfg.dtype)
+    x = frames.to(dt) + L.table_rows(p["pos_embed"], 0, frames.shape[1],
+                                     dt)[None].to(dt)
+
+    def body(x, blk):
+        h = _norm(blk["norm1"], x, cfg)
+        x = x + A.encoder_attn_apply(blk["mixer"], h, cfg)
+        return x + L.mlp_apply(blk["mlp"], _norm(blk["norm2"], x, cfg),
+                               cfg.mlp_type, dtype=cfg.dtype)
+
+    for r in range(cfg.encoder.num_layers):
+        blk = _take(p["segments"][0], r)[0]
+        if remat:
+            x = checkpoint(body, x, blk, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x, blk)
+    return _norm(p["final_norm"], x, cfg)
+
+
+def _embed_tokens(p, tokens, cfg: ArchConfig, offset=None):
+    """Token embeddings, and learned positions where the config has them:
+    from 0 at prefill, from ``offset`` (the cache length) at decode, the
+    start clamped to ``max_position_embeddings - T`` as in the JAX
+    package."""
     x = L.embedding_apply(p["embed"], tokens, cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.max_position_embeddings:
+        T = tokens.shape[1]
+        start = 0 if offset is None else \
+            min(offset, cfg.max_position_embeddings - T)
+        x = x + L.table_rows(p["pos_embed"], start, start + T,
+                             cfg.dtype)[None].to(x.dtype)
     return x
 
 
@@ -214,8 +290,10 @@ def _lm_head(p, x, cfg: ArchConfig):
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
             remat: bool = True):
-    """Train/prefill forward. batch: {"tokens": (B, T)}.
-    Returns (logits float32 (B, T, V), aux_loss: the router losses of the
+    """Train/prefill forward. batch: {"tokens": (B, T)}, with "frames"
+    (B, F, d_model) for an encoder-decoder config (the encoder runs first)
+    or "patches" (B, P, d_model) for a vision one (the cross-attention
+    context as given). Returns (logits float32 (B, T, V), aux_loss: the router losses of the
     MoE layers summed, 0 without one). ``remat`` recomputes each
     block in the backward pass instead of keeping its activations (no
     effect without one); the "dots" policy, which keeps the products'
@@ -225,9 +303,16 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
                                   "outputs) is not ported")
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = _encoder_forward(params["encoder"], batch["frames"], cfg,
+                                   remat=remat)
+    elif cfg.vision is not None:
+        enc_out = batch["patches"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, seg in zip(params["segments"], cfg.segments):
-        x, a = _segment_apply(seg_params, x, cfg, seg, remat=remat)
+        x, a = _segment_apply(seg_params, x, cfg, seg, enc_out=enc_out,
+                              remat=remat)
         aux = aux + a
     x = _norm(params["final_norm"], x, cfg)
     return _lm_head(params, x, cfg), aux
@@ -240,21 +325,33 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
                       device: DeviceLike = None):
-    """Caches stacked like the segments' parameters, and the number of
-    valid positions ``kv_len`` (a Python int: the host knows it)."""
+    """Caches stacked like the segments' parameters, the number of valid
+    positions ``kv_len`` (a Python int: the host knows it), and for an
+    encoder-decoder or vision config the cross-attention context
+    ``enc_out``, zeros of (batch, frames or patches, d_model) in ``dtype``
+    until the caller puts the encoder's output or the patches there."""
     dev = resolve_device(device)
-    caches = []
-    for seg in cfg.segments:
-        for spec in seg.pattern:
-            _unsupported(cfg, spec)
-        caches.append(tuple(_layer_cache(cfg, spec, batch, max_len, dtype,
-                                         (seg.repeats,), dev)
-                            for spec in seg.pattern))
-    return {"caches": tuple(caches), "kv_len": 0}
+    caches = tuple(tuple(_layer_cache(cfg, spec, batch, max_len, dtype,
+                                      (seg.repeats,), dev)
+                         for spec in seg.pattern)
+                   for seg in cfg.segments)
+    state = {"caches": caches, "kv_len": 0}
+    context = (cfg.encoder.num_frames if cfg.encoder is not None else
+               cfg.vision.num_patches if cfg.vision is not None else None)
+    if context is not None:
+        state["enc_out"] = torch.zeros((batch, context, cfg.d_model),
+                                       dtype=L.torch_dtype(dtype), device=dev)
+    return state
 
 
 def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
                  dtype, lead, dev):
+    if spec.mixer in ("attn", "local", "cross") and cfg.mla is not None:
+        return A.make_mla_cache(cfg, batch, max_len, dtype, lead=lead,
+                                device=dev)
+    if spec.mixer == "cross":
+        return A.make_attn_cache(cfg, batch, max_len, dtype, mixer="attn",
+                                 lead=lead, device=dev)
     if spec.mixer == "ssm":
         return S.make_ssm_cache(cfg, batch, dtype, lead=lead, device=dev)
     if spec.mixer == "rec":
@@ -267,11 +364,12 @@ def decode_step(params, state, tokens, cfg: ArchConfig):
     """One-token decode. tokens: (B, 1). Returns (logits (B,1,V), new
     state); the caches of ``state`` are updated in place."""
     kv_len = state["kv_len"]
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed_tokens(params, tokens, cfg, offset=kv_len)
+    enc_out = state.get("enc_out")
     for seg_params, seg, caches in zip(params["segments"], cfg.segments,
                                        state["caches"]):
         x, _ = _segment_apply(seg_params, x, cfg, seg, caches=caches,
-                              kv_len=kv_len)
+                              kv_len=kv_len, enc_out=enc_out)
     x = _norm(params["final_norm"], x, cfg)
     logits = _lm_head(params, x, cfg)
     new_state = dict(state)

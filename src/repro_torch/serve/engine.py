@@ -7,7 +7,9 @@ left-padded with zeros to the longest) and decoded greedily until every
 request of the wave is done; the next wave starts from a fresh cache
 (barrier batching). Recurrent (Mamba, RG-LRU) caches take the same path:
 the conv window and the state are updated in place by every step, and a
-sliding-window layer's ring buffer takes its one token a step.
+sliding-window layer's ring buffer takes its one token a step. An
+encoder-decoder or vision model reads its cross-attention context, the
+``enc_out`` given to `ServeEngine.run`, from every wave's fresh state.
 """
 from __future__ import annotations
 
@@ -63,19 +65,25 @@ class ServeEngine:
         return nxt.cpu().numpy().astype(np.int32), state
 
     def run(self, requests: List[Request], *, enc_out=None) -> List[Request]:
-        """Process all requests to completion, batch-barrier batching."""
-        if enc_out is not None:
-            raise NotImplementedError("encoder context is a later slice of "
-                                      "the port")
+        """Process all requests to completion, batch-barrier batching.
+        ``enc_out``: the cross-attention context (B = ``batch``, frames or
+        patches, d_model) every wave reads: the encoder's output
+        (`transformer._encoder_forward`) or the patches."""
         queue = list(requests)
         while queue:
             wave, queue = queue[:self.batch], queue[self.batch:]
-            self._run_wave(wave)
+            self._run_wave(wave, enc_out)
         return requests
 
-    def _run_wave(self, wave: List[Request]):
+    def _fresh_state(self, enc_out=None):
         state = T.init_decode_state(self.cfg, self.batch, self.max_len,
                                     self.dtype, device=self.device)
+        if enc_out is not None:
+            state["enc_out"] = enc_out
+        return state
+
+    def _run_wave(self, wave: List[Request], enc_out=None):
+        state = self._fresh_state(enc_out)
         B = self.batch
         maxp = max(len(r.prompt) for r in wave)
         toks = np.zeros((B, maxp), np.int32)

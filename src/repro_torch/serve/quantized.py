@@ -20,9 +20,10 @@ quantized leaf is dequantized to ``cfg.dtype`` where it is read
 (`nn.layers.real`), as the JAX package dequantizes it. The embedding
 gathers and dequantizes only the rows it needs; the tied LM head
 dequantizes the table (see `transformer._lm_head`). RG-LRU's ``w_a`` and
-``w_i`` and the MoE expert stacks are read that way too and multiplied in
-the JAX package's dtype (`nn.rglru`, `nn.moe`): the JAX package computes
-them outside any Pallas kernel.
+``w_i``, the MoE expert stacks, MLA's ``w_uk`` and ``w_uv`` and the learned
+position tables are read that way too and used in the JAX package's dtype
+(`nn.rglru`, `nn.moe`, `nn.attention.mla_apply`, `layers.table_rows`):
+the JAX package computes with them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -54,22 +55,23 @@ def _check_bits(bits: int) -> None:
         raise ValueError(bits)
 
 
-# the float32 elements one quantization step holds: a slice along the
-# leading axis at a time, so a stacked leaf is never copied whole to float32
-# (falcon-mamba-7b's in_proj is 17 GB in float32; one repeat is 268 MB)
+# the float32 elements one quantization step holds: a block of rows of the
+# leaf viewed (-1, last dim) at a time, so a stacked leaf is never copied
+# whole to float32 (falcon-mamba-7b's in_proj is 17 GB in float32; one
+# repeat of deepseek-v2's expert stack, 160 x 5120 x 1536, is 5 GB)
 _CHUNK_ELEMENTS = 1 << 26
 
 
 def _chunks(w: torch.Tensor):
-    rows = max(1, _CHUNK_ELEMENTS // max(1, w[0].numel()))
-    return torch.split(w, rows, dim=0)
+    rows = w.reshape(-1, w.shape[-1])
+    return torch.split(rows, max(1, _CHUNK_ELEMENTS // rows.shape[1]), dim=0)
 
 
 def quantize_params(params, bits: int = 8):
     """Real tensors -> quantized tree (per-channel symmetric). A running
-    amax over slices of the leading axis, then the payload slice by slice:
-    bit for bit what one pass over the whole leaf gives (max is exact, the
-    rest elementwise)."""
+    amax over blocks of rows (the leaf viewed (-1, last dim)), then the
+    payload block by block: bit for bit what one pass over the whole leaf
+    gives (max is exact, the rest elementwise)."""
     _check_bits(bits)
     qmax = 2.0 ** (bits - 1) - 1.0
 
@@ -78,8 +80,7 @@ def quantize_params(params, bits: int = 8):
             return w
         amax = None
         for part in _chunks(w):
-            m = torch.amax(torch.abs(part.float()),
-                           dim=tuple(range(w.dim() - 1)))
+            m = torch.amax(torch.abs(part.float()), dim=0)
             amax = m if amax is None else torch.maximum(amax, m)
         scale = torch.clamp_min(amax, 1e-8) / qmax
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)

@@ -121,9 +121,12 @@ def make_serve_step(cfg: ArchConfig):
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """prefill_step(params, batch) -> last-position logits (B, V). On a
-    CUDA device every layer's self-attention runs through kernel K5 and
-    every Mamba layer's selective scan through kernel K6."""
+    """prefill_step(params, batch) -> last-position logits (B, V). batch:
+    {"tokens"}, with "frames" (whisper) or "patches" (vision) as
+    `transformer.forward` takes them. On a CUDA device every attention
+    without a cache (self-attention, the encoder's, cross attention) runs
+    through kernel K5 and every Mamba layer's selective scan through
+    kernel K6."""
 
     def prefill_step(params, batch):
         logits, _ = T.forward(params, batch, cfg, remat=False)

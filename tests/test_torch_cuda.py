@@ -11,7 +11,9 @@ model; the backward kernels of K5 and K6 against their plain versions
 through autograd and a train step through the kernels; K2-K4 refusing a
 gradient; K5 with a window against the banded path, the ring-buffer
 decode against the windowed forward, a recurrent w8 decode through K2 and
-the MoE layer on the card against the CPU. They import no
+the MoE layer on the card against the CPU; K5 on MLA's padded v and on
+the encoder's and cross attention's shapes, and the MLA, whisper and
+vision prefills and w8 decodes through K5 and K2. They import no
 JAX (the machine with the card has none) and skip without a CUDA device;
 on the card run them without the JAX-importing conftest:
 
@@ -375,6 +377,17 @@ WGMMA_CASES = {
     "hd256_g16_window_2048": (1, 2500, 2500, 16, 1, 256, True, 2048, 0.0),
     "hd256_gemma2_window_4096_softcap_50": (1, 4200, 4200, 8, 4, 256, True,
                                             4096, 50.0),
+    # whisper-base's encoder (8/8 heads of 64 over 1500 frames, non-causal)
+    # and cross attention at prefill (1024 queries) and decode (one query);
+    # llama-3.2-vision's cross attention over 1601 patches (32/8 heads of
+    # 128) at prefill and decode
+    "hd64_whisper_encoder_s1500": (4, 1500, 1500, 8, 8, 64, False, 0, 0.0),
+    "hd64_whisper_cross_t1024_s1500": (4, 1024, 1500, 8, 8, 64, False, 0,
+                                       0.0),
+    "hd64_whisper_cross_t1_s1500": (8, 1, 1500, 8, 8, 64, False, 0, 0.0),
+    "hd128_vision_cross_t1024_s1601": (4, 1024, 1601, 32, 8, 128, False, 0,
+                                       0.0),
+    "hd128_vision_cross_t1_s1601": (8, 1, 1601, 32, 8, 128, False, 0, 0.0),
 }
 
 
@@ -1595,3 +1608,145 @@ def test_moe_layer_on_the_card_matches_the_cpu(card, dispatch):
     got, aux_card = MO.moe_apply(p_card, x.to(card), cfg)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     assert abs(float(aux_card) - float(aux_cpu)) <= 1e-6 * float(aux_cpu)
+
+
+# ---------------------------------------------------------------------------
+# MLA, the whisper encoder and cross attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_len", [1024, 333])
+def test_attend_pads_mla_v_through_k5(card, T_len):
+    """deepseek-v2's prefill attention: q and k at head_dim 192, v at 128
+    (128/128 heads), bf16. `attention.attend` pads v with zero columns to
+    192 for one K5 launch through the wgmma body and slices the output;
+    held against K5's plain version on the unpadded v."""
+    g = torch.Generator(device=card).manual_seed(T_len)
+    q, k = (torch.randn((1, T_len, 128, 192), generator=g, device=card).to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.randn((1, T_len, 128, 128), generator=g, device=card).to(
+        torch.bfloat16)
+    reset_launches()
+    got = A.attend(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["flash_attention"],
+            LAUNCHES["flash_attention_wgmma"]) == (1, 1)
+    ref = FA.flash_attention_plain(q, k, v)
+    assert got.shape == v.shape[:2] + (128, 128) == ref.shape
+    tol = FA.flash_attention_bound(q, k, v, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+def _encdec_cfg(name, quant=False):
+    """Reduced float32 configs whose K5 head_dim is one of the kernel's;
+    with ``quant`` every product of the decode quantizes."""
+    from repro_torch.configs.base import EncoderConfig, MLAConfig
+    if name == "deepseek-v2-236b":
+        mla = (MLAConfig(128, 128, 64, 64, 64) if quant
+               else MLAConfig(32, 32, 48, 16, 32))
+        extra = dict(d_model=512, num_heads=8, num_kv_heads=8, d_ff=256,
+                     vocab_size=512) if quant else {}
+        return ARCHS[name].reduced(mla=mla, **extra)
+    kw = dict(head_dim=64)
+    if quant:
+        kw.update(vocab_size=512, d_model=256, d_ff=256)
+    if name == "whisper-base":
+        kw.update(num_kv_heads=4, encoder=EncoderConfig(2, 96))
+        if quant:
+            kw.update(max_position_embeddings=256)
+    return ARCHS[name].reduced(**kw)
+
+
+def _open_gates(params):
+    """Every cross_gate at 0.5 (init leaves them 0, which drops the cross
+    sublayer)."""
+    return T.map_tree(lambda path, t: torch.full_like(t, 0.5)
+                      if "cross_gate" in path else t, params)
+
+
+def _context(cfg, B, device):
+    g = torch.Generator(device=device).manual_seed(3)
+    if cfg.encoder is not None:
+        return "frames", torch.randn((B, cfg.encoder.num_frames, cfg.d_model),
+                                     generator=g, device=device)
+    if cfg.vision is not None:
+        return "patches", torch.randn((B, cfg.vision.num_patches,
+                                       cfg.d_model), generator=g,
+                                      device=device)
+    return None, None
+
+
+ENCDEC = ["deepseek-v2-236b", "whisper-base", "llama-3.2-vision-11b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ENCDEC)
+def test_mla_and_cross_prefill_goes_through_k5(card, monkeypatch, name):
+    """One K5 launch a layer (MLA with v padded), one a cross layer and one
+    an encoder layer; the logits against the same forward on K5's plain
+    version (float32 end to end: a few layers of reordered sums)."""
+    cfg = _encdec_cfg(name)
+    params = _open_gates(T.init(torch.Generator(device=card).manual_seed(0),
+                                cfg, device=card))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=card)
+    batch = {"tokens": tokens}
+    key, ctx = _context(cfg, 2, card)
+    if key:
+        batch[key] = ctx
+    reset_launches()
+    got, _ = T.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    n_cross = sum(s.mixer == "cross" for s in cfg.layer_specs())
+    n_enc = cfg.encoder.num_layers if cfg.encoder is not None else 0
+    assert LAUNCHES["flash_attention"] == cfg.num_layers + n_cross + n_enc
+    monkeypatch.setattr(A, "flash_attention", FA.flash_attention_plain)
+    want, _ = T.forward(params, batch, cfg)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# K2 launches a decode step of `_encdec_cfg(name, quant=True)`: deepseek's
+# dense layer 4 MLA products (w_kr, 512 x 64 in one repeat, stays dense)
+# and 3 FFN, each MoE layer 5 MLA and the shared expert's 3 (the router's
+# 4 columns do not quantize), the LM head; whisper's decoder layers 4
+# self, 4 cross, 2 MLP; the vision model's 7 a layer and 4 more a cross
+# layer; all plus the LM head
+W8_STEP_LAUNCHES = {"deepseek-v2-236b": 7 + 2 * 8 + 1,
+                    "whisper-base": 2 * 10 + 1,
+                    "llama-3.2-vision-11b": 10 * 7 + 2 * 4 + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ENCDEC)
+def test_mla_and_cross_w8_decode_goes_through_k2(card, monkeypatch, name):
+    """The w8 decode at batch 8 over the context (whisper: the encoder's
+    output), K2's launches counted, the logits equal to those through K2's
+    plain version (float32)."""
+    cfg = _encdec_cfg(name, quant=True)
+    params = _open_gates(T.init(torch.Generator(device=card).manual_seed(0),
+                                cfg, device=card))
+    key, ctx = _context(cfg, 8, card)
+    if key == "frames":
+        ctx = T._encoder_forward(params["encoder"], ctx, cfg, remat=False)
+    qp = QS.quantize_params(params, bits=8)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 6), device=card)
+    logits = {}
+    for variant in ("kernel", "plain"):
+        if variant == "plain":
+            monkeypatch.setattr("repro_torch.nn.layers.quant_matmul",
+                                QM.quant_matmul_ref)
+        state = T.init_decode_state(cfg, 8, 16, torch.float32, device=card)
+        if key:
+            state["enc_out"] = ctx
+        reset_launches()
+        out = []
+        for t in range(tokens.shape[1]):
+            lg, state = T.decode_step(qp, state, tokens[:, t:t + 1], cfg)
+            out.append(lg)
+        torch.cuda.synchronize()
+        logits[variant] = torch.cat(out, 1)
+        expect = W8_STEP_LAUNCHES[name] * tokens.shape[1]
+        assert LAUNCHES["quant_matmul"] == (expect if variant == "kernel"
+                                            else 0)
+    torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
+                               atol=1e-4)

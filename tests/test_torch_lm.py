@@ -173,13 +173,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert out["device"] == "cpu" and out["tokens"] == 6
 
 
-@pytest.mark.parametrize("name,what", [
-    ("deepseek-v2-236b", "MLA"),
-    ("whisper-base", "whisper"), ("llama-3.2-vision-11b", "vision")])
-def test_later_slices_raise(name, what):
-    with pytest.raises(NotImplementedError, match=what):
-        TT.init(torch.Generator().manual_seed(0), ARCHS[name].reduced(),
-                device="cpu")
+@pytest.mark.parametrize("name,leaf", [
+    ("deepseek-v2-236b", "w_uk"), ("whisper-base", "c_wk"),
+    ("llama-3.2-vision-11b", "c_wk")])
+def test_mla_and_cross_families_build_and_decode(name, leaf):
+    """MLA, whisper's encoder and cross blocks and the vision model's
+    cross layers were later slices; the port now builds them and decodes
+    over the context placeholder of `init_decode_state` (their parity
+    tests are in tests/test_torch_mla.py and tests/test_torch_encdec.py)."""
+    cfg = ARCHS[name].reduced()
+    params = TT.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert any(leaf in blk["mixer"] for seg in params["segments"]
+               for blk in seg)
+    state = TT.init_decode_state(cfg, 1, 8, torch.float32, device="cpu")
+    assert ("enc_out" in state) == (name != "deepseek-v2-236b")
+    logits, state = TT.decode_step(params, state,
+                                   torch.zeros((1, 1), dtype=torch.long), cfg)
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and state["kv_len"] == 1
 
 
 def test_ssm_family_builds():

@@ -315,14 +315,18 @@ def test_attend_routes_prefill_through_k5_and_decode_not(k5_spy):
 
 
 def test_attend_cases_off_the_kernel_stay_plain(k5_spy):
+    """Calls over a cache (an offset, a valid length, explicit key
+    positions) stay plain; every call without one goes through K5, a
+    non-causal one (the encoder, cross attention) too."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 8, 4, 2, 16, 3))
     TA.attend(q, k, v, causal=True, q_offset=4)
     TA.attend(q, k, v, causal=True, kv_len=6)
-    TA.attend(q, k, v, causal=False)
     TA.attend(q, k, v, causal=True, k_positions=torch.arange(8))
     assert k5_spy == []
     TA.attend(q, k, v, causal=True, window=3, softcap=20.0)
     assert k5_spy[0][2] == {"causal": True, "window": 3, "softcap": 20.0}
+    TA.attend(q, k, v, causal=False)
+    assert k5_spy[1][2] == {"causal": False, "window": 0, "softcap": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -377,18 +381,20 @@ def test_quant_matmul_tolerance_covers_the_factored_scale(K, N, split,
 def test_flash_attention_takes_every_served_head_dim():
     """Fault F3 (repaired): every architecture whose layers the port serves
     with attention has its head_dim among the kernel's (nemotron-4-340b's
-    192 among them), so no served prefill raises on the card."""
+    192 among them), so no served prefill raises on the card. Every
+    architecture is served; MLA's K5 head_dim is qk_nope + qk_rope (v is
+    padded to it), which deepseek-v2's config states as its head_dim."""
     from repro_torch.kernels.flash_attention import ops as TFAO
     served = {}
     for name, cfg in ARCHS.items():
-        try:
-            for spec in cfg.layer_specs():
-                TT._unsupported(cfg, spec)
-        except NotImplementedError:
-            continue
-        if any(spec.mixer in ("attn", "local") for spec in cfg.layer_specs()):
+        if cfg.mla is not None:
+            assert cfg.resolved_head_dim == (cfg.mla.qk_nope_head_dim
+                                             + cfg.mla.qk_rope_head_dim)
+        if any(spec.mixer in ("attn", "local", "cross")
+               for spec in cfg.layer_specs()):
             served[name] = cfg.resolved_head_dim
     assert served["nemotron-4-340b"] == 192 and "qwen3-0.6b" in served
+    assert served["deepseek-v2-236b"] == 192 and "whisper-base" in served
     for name, hd in served.items():
         assert hd in TFAO.HEAD_DIMS, (name, hd)
         assert hd in TFAO.WGMMA_HEAD_DIMS, (name, hd)

@@ -160,8 +160,9 @@ Phases, each fatal on failure, each with its seconds printed:
    kernels against the same through K5's plain version (global norm and
    each leaf's norm within the stated bounds; 56 K5 forward launches, all
    through the wgmma body, and 28 backward launches); 4 steps through
-   ``repro_torch.launch.train`` with the launches counted, the step's
-   seconds, tokens/s, peak memory and the device's busy share; a run
+   ``repro_torch.launch.train`` (a donated step: the state updated in
+   place) with the launches counted, the step's seconds, tokens/s, peak
+   memory and the device's busy share; a run
    preempted after 2 steps (as its SIGTERM handler does: finish the step,
    checkpoint, stop), a new run resumed from it for 2 more, its losses within
    rtol 2e-3 of the uninterrupted run's (and whether bit-equal); one step
@@ -213,9 +214,31 @@ Phases, each fatal on failure, each with its seconds printed:
    causal, 8 cross, the cross launches held as in 32), the dense decode as
    in 32 (K5 8 a step), the dense engine, the w8 decode (K2 313 a step, K5
    8), and the share of the w8 step that the cross K and V projections at
-   M = 8 x 1601 take (made again at every step, as the JAX package does).
+   M = 8 x 1601 take (made again at every step, as the JAX package does);
+34. training the hybrid, MoE, MLA, whisper and vision families at full
+   width: first what phases 1-33 leave allocated (the CUDA tensors Python
+   still reaches and their holders, then cuBLAS's workspaces released);
+   then gemma2-2b whole at 1 x 8192 (past its 4096 window),
+   recurrentgemma-9b with 2 of its 12 (rec, rec, local) periods at 1 x
+   4096, phi3.5-moe with 2 of 32 layers at 4 x 1024, deepseek-v2 with its
+   dense layer and 1 of 59 MoE layers at 1 x 1024, whisper-base whole and
+   llama-3.2-vision with 2 of 8 periods at 4 x 1024 over seeded frames or
+   patches (every ``cross_gate`` at 0.5): one gradient through the
+   kernels against one through K5's plain version (the global norm, each
+   leaf's norm and each leaf's relative L2 within ``TRAIN_BOUNDS``, about
+   4x the H100's readings; K5's forward and backward launches
+   and bodies counted, the MoE routing replayed, a second kernel gradient
+   compared to the bit for the MoE families), 3 donated train steps with
+   finite losses, their seconds, tokens/s, peak memory and busy share,
+   the RG-LRU scan's share of a recurrentgemma-9b step, and K5's backward
+   at each family's attention shapes, held element by element against
+   its plain version, its device time from a CUDA graph against its
+   bound and SDPA's backward; then whisper-base through
+   ``launch.train`` (zero frames) preempted after 2 steps and resumed,
+   its losses bit-equal to an uninterrupted run's.
    Phases 28-30 run in ``hybrid_serving``, 31-33 in ``mla_cross_serving``,
-   each callable alone after K2 and K5 are built.
+   34 in ``family_training``, each callable alone after K2 and K5 (and,
+   for 34, K5's backward) are built.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -317,26 +340,32 @@ class Phase:
                   f"GiB")
 
 
-def device_busy(fn):
-    """(wall s, device busy s, kernels): ``fn`` once on the host clock,
-    then once under ``torch.profiler``, whose CUDA kernel times are summed
-    (busy share = busy / wall)."""
+def device_busy(fn, wall_s=None, cpu=True):
+    """(wall s, device busy s, kernels): ``fn`` once on the host clock
+    (unless its ``wall_s`` is known), then once under ``torch.profiler``,
+    whose CUDA kernel times are summed (busy share = busy / wall).
+    ``cpu=False`` records the device's activity alone, which a step of
+    200k launches needs (recording every host op of it takes minutes);
+    where the profiler then sees no kernel, it records both."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if wall_s is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and not e.is_user_annotation]
     busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    if busy_s == 0 and not cpu:
+        return device_busy(fn, wall_s)
     check(busy_s > 0, "the profiler saw no device time")
     return wall_s, busy_s, sum(e.count for e in events)
 
@@ -445,6 +474,11 @@ def _rotating_ms(fn, sets, reps: int) -> float:
     return event_ms(step, reps=reps, warmup=len(sets))
 
 
+# one side stream for every graph timing: cuBLAS keeps a workspace for each
+# stream it has run on, allocated through PyTorch's allocator
+_STREAMS = {}
+
+
 def _graph_ms(fn, sets, reps: int, stream=None) -> float:
     """Device time of one ``fn(*sets[i % len(sets)])``, i < reps: the calls
     are captured once in a CUDA graph, which is replayed between CUDA
@@ -454,7 +488,9 @@ def _graph_ms(fn, sets, reps: int, stream=None) -> float:
     autograd runs on its forward's stream, so the forward must have run
     there."""
     import torch
-    side = stream or torch.cuda.Stream()
+    if stream is None and "side" not in _STREAMS:
+        _STREAMS["side"] = torch.cuda.Stream()
+    side = stream or _STREAMS["side"]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):   # builds, allocations, library handles
         for args in sets:
@@ -2386,7 +2422,8 @@ def lm_training(card: str, dev):
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
     from repro_torch.train import losses
     from repro_torch.train import train_state as TS
-    from repro_torch.train.optimizer import (AdamWConfig, tree_leaves,
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             adamw_update_, tree_leaves,
                                              tree_unflatten)
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -2753,7 +2790,9 @@ def lm_training(card: str, dev):
                   f"{r['loss']:.6f}" for r in hist_a)
               + f"; step s {step_s}; steady {steady:.4f} s a step, "
               f"{Bt * Tt / steady:.0f} tokens/s; wall {wall_a:.3f} s with set-"
-              f"up; peak device memory {peak:.2f} GiB; launches {launches} "
+              f"up; peak device memory {peak:.2f} GiB with the donated "
+              f"update (16.80 GiB with the functional one); launches "
+              f"{launches} "
               f"({launches['flash_attention'] // steps} K5 forward and "
               f"{launches['flash_attention_bwd'] // steps} backward a step, "
               f"{launches['flash_attention_bwd_wgmma'] // steps} of them "
@@ -2766,8 +2805,34 @@ def lm_training(card: str, dev):
         print(f"[27] {card}: one qwen3-0.6b training step: wall {wall_s:.4f}"
               f" s, device busy {busy_s:.4f} s in {n_k} kernels, busy share "
               f"{busy_s / wall_s:.3f}")
+        # the update alone on run A's state and one gradient: the memory
+        # each form allocates above them, and the same bits from both
+        _, g = grads(st.params)
+        with torch.no_grad():
+            g = tree_unflatten(st.params, list(g))
+            update_gib = []
+            for update in (adamw_update, adamw_update_):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                new = update(opt, g, st.opt, st.params)
+                torch.cuda.synchronize()
+                update_gib.append(
+                    (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+                if update is adamw_update:
+                    functional = new
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(functional[:2]), tree_leaves(new[:2])))
+        del g, functional, new
+        print(f"[27] {card}: the AdamW update of qwen3-0.6b's "
+              f"{QWEN3_PARAMS} parameters on top of the state and the "
+              f"gradients: functional {update_gib[0]:.3f} GiB, donated "
+              f"{update_gib[1]:.3f} GiB; the same bits: {same}")
+        check(same, "the donated update's bits differ from the functional "
+              "one's")
         numbers["qwen3"] = dict(step_s=steady, tokens_per_s=Bt * Tt / steady,
-                                peak_gib=peak, busy_share=busy_s / wall_s)
+                                peak_gib=peak, busy_share=busy_s / wall_s,
+                                update_gib=update_gib)
         del trainer, st, run_a, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -3899,6 +3964,653 @@ def mla_cross_serving(card: str, dev):
     return out
 
 
+# phase 34: the later families trained at full width. name: (arch, the
+# repeats kept of each segment (None: all; segments past the tuple are
+# dropped), B, T, the parameters at that depth as the JAX package's
+# `param_count` counts them). The cuts keep every block kind:
+# recurrentgemma-9b 2 of its 12 (rec, rec, local) periods and not its
+# (rec, rec) tail; phi3.5-moe 2 of its 32 layers; deepseek-v2 its dense
+# layer and 1 of its 59 MoE layers (160 experts, top 6, 2 shared);
+# llama-3.2-vision 2 of its 8 periods (4 self-attention layers and a cross
+# layer each); gemma2-2b and whisper-base whole. gemma2-2b at T 8192 and
+# recurrentgemma-9b at 4096 train past their windows (4096, 2048).
+FAMILY_TRAIN = {
+    "gemma2-2b": ("gemma2-2b", None, 1, 8192, 2614341888),
+    "recurrentgemma-9b": ("recurrentgemma-9b", (2,), 1, 4096, 2361577472),
+    "phi3.5-moe": ("phi3.5-moe-42b-a6.6b", (2,), 4, 1024, 2863288320),
+    "deepseek-v2": ("deepseek-v2-236b", (1, 1), 1, 1024, 5358679040),
+    "whisper-base": ("whisper-base", None, 4, 1024, 114727942),
+    "llama-3.2-vision": ("llama-3.2-vision-11b", (2,), 4, 1024, 3315691522),
+}
+FAMILY_STEPS = 3
+# phase 34's bounds on the gradient through the kernels against the one
+# through K5's plain version: the relative difference of the global norm,
+# the largest relative difference of a leaf's norm, and the largest
+# relative L2 of a leaf's difference, each about 4x the H100's reading
+# (the gradients repeat to the bit from run to run); a K5 backward that
+# gets a direction wrong moves a leaf's relative L2 to order 1
+TRAIN_BOUNDS = {
+    "gemma2-2b": (5.3e-4, 1.2e-3, 0.053),
+    "recurrentgemma-9b": (1.2e-5, 2.7e-4, 0.022),
+    "phi3.5-moe": (6.5e-6, 3.5e-4, 0.035),
+    "deepseek-v2": (2.5e-6, 1.5e-3, 0.044),
+    "whisper-base": (1.8e-4, 0.019, 0.056),
+    "llama-3.2-vision": (2.8e-4, 0.027, 0.088),
+}
+
+
+def cut_depth(cfg, repeats):
+    """``cfg`` with the first ``len(repeats)`` segments at those repeats
+    and the rest dropped (``repeats`` None: ``cfg`` whole)."""
+    import dataclasses
+
+    from repro_torch.configs.base import Segment
+    if repeats is None:
+        return cfg
+    return dataclasses.replace(cfg, segments=tuple(
+        Segment(s.pattern, r) for s, r in zip(cfg.segments, repeats)))
+
+
+def live_cuda_tensors(top: int = 4):
+    """(bytes, the largest few) of the CUDA storages that the Python
+    objects the garbage collector tracks still reach, each storage once;
+    an entry: (bytes, shape, dtype, the types of the objects that refer
+    to the tensor and of those that refer to them)."""
+    import torch
+    seen, total, found = set(), 0, []
+    for o in gc.get_objects():
+        if not isinstance(o, torch.Tensor) or not o.is_cuda:
+            continue
+        st = o.untyped_storage()
+        if st.data_ptr() in seen:
+            continue
+        seen.add(st.data_ptr())
+        total += st.nbytes()
+        found.append((st.nbytes(), o))
+    found.sort(key=lambda t: -t[0])
+    out = []
+    for n, t in found[:top]:
+        refs = [r for r in gc.get_referrers(t) if r is not found][:3]
+        chain = sorted({type(r).__name__ for r in refs}
+                       | {type(rr).__name__ for r in refs
+                          for rr in gc.get_referrers(r)
+                          if rr is not refs and rr is not found})
+        out.append((n, tuple(t.shape), str(t.dtype), chain[:8]))
+    del found
+    return total, out
+
+
+def family_training(card: str, dev):
+    """Phase 34: gemma2-2b, recurrentgemma-9b, phi3.5-moe, deepseek-v2,
+    whisper-base and llama-3.2-vision trained at full width with the depths
+    of ``FAMILY_TRAIN``: one gradient through the kernels against one
+    through K5's plain version, 3 donated steps, their times, peak memory
+    and busy share; K5's backward at each family's attention shapes
+    against its bound and SDPA's backward; whisper-base through
+    ``launch.train`` preempted and resumed. Returns K5's forward and
+    backward launches by path and K5's backward times by shape."""
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ops import bwd_cost
+    from repro_torch.launch import train as LT
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import moe as M
+    from repro_torch.nn import rglru as R
+    from repro_torch.nn import transformer as T
+    from repro_torch.train import losses
+    from repro_torch.train import train_state as TS
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             tree_leaves, tree_unflatten)
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+    out = {"k5": {}, "k5_bwd": {}, "k5_bwd_wgmma": {}, "k5_bwd_ms": {},
+           "train": {}, "grad_check": {}}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # what phases 1-33 leave allocated: the tensors Python still reaches,
+    # then the rest (cuBLAS keeps a workspace for each stream it ran on,
+    # allocated through PyTorch's allocator)
+    free()
+    held = torch.cuda.memory_allocated()
+    reached, largest = live_cuda_tensors()
+    handler = signal.getsignal(signal.SIGTERM)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    free()
+    print(f"[34] at the phase's start: {held / 2**30:.3f} GiB allocated, "
+          f"{reached / 2**30:.3f} GiB of it in tensors Python reaches "
+          f"(largest: " + "; ".join(
+              f"{n / 2**30:.3f} GiB {shape} {dt} held by {chain}"
+              for n, shape, dt, chain in largest)
+          + f"); SIGTERM's handler {getattr(handler, '__qualname__', handler)}"
+          f"; after releasing cuBLAS's workspaces "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+    def with_routes(fn, routes=None):
+        """``fn()`` with the MoE layers' expert choices recorded in call
+        order (forward, then again under remat), or replayed from
+        ``routes``: a replayed call keeps the recorded experts and weighs
+        them, and makes the aux loss, from its own router probabilities,
+        so the router's gradient is its own. Returns (result, choices
+        recorded, choices the replayed calls would have flipped)."""
+        route = M._route
+        seen, flips = [], [0]
+        replay = None if routes is None else iter(routes)
+
+        def routed(logits, m):
+            topw, topi, aux = route(logits, m)
+            if replay is None:
+                seen.append(topi.detach().clone())
+                return topw, topi, aux
+            theirs = next(replay)
+            flips[0] += int((topi != theirs).sum())
+            probs = torch.softmax(logits, dim=-1) if m.router_softmax \
+                else torch.sigmoid(logits)
+            topw = probs.gather(-1, theirs)
+            topw = topw / torch.clamp_min(topw.sum(dim=-1, keepdim=True),
+                                          1e-9)
+            E = logits.shape[-1]
+            ce = torch.nn.functional.one_hot(theirs[:, 0], E).float().mean(
+                dim=0)
+            return topw, theirs, E * torch.sum(probs.mean(dim=0) * ce)
+
+        M._route = routed
+        try:
+            return fn(), seen, flips[0]
+        finally:
+            M._route = route
+
+    def batch_for(cfg, tokens):
+        b = {"tokens": tokens}
+        B = tokens.shape[0]
+        if cfg.encoder is not None:
+            b["frames"] = torch.randn(
+                (B, cfg.encoder.num_frames, cfg.d_model), generator=gen,
+                device=dev).to(L.torch_dtype(cfg.dtype))
+        if cfg.vision is not None:
+            b["patches"] = torch.randn(
+                (B, cfg.vision.num_patches, cfg.d_model), generator=gen,
+                device=dev).to(L.torch_dtype(cfg.dtype))
+        return b
+
+    def timed_scan(scan, spans):
+        """`rglru._rglru_scan` with its seconds appended to ``spans``: the
+        forward (again under remat) with a synchronize around it, and the
+        backward from y's gradient to the gates' (hooks on the tensors of
+        the forward that autograd differentiates)."""
+        def timed(x, r_gate, i_gate, lam, c, h0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, h = scan(x, r_gate, i_gate, lam, c, h0)
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t0)
+            if y.requires_grad:
+                mark = []
+
+                def start(g):
+                    torch.cuda.synchronize()
+                    mark.append(time.perf_counter())
+
+                def end(g):
+                    torch.cuda.synchronize()
+                    if len(mark) == 1:
+                        mark.append(time.perf_counter())
+                        spans.append(mark[1] - mark[0])
+
+                y.register_hook(start)
+                r_gate.register_hook(end)
+            return y, h
+        return timed
+
+    def gradient(cfg, params, batch):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        logits, aux = T.forward(tree_unflatten(params, leaves), batch, cfg,
+                                remat=True)
+        loss = losses.next_token_loss(logits, batch["tokens"], aux=aux)
+        del logits
+        grads = list(torch.autograd.grad(loss, leaves))
+        return float(loss.detach()), grads
+
+    def k5_counts(cfg):
+        """(K5 launches a forward, of them non-causal): each self-attention
+        (a cross block's too) causal, each cross attention and encoder
+        layer not."""
+        n_free = n_mixers(cfg, "cross") + (cfg.encoder.num_layers
+                                           if cfg.encoder else 0)
+        n_causal = sum(n_mixers(cfg, m) for m in ("attn", "local", "cross"))
+        return n_causal + n_free, n_free
+
+    def hd_takes_wgmma_bwd(cfg):
+        """Whether K5's backward takes its wgmma body on this model's
+        attention: head_dim 64 or 128 (MLA's q and k are at 192)."""
+        return cfg.mla is None and cfg.resolved_head_dim in (64, 128)
+
+    def gradient_check(name, cfg, params, batch):
+        """One gradient through the kernels (launches counted, K5's calls
+        recorded causal or not) against one with `attention.flash_attention`
+        set to K5's plain version, the MoE routing replayed; MoE families
+        also take a second kernel gradient, compared to the bit. Leaves are
+        compared and freed one at a time, within ``TRAIN_BOUNDS``."""
+        causal = []
+        kernel = A.flash_attention
+
+        def recording(q, k, v, **kw):
+            causal.append(kw.get("causal", True))
+            return kernel(q, k, v, **kw)
+
+        A.flash_attention = recording
+        scan, spans = R._rglru_scan, []
+        if cfg.rglru is not None:
+            R._rglru_scan = timed_scan(scan, spans)
+        try:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (loss_k, g_k), routes, _ = with_routes(
+                lambda: gradient(cfg, params, batch))
+            torch.cuda.synchronize()
+            grad_s = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+        finally:
+            A.flash_attention = kernel
+            R._rglru_scan = scan
+        scan_note = ""
+        if cfg.rglru is not None:
+            n_rec = n_mixers(cfg, "rec")
+            check(len(spans) == 3 * n_rec, f"{len(spans)} timed RG-LRU "
+                  f"spans, not {3 * n_rec} (forward, again under remat, "
+                  f"backward)")
+            out["rglru_scan"] = dict(s=sum(spans), of_s=grad_s,
+                                     share=sum(spans) / grad_s)
+            scan_note = (f"; the RG-LRU scan ({n_rec} layers, forward twice "
+                         f"and backward, {batch['tokens'].shape[1]} steps "
+                         f"each) {sum(spans):.4f} s, share "
+                         f"{sum(spans) / grad_s:.3f} of this gradient timed "
+                         f"with a synchronize around each ({grad_s:.4f} s)")
+        per_fwd, n_free = k5_counts(cfg)
+        wgmma_bwd = hd_takes_wgmma_bwd(cfg)
+        fwd, bwd = launches["flash_attention"], launches["flash_attention_bwd"]
+        check(fwd == 2 * per_fwd == len(causal)
+              and sum(not c for c in causal) == 2 * n_free
+              and launches["flash_attention_wgmma"] == fwd
+              and bwd == per_fwd
+              and launches["flash_attention_bwd_wgmma"]
+              == (bwd if wgmma_bwd else 0),
+              f"{name}'s gradient launched {launches}, {len(causal)} K5 "
+              f"calls ({sum(not c for c in causal)} non-causal); expected "
+              f"{2 * per_fwd} forward ({2 * n_free} non-causal) and "
+              f"{per_fwd} backward, "
+              f"{'all' if wgmma_bwd else 'none'} through the wgmma body")
+        rerun = ""
+        if cfg.moe is not None:
+            (_, g_k2), _, flips2 = with_routes(
+                lambda: gradient(cfg, params, batch), routes)
+            same = [torch.equal(a, b) for a, b in zip(g_k, g_k2)]
+            diff2 = max(float((a.float() - b.float()).norm())
+                        / max(float(b.float().norm()), 1e-30)
+                        for a, b in zip(g_k, g_k2))
+            del g_k2
+            rerun = (f"; a second kernel gradient: {sum(same)} of "
+                     f"{len(same)} leaves equal to the bit, largest relative"
+                     f" L2 of a leaf's difference {diff2:.3e}, {flips2} "
+                     f"expert choices flipped unreplayed")
+            check(diff2 <= 2 ** -8, f"{name}'s gradient moved between two "
+                  f"kernel runs by {diff2:.3e}")
+        A.flash_attention = FA.flash_attention_plain
+        try:
+            (loss_p, g_p), _, flips = with_routes(
+                lambda: gradient(cfg, params, batch), routes or None)
+        finally:
+            A.flash_attention = kernel
+        del routes
+        paths = tree_leaves(T.map_tree(lambda p, _: "/".join(map(str, p)),
+                                       params))
+        sq_k = sq_p = 0.0
+        leaf_rel, diff_rel = [], []
+        while g_k:
+            a, b = g_k.pop(0).float(), g_p.pop(0).float()
+            na, nb = float(a.norm()), float(b.norm())
+            sq_k, sq_p = sq_k + na * na, sq_p + nb * nb
+            leaf_rel.append(abs(na - nb) / max(nb, 1e-30))
+            diff_rel.append(float((a - b).norm()) / max(nb, 1e-30))
+            del a, b
+        norm_k, norm_p = sq_k ** 0.5, sq_p ** 0.5
+        g_bound, leaf_bound, diff_bound = TRAIN_BOUNDS[name]
+        g_rel = abs(norm_k - norm_p) / norm_p
+        worst = int(np.argmax(leaf_rel))
+        print(f"[34] {name}: one gradient, remat on: K5 {fwd} forward "
+              f"({2 * n_free} non-causal) and {bwd} backward launches "
+              f"({launches['flash_attention_bwd_wgmma']} through the "
+              f"backward's wgmma body); loss {loss_k:.6f} (plain K5 "
+              f"{loss_p:.6f}); global gradient norm {norm_k:.6f} (plain "
+              f"{norm_p:.6f}, relative difference {g_rel:.3e}, bound "
+              f"{g_bound:.3e}); largest relative difference of a leaf's norm "
+              f"{leaf_rel[worst]:.3e} at {paths[worst]} (bound "
+              f"{leaf_bound:.3e}); relative L2 of the leaves' differences: "
+              f"median {float(np.median(diff_rel)):.3e}, largest "
+              f"{max(diff_rel):.3e} at {paths[int(np.argmax(diff_rel))]} "
+              f"(bound {diff_bound:.3e})"
+              + (f"; the plain run would flip {flips} expert choices "
+                 f"(replayed)" if cfg.moe is not None else "") + rerun
+              + scan_note)
+        check(np.isfinite(loss_k) and np.isfinite(norm_k),
+              f"{name}'s loss or gradient is not finite")
+        check(g_rel <= g_bound, f"{name}'s global gradient norm differs "
+              f"from the plain version's beyond the bound")
+        check(max(leaf_rel) <= leaf_bound, f"a leaf's gradient norm of "
+              f"{name} differs from the plain version's beyond the bound")
+        check(max(diff_rel) <= diff_bound, f"a leaf's gradient of {name} "
+              f"differs from the plain version's beyond the bound")
+        out["grad_check"][name] = dict(global_rel=g_rel,
+                                       leaf_norm_rel=max(leaf_rel),
+                                       leaf_diff_rel=max(diff_rel))
+        return fwd, bwd
+
+    def train(name, cfg, params, B, Tn):
+        """FAMILY_STEPS donated steps from fresh AdamW moments, then one
+        more under the profiler for the busy share."""
+        opt = AdamWConfig(lr=3e-4, total_steps=FAMILY_STEPS + 2,
+                          warmup_steps=1)
+        state = TS.TrainState(params, adamw_init(params))
+        step = TS.make_train_step(cfg, opt, remat=True)
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=Tn, global_batch=B))
+        batches = [batch_for(cfg, torch.as_tensor(
+            pipe.batch_at(i)["tokens"], device=dev))
+            for i in range(FAMILY_STEPS)]
+        losses_, times = [], []
+        free()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses_.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = float(np.median(times[1:]))
+        free()
+        # the busy share of one more step under the profiler, against the
+        # steady step's wall time
+        wall_s, busy_s, n_k = device_busy(lambda: step(state, batches[0]),
+                                          wall_s=steady, cpu=False)
+        res = dict(step_s=steady, tokens_per_s=B * Tn / steady,
+                   peak_gib=peak, busy_share=busy_s / wall_s,
+                   kernels=n_k, losses=losses_)
+        if cfg.rglru is not None:
+            res["rglru_scan_share"] = out["rglru_scan"]["share"]
+        print(f"[34] {card}: {name}, {FAMILY_STEPS} donated steps of B={B} "
+              f"T={Tn}: losses " + ", ".join(f"{x:.6f}" for x in losses_)
+              + f"; step s {[round(x, 4) for x in times]}; steady "
+              f"{steady:.4f} s a step, {B * Tn / steady:.0f} tokens/s; peak "
+              f"device memory {peak:.2f} GiB; busy {busy_s:.4f} s of "
+              f"{wall_s:.4f} s in {n_k} kernels, share "
+              f"{busy_s / wall_s:.3f}; launches {launches}")
+        check(all(np.isfinite(x) for x in losses_),
+              f"{name}'s losses {losses_}")
+        del state, batches
+        return res, launches
+
+    def sdpa_bwd_ms(q, k, v, do, causal, window):
+        """SDPA's backward alone at these shapes (the forward on a side
+        stream, torch.autograd.grad of its output captured in a CUDA graph
+        on it), or None where SDPA refuses them."""
+        F = torch.nn.functional
+        T_, S_ = q.shape[1], k.shape[1]
+        mask = None
+        if window:
+            qi = torch.arange(T_, device=dev)[:, None]
+            ki = torch.arange(S_, device=dev)[None, :]
+            mask = (ki <= qi) & (ki > qi - window)
+        if "sdpa" not in _STREAMS:
+            _STREAMS["sdpa"] = torch.cuda.Stream()
+        stream = _STREAMS["sdpa"]
+        stream.wait_stream(torch.cuda.current_stream())
+        try:
+            with torch.cuda.stream(stream):
+                ins = tuple(x.detach().transpose(1, 2).requires_grad_(True)
+                            for x in (q, k, v))
+                o = F.scaled_dot_product_attention(
+                    *ins, attn_mask=mask, is_causal=causal and mask is None,
+                    enable_gqa=True)
+            torch.cuda.current_stream().wait_stream(stream)
+            dos = do[..., :o.shape[-1]].transpose(1, 2)
+            return _graph_ms(lambda: torch.autograd.grad(
+                o, ins, dos, retain_graph=True), [()], reps=5,
+                stream=stream)
+        except RuntimeError as e:
+            print(f"[34] SDPA refused {tuple(q.shape)} {tuple(k.shape)} "
+                  f"{tuple(v.shape)}: {str(e)[:200]}")
+            return None
+
+    def k5_bwd_time(label, B, Tq, S, H, KV, hd, causal, window, cap,
+                    vd=None):
+        """K5's backward at one training shape: dq, dk and dv held element
+        by element against `flash_attention_bwd_plain` on the same inputs
+        with `flash_attention_bwd_tolerance`, as phase 26 holds its cases;
+        device ms from a CUDA graph, the body, the bound of `bwd_cost`
+        (bytes or bf16 tensor-core operations), SDPA's backward (none with
+        a softcap, which SDPA lacks). ``vd``: v's own head_dim where the
+        path pads v to hd with zeros (MLA), as SDPA and the bound then take
+        it."""
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        q, do = rnd(B, Tq, H, hd), rnd(B, Tq, H, hd)
+        k, v = rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+        if vd is not None:
+            v[..., vd:] = 0
+            do[..., vd:] = 0
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = FA.flash_attention_with_lse(q, k, v, **kw)
+        body = "wgmma" if FA.takes_wgmma_bwd(q, k, v, o, do) else "CUDA-core"
+        got = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        ref = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+        tols = FA.flash_attention_bwd_tolerance(q, k, v, o, do, lse, ref,
+                                                **kw)
+        errs = []
+        for gname, a, b, t in zip(("dq", "dk", "dv"), got, ref, tols):
+            err, share, ok = _within(a, b, t)
+            errs.append((gname, err, share))
+            check(ok and bool(torch.isfinite(a).all()), f"flash_attention_"
+                  f"bwd disagrees with its plain version at {label} {gname}"
+                  f" (max abs err {err:.3e}, {share:.3f} of the bound)")
+        del got, ref, tols
+        free()
+        ms = _graph_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      **kw), [()], reps=5)
+        flops, nbytes = bwd_cost(B, Tq, S, H, KV, hd, 2, causal=causal,
+                                 window=window, vd=vd)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+        lib = None if cap else sdpa_bwd_ms(
+            q, k, v if vd is None else v[..., :vd].contiguous(), do, causal,
+            window)
+        res = {"shape": f"B {B}, T {Tq}, S {S}, {H}/{KV} heads of {hd}"
+                        + (f" (v {vd}, padded)" if vd else "")
+                        + f", {'causal' if causal else 'non-causal'}"
+                        + (f", window {window}" if window else "")
+                        + (f", softcap {cap}" if cap else "") + ", bf16",
+               "body": body, "ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": lib,
+               "max_abs_err": max(e for _, e, _ in errs),
+               "max_share": max(sh for _, _, sh in errs)}
+        print(f"[34] {card}: flash_attention_bwd at {label} ({res['shape']}),"
+              f" {body} body: against the plain version, max abs err "
+              + ", ".join(f"{g} {e:.3e} ({sh:.3f} of the bound)"
+                          for g, e, sh in errs)
+              + f"; {ms:.4f} ms device (CUDA graph), bound "
+              f"{res['bound_ms']:.5f} ms ({res['bound_by']}), "
+              f"{ms / res['bound_ms']:.1f}x; SDPA's backward "
+              + (f"{lib:.4f} ms" if lib is not None else
+                 "none (softcap)" if cap else "none (refused)"))
+        out["k5_bwd_ms"][label] = res
+        del q, k, v, o, do, lse
+
+    with Phase(34, "training the hybrid, MoE, MLA, whisper and vision "
+                   "families"):
+        for name, (arch, repeats, B, Tn, n_want) in FAMILY_TRAIN.items():
+            t_family = time.perf_counter()
+            cfg = cut_depth(ARCHS[arch], repeats)
+            params = T.init(gen, cfg, device=dev)
+            params = T.map_tree(lambda path, t: torch.full_like(t, 0.5)
+                                if "cross_gate" in path else t, params)
+            n_params = T.param_count(params)
+            n_layers = cfg.num_layers + (cfg.encoder.num_layers
+                                         if cfg.encoder else 0)
+            print(f"[34] {name}: {n_layers} layers kept, d_model "
+                  f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+                  f"of {cfg.resolved_head_dim}, window {cfg.window_size}: "
+                  f"{n_params} parameters, "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  f"allocated")
+            check(n_params == n_want, f"{name} has {n_params} parameters, "
+                  f"not {n_want}")
+            tokens = torch.randint(0, cfg.vocab_size, (B, Tn), generator=gen,
+                                   device=dev)
+            t0 = time.perf_counter()
+            gradient_check(name, cfg, params, batch_for(cfg, tokens))
+            check_s = time.perf_counter() - t0
+            del tokens
+            free()
+            t0 = time.perf_counter()
+            res, launches = train(name, cfg, params, B, Tn)
+            train_s = time.perf_counter() - t0
+            del params
+            free()
+            out["train"][name] = res
+            key = f"{name} training, {FAMILY_STEPS} steps (phase 34)"
+            out["k5"][key] = launches["flash_attention"]
+            out["k5_bwd"][key] = launches["flash_attention_bwd"]
+            out["k5_bwd_wgmma"][key] = launches["flash_attention_bwd_wgmma"]
+            per_fwd, _ = k5_counts(cfg)
+            wgmma_bwd = hd_takes_wgmma_bwd(cfg)
+            check(launches["flash_attention"] == 2 * per_fwd * FAMILY_STEPS
+                  == launches["flash_attention_wgmma"]
+                  and launches["flash_attention_bwd"]
+                  == per_fwd * FAMILY_STEPS
+                  and launches["flash_attention_bwd_wgmma"]
+                  == (launches["flash_attention_bwd"] if wgmma_bwd else 0),
+                  f"{name}'s {FAMILY_STEPS} steps launched {launches}")
+            # K5's backward at this family's attention shapes
+            H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+            cap = cfg.attn_softcap
+            if name == "gemma2-2b":
+                k5_bwd_time("gemma2-2b global", B, Tn, Tn, H, KV, hd, True,
+                            0, cap)
+                k5_bwd_time("gemma2-2b local", B, Tn, Tn, H, KV, hd, True,
+                            cfg.window_size, cap)
+            elif name == "recurrentgemma-9b":
+                k5_bwd_time(name, B, Tn, Tn, H, KV, hd, True,
+                            cfg.window_size, cap)
+            elif name == "deepseek-v2":
+                m = cfg.mla
+                k5_bwd_time(name, B, Tn, Tn, H, H,
+                            m.qk_nope_head_dim + m.qk_rope_head_dim, True,
+                            0, 0.0, vd=m.v_head_dim)
+            elif name == "whisper-base":
+                F_ = cfg.encoder.num_frames
+                k5_bwd_time("whisper-base encoder", B, F_, F_, H, KV, hd,
+                            False, 0, 0.0)
+                k5_bwd_time("whisper-base cross", B, Tn, F_, H, KV, hd,
+                            False, 0, 0.0)
+                k5_bwd_time("whisper-base decoder", B, Tn, Tn, H, KV, hd,
+                            True, 0, 0.0)
+            elif name == "llama-3.2-vision":
+                k5_bwd_time("llama-3.2-vision cross", B, Tn,
+                            cfg.vision.num_patches, H, KV, hd, False, 0, 0.0)
+                k5_bwd_time("llama-3.2-vision self", B, Tn, Tn, H, KV, hd,
+                            True, 0, 0.0)
+            else:
+                k5_bwd_time(name, B, Tn, Tn, H, KV, hd, True, 0, cap)
+            free()
+            print(f"[34] {name}: {time.perf_counter() - t_family:.3f} s for "
+                  f"the family, {check_s:.3f} s of it the gradient check, "
+                  f"{train_s:.3f} s the steps")
+
+        # whisper-base through the launcher: zero frames beside the tokens,
+        # 4 steps uninterrupted, then 2 preempted and 2 resumed
+        common = ["--arch", "whisper-base", "--seq-len", "1024",
+                  "--global-batch", "4", "--log-every", "1", "--lr", "3e-4",
+                  "--steps", "4"]
+        t_launch = time.perf_counter()
+        reset_launches()
+        run_a = LT.main(common)
+        hist_a = run_a["history"]
+        launches = dict(LAUNCHES)
+        del run_a
+        free()
+
+        class PreemptedAfterTwo(LT.Trainer):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                inner, done = self.step_fn, []
+
+                def step_fn(state, batch):
+                    res = inner(state, batch)
+                    done.append(1)
+                    if len(done) == 2:
+                        self.request_preemption()
+                    return res
+                self.step_fn = step_fn
+
+        with tempfile.TemporaryDirectory(dir=ROOT / "src" / "repro_torch"
+                                         / "_build") as ckpt:
+            LT.Trainer = PreemptedAfterTwo
+            try:
+                first = LT.main(common + ["--ckpt-dir", ckpt])
+            finally:
+                LT.Trainer = PreemptedAfterTwo.__bases__[0]
+            check(first["preempted"] and first["last_step"] == 1,
+                  f"whisper-base's preempted run stopped at "
+                  f"{first['last_step']}")
+            del first
+            second = LT.main(common + ["--ckpt-dir", ckpt])
+            hist_b = second["history"]
+            del second
+        free()
+        pairs = [(a["loss"], b["loss"]) for a, b in zip(hist_a[2:], hist_b)]
+        print(f"[34] whisper-base through launch.train (4 x 1024 tokens, "
+              f"zero frames of 4 x {ARCHS['whisper-base'].encoder.num_frames}"
+              f"): losses " + ", ".join(f"{r['loss']:.6f}" for r in hist_a)
+              + f"; launches {launches}; preempted after 2 steps and "
+              f"resumed: " + ", ".join(
+                  f"{b:.6f} (uninterrupted {a:.6f})" for a, b in pairs)
+              + f"; bit-equal: {all(a == b for a, b in pairs)}; "
+              f"{time.perf_counter() - t_launch:.3f} s for the three runs")
+        check([r["step"] for r in hist_b] == [2, 3]
+              and all(a == b for a, b in pairs),
+              "whisper-base's resumed losses differ from the uninterrupted "
+              "run's")
+        key = "whisper-base through launch.train, 4 steps (phase 34)"
+        out["k5"][key] = launches["flash_attention"]
+        out["k5_bwd"][key] = launches["flash_attention_bwd"]
+        out["k5_bwd_wgmma"][key] = launches["flash_attention_bwd_wgmma"]
+        per_fwd = k5_counts(ARCHS["whisper-base"])[0]
+        check(launches["flash_attention"] == 4 * 2 * per_fwd
+              == launches["flash_attention_wgmma"]
+              and launches["flash_attention_bwd"] == 4 * per_fwd
+              == launches["flash_attention_bwd_wgmma"],
+              f"whisper-base's 4 launcher steps launched {launches}")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -4259,8 +4971,27 @@ def main() -> None:
         fa_entry["launches_by_path"].update(part["k5"])
         fa_entry["launches_wgmma_body"] += sum(part["k5"].values())
         qmm_entry["launches_by_path"].update(part["k2"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = family_training(card, dev)
+    fa_entry["launches_by_path"].update(families["k5"])
+    fa_entry["launches_wgmma_body"] += sum(families["k5"].values())
     fa_entry["launches"] = sum(fa_entry["launches_by_path"].values())
     fa_entry["mla_shape"] = mla_cross["k5_mla"]
+    bwd_fa = bwd_entries[0]
+    bwd_fa["launches_by_path"] = {
+        "qwen3-0.6b training, 4 steps (phase 27)": bwd_fa["launches"]}
+    bwd_fa["launches_by_path"].update(families["k5_bwd"])
+    bwd_fa["launches"] = sum(bwd_fa["launches_by_path"].values())
+    bwd_fa["launches_wgmma_body"] += sum(families["k5_bwd_wgmma"].values())
+    bwd_fa["family_shapes"] = families["k5_bwd_ms"]
+    bwd_fa["max_abs_err"] = max([bwd_fa["max_abs_err"]] + [
+        r["max_abs_err"] for r in families["k5_bwd_ms"].values()])
+    bwd_fa["largest_share_of_bound"] = max(
+        [bwd_fa["largest_share_of_bound"]]
+        + [r["max_share"] for r in families["k5_bwd_ms"].values()])
+    print(f"[34] {card}: training " + ", ".join(
+        f"{k}: {v}" for k, v in families["train"].items()))
     qmm_entry["launches"] = sum(qmm_entry["launches_by_path"].values())
     qmm_entry["vision_cross_projection"] = mla_cross["k2_cross"]
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,

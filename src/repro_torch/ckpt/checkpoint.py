@@ -90,7 +90,9 @@ def _unflatten(like, leaves: List) -> Any:
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(host array as stored, dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        # a copy even of a CPU tensor: a donated train step writes the
+        # state in place while the writer thread may still hold it
+        t = leaf.detach().to("cpu", copy=True).contiguous()
         name = str(t.dtype).removeprefix("torch.")
         try:
             return t.numpy(), name

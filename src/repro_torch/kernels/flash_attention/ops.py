@@ -31,7 +31,7 @@ gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,15 +151,19 @@ def cost(B: int, T: int, S: int, H: int, KV: int, hd: int, elem: int, *,
 
 
 def bwd_cost(B: int, T: int, S: int, H: int, KV: int, hd: int, elem: int,
-             *, causal: bool = True, window: int = 0) -> Tuple[int, int]:
+             *, causal: bool = True, window: int = 0,
+             vd: Optional[int] = None) -> Tuple[int, int]:
     """(flops, bytes) of one backward call: the five products S = q k^T,
-    dP = do v^T, dv = P^T do, dk = dS^T q and dq = dS k, 10 hd flops a
-    visible pair a head; q, o, do, dq (B, T, H, hd) and k, v, dk, dv
-    (B, S, KV, hd) moved once at ``elem`` bytes a value, lse read as
-    float32. The counts behind the backward's bound."""
-    flops = 10 * hd * B * H * visible_pairs(T, S, causal=causal,
-                                            window=window)
-    return flops, (elem * (4 * B * T * H * hd + 4 * B * S * KV * hd)
+    dP = do v^T, dv = P^T do, dk = dS^T q and dq = dS k, 2 (3 hd + 2 vd)
+    flops a visible pair a head; q, dq (B, T, H, hd), o, do (B, T, H, vd),
+    k, dk (B, S, KV, hd) and v, dv (B, S, KV, vd) moved once at ``elem``
+    bytes a value, lse read as float32. ``vd``: v's own head_dim (hd when
+    None), for a caller that pads v with zeros to hd (MLA). The counts
+    behind the backward's bound."""
+    vd = hd if vd is None else vd
+    flops = 2 * (3 * hd + 2 * vd) * B * H * visible_pairs(
+        T, S, causal=causal, window=window)
+    return flops, (elem * 2 * (hd + vd) * (B * T * H + B * S * KV)
                    + 4 * B * H * T)
 
 

@@ -7,13 +7,17 @@ resume and periodic asynchronous checkpoints (``--ckpt-dir``), preemption
 (SIGTERM), microbatching, and the paper's compression as a first-class
 flag (``--qat-bits`` / ``--sparsity`` / ``--clusters`` apply the
 `repro_torch.core` QAT forward to every matrix weight). The token
-pipeline makes no frames or patches, so the encoder-decoder (whisper-base)
-and vision (llama-3.2-vision-11b) models do not train here yet.
+pipeline makes tokens only: the encoder-decoder (whisper-base) and vision
+(llama-3.2-vision-11b) models take zero frames or patches of (global batch,
+frames or patches, d_model) beside them, float32 on the trainer's device,
+as the reference's launcher feeds them (``extra_batch``). The trainer
+hands each step its state (a donated step, `train.train_state`).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 
 import torch
 
@@ -53,6 +57,24 @@ def make_compression(bits=None, sparsity=0.0, clusters=None):
     return transform
 
 
+def extra_batch(cfg, global_batch: int, device):
+    """step -> the batch entries beside the tokens: zero "frames" (B,
+    num_frames, d_model) for an encoder-decoder config, zero "patches" (B,
+    num_patches, d_model) for a vision one, float32 on ``device``; None
+    for a token-only model."""
+    shapes = {}
+    if cfg.encoder is not None:
+        shapes["frames"] = (global_batch, cfg.encoder.num_frames, cfg.d_model)
+    if cfg.vision is not None:
+        shapes["patches"] = (global_batch, cfg.vision.num_patches,
+                             cfg.d_model)
+    if not shapes:
+        return None
+    return lambda step: {k: torch.zeros(s, dtype=torch.float32,
+                                        device=device)
+                         for k, s in shapes.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
@@ -86,15 +108,23 @@ def main(argv=None):
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                          log_every=args.log_every, ckpt_dir=args.ckpt_dir,
                          microbatch=args.microbatch)
-    trainer = Trainer(cfg, opt, tcfg, pipe, device=dev)
+    trainer = Trainer(cfg, opt, tcfg, pipe, extra_batch=extra_batch(
+        cfg, args.global_batch, dev), device=dev)
     compression = make_compression(args.qat_bits, args.sparsity,
                                    args.clusters)
     if compression is not None:
         trainer.step_fn = TS.make_train_step(
             cfg, opt, remat=True, microbatch=args.microbatch,
             compression=compression)
+    # the handler holds the trainer, and through it the state: put the
+    # previous one back when the run ends
+    previous = signal.getsignal(signal.SIGTERM)
     trainer.install_signal_handler()
-    out = trainer.run()
+    try:
+        out = trainer.run()
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     print(json.dumps({k: v for k, v in out.items() if k != "history"}))

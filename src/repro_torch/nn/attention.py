@@ -375,8 +375,12 @@ def mla_apply(p, x, cfg: ArchConfig, *, cache=None,
     w_uv = L.real(p["w_uv"]["kernel"], dt)
 
     if cache is None:
-        k_nope = torch.einsum("btc,chk->bthk", c_kv, w_uk)
-        v = torch.einsum("btc,chk->bthk", c_kv, w_uv)
+        # btc,chk->bthk as one (B T, c) x (c, H k) product: an aten.mm,
+        # which the "dots" remat policy keeps as the reference's keeps this
+        # batchless einsum (torch.einsum would make it a bmm of batch 1)
+        k_nope = (c_kv @ w_uk.reshape(w_uk.shape[0], -1)).reshape(
+            B, T, H, -1)
+        v = (c_kv @ w_uv.reshape(w_uv.shape[0], -1)).reshape(B, T, H, -1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, qr)],
                       dim=-1)
         qf = torch.cat([q_nope, q_rope], dim=-1)

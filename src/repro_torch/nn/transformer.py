@@ -28,11 +28,13 @@ Public entry points:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec, Segment
@@ -153,13 +155,33 @@ def _take(tree, r: int):
     return tree[r]
 
 
+_BATCHLESS_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" remat policy, the JAX package's
+    ``dots_with_no_batch_dims_saveable``: keep the outputs of the products
+    whose einsum in the JAX package has no batch dimension, recompute
+    everything else. Those products are exactly the port's ``aten.mm`` and
+    ``aten.addmm``: every dense projection, the MLP's, the MoE router's,
+    the RG-LRU gates' and MLA's k and v up-projections (``btc,chk->bthk``,
+    computed as one ``mm``). Recomputed: every ``aten.bmm``, whatever its
+    batch size, as the products over a batch dimension they compute are:
+    the MoE experts' over E (``ecd,edf->ecf``), the plain attention's over
+    B x H; and K5, an autograd Function, no product."""
+    if op in _BATCHLESS_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _segment_apply(seg_params, x, cfg: ArchConfig, seg, *, caches=None,
                    kv_len=None, enc_out=None, remat: bool = False):
     """Returns (x, the summed aux of the MoE layers); caches are updated
     in place. ``remat``: each repeat of the pattern runs under
     `torch.utils.checkpoint.checkpoint`, which keeps only its input and
     runs it again in the backward pass, as the JAX package's
-    `jax.checkpoint` of its scan body does."""
+    `jax.checkpoint` of its scan body does; with ``cfg.remat_policy ==
+    "dots"`` it also keeps the products `_dots_policy` names."""
 
     def body(x, aux, params, cache_r):
         for i, spec in enumerate(seg.pattern):
@@ -171,13 +193,18 @@ def _segment_apply(seg_params, x, cfg: ArchConfig, seg, *, caches=None,
                 aux = aux + a
         return x, aux
 
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(seg.repeats):
         params = _take(seg_params, r)
         cache_r = None if caches is None else _take(caches, r)
         if remat and cache_r is None:
             x, aux = checkpoint(body, x, aux, params, None,
-                                use_reentrant=False, preserve_rng_state=False)
+                                use_reentrant=False, preserve_rng_state=False,
+                                **kw)
         else:
             x, aux = body(x, aux, params, cache_r)
     return x, aux
@@ -296,11 +323,9 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
     context as given). Returns (logits float32 (B, T, V), aux_loss: the router losses of the
     MoE layers summed, 0 without one). ``remat`` recomputes each
     block in the backward pass instead of keeping its activations (no
-    effect without one); the "dots" policy, which keeps the products'
-    outputs, is not ported and raises."""
-    if remat and cfg.remat_policy == "dots":
-        raise NotImplementedError("remat_policy='dots' (keep the products' "
-                                  "outputs) is not ported")
+    effect without one); ``cfg.remat_policy == "dots"`` keeps the outputs
+    of the products without batch dimensions (`_dots_policy`), the
+    encoder's layers recomputed whole as in the JAX package."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     enc_out = None

@@ -6,6 +6,14 @@ keys in sorted order as ``jax.tree_util`` walks it, so sums over leaves
 (the global norm) add in the reference's order. The moments m and v are
 float32 whatever the parameters' dtype, and the parameters are updated in
 their own dtype, with no float32 master copy, as in the reference.
+
+`adamw_update` is functional: it returns new trees and leaves the old
+ones alive. `adamw_update_` is the donated form, what
+``jax.jit(..., donate_argnums=(0,))`` lets XLA do in the reference: it
+writes the new parameters, m and v into the old tensors' storage, a
+bounded slice of a leaf at a time, so neither a float32 copy of the
+gradient tree nor a second state ever exists. Both make the same
+roundings in the same order and give the same bits.
 """
 from __future__ import annotations
 
@@ -120,18 +128,24 @@ def adamw_init(params) -> AdamWState:
                                          device=p.device), params))
 
 
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
-    """Returns (new_params, new_state, metrics {"lr", "grad_norm"}). Weight
-    decay applies to leaves of two or more dimensions; a norm scale stacked
-    over a segment's repeats is one of them, as in the reference."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def _step_terms(cfg: AdamWConfig, state: AdamWState):
+    """(the new step, its learning rate, the bias corrections 1 - b1^t and
+    1 - b2^t), float32 0-dim tensors beside the step."""
     step = state.step + 1
-    lr = schedule_lr(cfg, step)
     stepf = step.to(torch.float32)
     b1t = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
                                        device=stepf.device), stepf)
     b2t = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                        device=stepf.device), stepf)
+    return step, schedule_lr(cfg, step), b1t, b2t
+
+
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
+    """Returns (new_params, new_state, metrics {"lr", "grad_norm"}). Weight
+    decay applies to leaves of two or more dimensions; a norm scale stacked
+    over a segment's repeats is one of them, as in the reference."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step, lr, b1t, b2t = _step_terms(cfg, state)
 
     def upd(g, m, v, p):
         m = cfg.b1 * m + (1 - cfg.b1) * g
@@ -149,4 +163,47 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
         return tree_unflatten(params, [t[i] for t in triples])
 
     return component(0), AdamWState(step, component(1), component(2)), \
+        {"lr": lr, "grad_norm": gnorm}
+
+
+# elements of a leaf updated at once by `adamw_update_`: its float32
+# temporaries stay near 1 GiB for deepseek-v2's expert stacks (1.26 G
+# elements a leaf), whose whole-leaf temporaries would be 5 GB each
+UPDATE_CHUNK = 1 << 26
+
+
+def adamw_update_(cfg: AdamWConfig, grads, state: AdamWState, params):
+    """The donated form of `adamw_update`: the caller hands over ``params``
+    and ``state``, whose m, v and parameter tensors this writes in place.
+    Returns (params, new_state, metrics) as `adamw_update` does, the same
+    tensors holding the same bits that it would return.
+
+    Each gradient leaf is scaled by the clip factor inside the update,
+    one flat slice of at most `UPDATE_CHUNK` elements at a time, with the
+    functional form's operations in its order (``b1 * m``, ``(1 - b1) *
+    g``, then their sum; no fused ``lerp_`` or ``addcmul_``, which round
+    once where it rounds twice). The parameters and moments are
+    contiguous, as `transformer.init`, `adamw_init` and a checkpoint's
+    restore make them; a gradient need not be (the tied embedding's is a
+    transpose) and is read through a contiguous copy then."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    step, lr, b1t, b2t = _step_terms(cfg, state)
+    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m),
+                          tree_leaves(state.v), tree_leaves(params)):
+        decay = bool(cfg.weight_decay) and p.dim() >= 2
+        flat = [t.view(-1) for t in (g.contiguous(), m, v, p)]
+        for i in range(0, p.numel(), UPDATE_CHUNK):
+            gs, ms, vs, ps = (t[i:i + UPDATE_CHUNK] for t in flat)
+            gs = gs.to(torch.float32) * scale
+            ms.mul_(cfg.b1).add_((1 - cfg.b1) * gs)
+            vs.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gs))
+            del gs
+            delta = (ms / b1t).div_(torch.sqrt(vs / b2t).add_(cfg.eps))
+            pf = ps.to(torch.float32)
+            if decay:
+                delta.add_(cfg.weight_decay * pf)
+            ps.copy_(pf.sub_(lr * delta))
+    return params, AdamWState(step, state.m, state.v), \
         {"lr": lr, "grad_norm": gnorm}

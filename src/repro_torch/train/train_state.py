@@ -4,8 +4,11 @@ counterpart of `repro.train.train_state`.
 The train step runs the model forward and backward with autograd: on a
 CUDA device every attention layer's forward and backward run through
 kernel K5 and its backward kernel, every Mamba layer's through K6 and its
-backward kernel. Its state is functional, as the reference's: a step
-returns new parameters and a new optimizer state.
+backward kernel. The caller hands the step its state, as the reference's
+dry run donates it to ``jax.jit``: the step writes the new parameters and
+moments into the old state's tensors (`optimizer.adamw_update_`, the bits
+of the functional `optimizer.adamw_update`), so 12 bytes a bf16 parameter
+stay resident through the update instead of about 28.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import transformer as T
 from repro_torch.train import losses
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState, adamw_init,
-                                         adamw_update, tree_leaves,
+                                         adamw_update_, tree_leaves,
                                          tree_unflatten)
 
 
@@ -56,6 +59,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     compression: Optional[Callable] = None):
     """Returns train_step(state, batch) -> (state, metrics {"loss", "lr",
     "grad_norm"}), the metrics 0-dim tensors.
+
+    The caller hands ``state`` over: the step writes the new parameters
+    and moments into its tensors and returns them. A state that must
+    outlive the step, such as a checkpoint's, is copied before the next
+    step (`ckpt.checkpoint` copies to the host when it saves).
 
     microbatch: if set, the batch is cut into slices of that many rows and
     their gradients are summed in float32, one slice at a time (the memory
@@ -101,8 +109,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         loss, grads = grads_of(state.params, batch)
         with torch.no_grad():
-            params, opt, metrics = adamw_update(opt_cfg, grads, state.opt,
-                                                state.params)
+            params, opt, metrics = adamw_update_(opt_cfg, grads, state.opt,
+                                                 state.params)
         return TrainState(params, opt), dict(metrics, loss=loss)
 
     return train_step

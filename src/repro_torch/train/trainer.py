@@ -47,6 +47,8 @@ class Trainer:
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts)
                      if tcfg.ckpt_dir else None)
         self._preempted = False
+        # the loop hands each step its state, as the reference's dry run
+        # donates it; a checkpoint copies the state to the host first
         self.step_fn = TS.make_train_step(cfg, opt_cfg, remat=True,
                                           microbatch=tcfg.microbatch)
         self.history: List[Dict] = []

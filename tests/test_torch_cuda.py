@@ -1189,6 +1189,17 @@ BWD_CASES = {
     "hd256_bf16_window_softcap": (1, 300, 300, 8, 4, 256, True, 100, 50.0,
                                   "bfloat16"),
     "hd256_f32_g8": (1, 70, 70, 8, 1, 256, True, 0, 0.0, "float32"),
+    # the training shapes of the later families at small T: the vision
+    # cross layers (hd 128, non-causal over 1601 patches), whisper's cross
+    # attention (hd 64 over 1500 frames), recurrentgemma-9b's local layers
+    # (hd 256, MQA: one kv head for 16) and MLA's (hd 192, a kv head a head)
+    "hd128_bf16_noncausal_cross": (2, 64, 1601, 32, 8, 128, False, 0, 0.0,
+                                   "bfloat16"),
+    "hd64_bf16_noncausal_cross": (2, 70, 1500, 8, 8, 64, False, 0, 0.0,
+                                  "bfloat16"),
+    "hd256_bf16_mqa_g16_window": (1, 300, 300, 16, 1, 256, True, 128, 0.0,
+                                  "bfloat16"),
+    "hd192_bf16_g1": (1, 200, 200, 16, 16, 192, True, 0, 0.0, "bfloat16"),
 }
 
 
@@ -1474,13 +1485,17 @@ def test_train_step_through_the_kernels_matches_plain(card, arch,
     cfg = ARCHS[arch].reduced(**QUANT_CFG) if arch == "qwen3-0.6b" \
         else ARCHS[arch].reduced(d_model=256)
     opt = AdamWConfig(lr=1e-3, warmup_steps=1)
-    state = TS.init_state(torch.Generator(device=card).manual_seed(0), cfg,
-                          opt, device=card)
+
+    def state():
+        # the step writes the state it is handed: each run draws its own
+        return TS.init_state(torch.Generator(device=card).manual_seed(0),
+                             cfg, opt, device=card)
+
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 100),
                                      device=card)}
     step = TS.make_train_step(cfg, opt, remat=True)
     reset_launches()
-    s1, m1 = step(state, batch)
+    s1, m1 = step(state(), batch)
     torch.cuda.synchronize()
     L = cfg.num_layers
     if arch == "qwen3-0.6b":
@@ -1490,7 +1505,7 @@ def test_train_step_through_the_kernels_matches_plain(card, arch,
     else:
         assert (LAUNCHES["ssm_scan"], LAUNCHES["ssm_scan_bwd"]) == (2 * L, L)
         monkeypatch.setattr(S, "ssm_scan", SS.ssm_scan_ref)
-    s2, m2 = step(state, batch)
+    s2, m2 = step(state(), batch)
     for key in ("loss", "grad_norm"):
         assert abs(float(m1[key]) - float(m2[key])) <= 1e-4 * abs(
             float(m2[key]))

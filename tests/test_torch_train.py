@@ -17,6 +17,7 @@ parameter by up to 2.2 lr a step: every parameter within 1e-5 + 2.2 n lr,
 and all but 0.1% of each leaf within 1e-5 + 1e-2 lr."""
 import dataclasses
 import json
+import threading
 
 import jax
 
@@ -37,6 +38,7 @@ from repro.launch.train import make_compression as r_make_compression  # noqa: E
 from repro.train import losses as RL  # noqa: E402
 from repro.train import optimizer as RO  # noqa: E402
 from repro.train import train_state as RTS  # noqa: E402
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig  # noqa: E402,E501
 from repro_torch.launch import train as LT  # noqa: E402
@@ -258,22 +260,24 @@ def test_compression_matches_the_reference(name):
 
 
 def test_remat_keeps_the_gradient_and_refuses_the_dots_policy():
+    """Remat on, remat off and the "dots" policy (the products' outputs
+    kept, the rest recomputed; once refused, now ported) give the same
+    gradients to the bit."""
     _, tcfg = _configs("qwen3-0.6b")
     params = T.init(torch.Generator().manual_seed(0), tcfg, device=CPU)
     tokens = torch.randint(0, tcfg.vocab_size, (2, 12),
                            generator=torch.Generator().manual_seed(1))
     grads = []
-    for remat in (True, False):
+    dots = dataclasses.replace(tcfg, remat_policy="dots")
+    for cfg, remat in ((tcfg, True), (tcfg, False), (dots, True)):
         leaves = [p.detach().requires_grad_(True)
                   for p in TO.tree_leaves(params)]
         logits, _ = T.forward(TO.tree_unflatten(params, leaves),
-                              {"tokens": tokens}, tcfg, remat=remat)
+                              {"tokens": tokens}, cfg, remat=remat)
         grads.append(torch.autograd.grad(logits.square().mean(), leaves))
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="dots"):
-        T.forward(params, {"tokens": tokens},
-                  dataclasses.replace(tcfg, remat_policy="dots"))
+    for other in grads[1:]:
+        for a, b in zip(grads[0], other):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +323,33 @@ def test_trainer_resume_is_seamless(tmp_path):
     assert t3.history[-1]["loss"] < t3.history[0]["loss"]
 
 
+def test_checkpoint_copies_a_donated_state_before_the_next_step(tmp_path):
+    """The trainer's step writes the state in place (donated). A
+    checkpoint saved before that step holds the state as it was at the
+    save, though the writer thread writes it only after the step: `save`
+    copies every leaf to the host first, CPU tensors too."""
+    cfg, pipe, opt = _tiny()
+    state = TTS.init_state(torch.Generator().manual_seed(0), cfg, opt,
+                           device=CPU)
+    want = [t.clone() for t in TO.tree_leaves(state)]
+    mgr = CheckpointManager(tmp_path)
+    gate, write = threading.Event(), mgr._write
+    mgr._write = lambda job: (gate.wait(), write(job))
+    mgr.save(0, state, meta={"step": 0})
+    step = TTS.make_train_step(cfg, opt, remat=False)
+    new, _ = step(state, {"tokens": torch.from_numpy(
+        pipe.batch_at(0)["tokens"])})
+    moved = [not torch.equal(a, b) for a, b in zip(TO.tree_leaves(new),
+                                                   want)]
+    assert TO.tree_leaves(new)[0] is TO.tree_leaves(state)[0] and any(moved)
+    gate.set()
+    mgr.wait()
+    restored, meta = mgr.restore(like=state)
+    assert meta["step"] == 0
+    for a, b in zip(TO.tree_leaves(restored), want):
+        assert torch.equal(a, b)
+
+
 def test_preemption_checkpoints_and_stops(tmp_path):
     cfg, pipe, opt = _tiny()
     tr = Trainer(cfg, opt, TrainerConfig(
@@ -349,7 +380,8 @@ def test_trainer_refuses_cuda_without_a_card(monkeypatch):
 @pytest.mark.parametrize("arch,extra", [
     ("qwen3-0.6b", []), ("falcon-mamba-7b", []),
     ("qwen3-0.6b", ["--qat-bits", "8", "--sparsity", "0.5",
-                    "--microbatch", "1"])])
+                    "--microbatch", "1"]),
+    ("whisper-base", []), ("llama-3.2-vision-11b", [])])
 def test_launch_train_on_the_cpu(arch, extra, tmp_path, capsys):
     out = LT.main(["--arch", arch, "--reduced", "--steps", "3",
                    "--seq-len", "12", "--global-batch", "2",
@@ -358,3 +390,14 @@ def test_launch_train_on_the_cpu(arch, extra, tmp_path, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["last_step"] == 2 and "history" not in last
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000002"]
+    # whisper's and the vision model's batches carry zero frames or
+    # patches beside the tokens, as the reference's launcher feeds them
+    cfg = ARCHS[arch].reduced()
+    extra = LT.extra_batch(cfg, 2, CPU)
+    if cfg.encoder is None and cfg.vision is None:
+        assert extra is None
+    else:
+        (key, ctx), = extra(0).items()
+        n = cfg.encoder.num_frames if cfg.encoder else cfg.vision.num_patches
+        assert key == ("frames" if cfg.encoder else "patches")
+        assert ctx.shape == (2, n, cfg.d_model) and not ctx.any()

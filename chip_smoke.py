@@ -239,6 +239,37 @@ Phases, each fatal on failure, each with its seconds printed:
    Phases 28-30 run in ``hybrid_serving``, 31-33 in ``mla_cross_serving``,
    34 in ``family_training``, each callable alone after K2 and K5 (and,
    for 34, K5's backward) are built.
+35. the LM planning path's dry-run (`launch.dryrun.run_cell`) of every arch
+   x shape of the registry but `SWEEP_LEFT_OUT` on the meta device: each
+   cell ok or skipped by `shape_applicable`, its depth fit equal to the
+   direct count, the H100 roofline's t_step and dominant term, the
+   arguments' and temporaries' GiB against the card's 80 GB;
+36. the dry-run held against the card at full width in `PLAN_CELLS`
+   (qwen3-0.6b train_4k at 1 x 4096, all 28 layers, K5 forward and
+   backward; qwen3-0.6b decode_32k, w8, batch 8, K2; falcon-mamba-7b
+   prefill_32k at batch 1, K6): the same `roofline.analysis.count_step`
+   over the real step, its FLOPs and kernel records equal to the meta
+   count, the peak within `PEAK_REL`/`PEAK_ABS` of the predicted
+   arguments + temporaries, the median step time beside t_step, then one
+   more step under a `KernelAudit`;
+37. the four LM examples through their entry points: `lm_compression`
+   (NSGA-II priced by `core.gpu_cost` on the H100; its Pareto front and
+   projected decode speed-up), `quickstart` (K1; the area gains),
+   `serve_demo` (K5, K6, K2; the tokens generated), `train_lm_100m
+   --steps 30` (the loss going down), under a `KernelAudit`;
+38. `dist.grad_compression` over qwen3-0.6b's real gradient trees (drawn
+   under a `KernelAudit`): every leaf within half a step, the
+   error-feedback sum tracking the true sum over 4 rounds.
+   A `KernelAudit` holds the first launch of each distinct call of K2, K5,
+   K5's backward, K6 and K6's backward (shapes, dtype, mask) element by
+   element against the plain version on that launch's own inputs, under
+   the tolerances of the earlier phases, and checks the body each K5 and
+   K2 launch took; every kind of kernel a phase launches must have been
+   held so (bf16 at head_dim 32 on K5's CUDA-core body in lm_compression,
+   float32 at head_dim 64 in train_lm_100m, K5 and its backward at 1 x
+   4096, K6 at 1 x 32768, the gradients at 2 x 512).
+   Phases 35-38 run in ``planning_sweep``, ``planning_cells``,
+   ``planning_examples`` and ``gradient_compression``.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -4611,6 +4642,520 @@ def family_training(card: str, dev):
     return out
 
 
+# phase 35: the dry-run's cells on the meta device, but four, which keeps
+# the sweep near half a minute (79 s with all but the first two on the
+# H100's host): recurrentgemma-9b's train_4k and prefill_32k (its RG-LRU
+# scan is a Python loop over T, counted op by op on meta, about 0.5 ms an
+# op: some 7 minutes a cell with the depth fit) and the two largest train
+# steps (about 19 s each there); `python -m repro_torch.launch.dryrun
+# --all` runs all 40.
+SWEEP_LEFT_OUT = {("recurrentgemma-9b", "train_4k"):
+                  "RG-LRU loop over 4096 steps, ~7 min on meta",
+                  ("recurrentgemma-9b", "prefill_32k"):
+                  "RG-LRU loop over 32768 steps, ~7 min on meta",
+                  ("nemotron-4-340b", "train_4k"):
+                  "96 layers forward, recomputed and backward, ~19 s",
+                  ("deepseek-v2-236b", "train_4k"):
+                  "60 MLA + MoE layers, ~19 s"}
+# phase 36: the dry-run held against the card at full width, each cell cut
+# in batch only: (arch, shape, variant, global batch)
+PLAN_CELLS = (("qwen3-0.6b", "train_4k", "baseline", 1),
+              ("qwen3-0.6b", "decode_32k", "w8", 8),
+              ("falcon-mamba-7b", "prefill_32k", "baseline", 1))
+# the measured peak (torch.cuda.max_memory_allocated over the allocation
+# before the arguments) against the predicted argument + temporary bytes:
+# within 2% + 256 MiB either way. The caching allocator rounds each block
+# up to 512 bytes (a few MB over a step's thousands of small tensors) and
+# cuBLAS keeps a workspace per handle and stream (32 MiB on Hopper), which
+# the count cannot see; 2% leaves room for the allocator's other blocks.
+PEAK_REL, PEAK_ABS = 0.02, 256 * 2 ** 20
+
+
+class KernelAudit:
+    """Holds the first launch of each distinct call of K2, K5, K5's
+    backward, K6 and K6's backward that a run makes (the kernel, its
+    shapes, dtype and mask) element by element against the kernel's plain
+    version on that launch's own inputs, under the tolerances the earlier
+    phases hold each kernel to: `flash_attention_bound` (and
+    `flash_attention_lse_tolerance` on the lse autograd keeps),
+    `flash_attention_bwd_tolerance`, `ssm_scan_tolerance`,
+    `ssm_scan_bwd_tolerance` and `quant_matmul_tolerance`. It also checks
+    that each audited K5 launch took the body `takes_wgmma` (or
+    `takes_wgmma_bwd`) names, and each K2 launch on bf16 the mma body. The
+    wrappers' launch functions are swapped for the run and put back after
+    it; the plain versions launch nothing, so the run's counts stand."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+        self.rows = {}
+
+    def _record(self, key, name, shape, body, parts):
+        import torch
+        torch.cuda.synchronize()
+        errs, shares = [], []
+        for part, (got, ref, tol) in parts.items():
+            err, share, ok = _within(got, ref, tol)
+            check(ok and bool(torch.isfinite(got.float()).all()),
+                  f"{self.tag}: {name} {shape} {part} differs from the "
+                  f"plain version beyond the bound ({share:.3f} of it)")
+            errs.append(err)
+            shares.append(share)
+        self.rows[key] = {"kernel": name, "shape": shape, "body": body,
+                          "max_abs_err": max(errs),
+                          "largest_share_of_bound": max(shares)}
+        print(f"[{self.tag}] audit {name} {shape}, {body} body: max abs err "
+              f"{max(errs):.3e}, largest share of the bound "
+              f"{max(shares):.3f}")
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import LAUNCHES
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import quant_matmul as QM
+        from repro_torch.kernels import ssm_scan as SS
+        from repro_torch.kernels.flash_attention import ops as FAO
+        from repro_torch.kernels.ssm_scan import ops as SSO
+        from repro_torch.nn import layers as L
+        self.saved = [(FAO, "_launch_forward", FAO._launch_forward),
+                      (FAO, "flash_attention_bwd", FAO.flash_attention_bwd),
+                      (SSO, "_launch_forward", SSO._launch_forward),
+                      (SSO, "ssm_scan_bwd", SSO.ssm_scan_bwd),
+                      (L, "quant_matmul", L.quant_matmul)]
+        fa_fwd, fa_bwd, ss_fwd, ss_bwd, qmm = (f for _, _, f in self.saved)
+
+        def new(key, t):
+            return t.device.type == "cuda" and key not in self.rows
+
+        def k5(q, k, v, causal, window, softcap, with_lse=False):
+            key = ("K5", tuple(q.shape), tuple(k.shape), q.dtype, causal,
+                   window, softcap, with_lse)
+            if not new(key, q):
+                return fa_fwd(q, k, v, causal, window, softcap, with_lse)
+            wgmma = FA.takes_wgmma(q, k, v)
+            before = LAUNCHES["flash_attention_wgmma"]
+            o, lse = fa_fwd(q, k, v, causal, window, softcap, with_lse)
+            took = LAUNCHES["flash_attention_wgmma"] - before
+            body = "wgmma" if took else "CUDA-core"
+            check(took == int(wgmma), f"{self.tag}: K5 {key} took the "
+                  f"{body} body, takes_wgmma says {wgmma}")
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            with torch.no_grad():
+                ref = FA.flash_attention_plain(q, k, v, **kw)
+                parts = {"o": (o, ref, FA.flash_attention_bound(
+                    q, k, v, ref, **kw))}
+                if lse is not None:
+                    lp = FA.flash_attention_lse_plain(q, k, v, **kw)
+                    parts["lse"] = (lse, lp, FA.flash_attention_lse_tolerance(
+                        q, k, lp, softcap=softcap))
+                self._record(key, "flash_attention", key[1:3] + key[4:7]
+                             + (str(q.dtype)[6:],) + (("lse",) if with_lse
+                                                      else ()), body, parts)
+            return o, lse
+
+        def k5_bwd(q, k, v, o, do, lse, *, causal=True, window=0,
+                   softcap=0.0):
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            key = ("K5-bwd", tuple(q.shape), tuple(k.shape), q.dtype,
+                   causal, window, softcap)
+            if not new(key, q):
+                return fa_bwd(q, k, v, o, do, lse, **kw)
+            o_, do_ = (a if a.stride(-1) == 1 else a.contiguous()
+                       for a in (o, do))
+            wgmma = FA.takes_wgmma_bwd(q, k, v, o_, do_)
+            before = LAUNCHES["flash_attention_bwd_wgmma"]
+            got = fa_bwd(q, k, v, o, do, lse, **kw)
+            took = LAUNCHES["flash_attention_bwd_wgmma"] - before
+            body = "wgmma" if took else "CUDA-core"
+            check(took == int(wgmma), f"{self.tag}: K5's backward {key} "
+                  f"took the {body} body, takes_wgmma_bwd says {wgmma}")
+            with torch.no_grad():
+                ref = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+                tols = FA.flash_attention_bwd_tolerance(q, k, v, o, do, lse,
+                                                        ref, **kw)
+                self._record(key, "flash_attention_bwd", key[1:3] + key[4:]
+                             + (str(q.dtype)[6:],), body,
+                             {n: (a, b, t) for n, a, b, t in zip(
+                                 ("dq", "dk", "dv"), got, ref, tols)})
+            return got
+
+        def k6(u, dt, B_, C_, A, D, with_states=False):
+            key = ("K6", tuple(u.shape), A.shape[1], u.dtype, with_states)
+            if not new(key, u):
+                return ss_fwd(u, dt, B_, C_, A, D, with_states)
+            out = ss_fwd(u, dt, B_, C_, A, D, with_states)
+            y = out[0] if with_states else out
+            with torch.no_grad():
+                ref = SS.ssm_scan_ref(u, dt, B_, C_, A, D)
+                self._record(key, "ssm_scan", key[1:3] + (str(u.dtype)[6:],)
+                             + (("states",) if with_states else ()),
+                             "CUDA-core", {"y": (y, ref, SS.ssm_scan_tolerance(
+                                 u, dt, B_, C_, A, D, ref))})
+            return out
+
+        def k6_bwd(u, dt, B_, C_, A, D, dy, states):
+            key = ("K6-bwd", tuple(u.shape), A.shape[1], u.dtype)
+            if not new(key, u):
+                return ss_bwd(u, dt, B_, C_, A, D, dy, states)
+            got = ss_bwd(u, dt, B_, C_, A, D, dy, states)
+            with torch.no_grad():
+                ref = SS.ssm_scan_bwd_plain(u, dt, B_, C_, A, D, dy)
+                tols = SS.ssm_scan_bwd_tolerance(u, dt, B_, C_, A, D, dy, ref)
+                self._record(key, "ssm_scan_bwd", key[1:3]
+                             + (str(u.dtype)[6:],), "CUDA-core",
+                             {n: (a, b, t) for n, a, b, t in zip(
+                                 ("du", "ddt", "dB_", "dC_", "dA", "dD"),
+                                 got, ref, tols)})
+            return got
+
+        def k2(x, w_q, scales):
+            key = ("K2", tuple(x.shape), tuple(w_q.shape), x.dtype)
+            if not new(key, x):
+                return qmm(x, w_q, scales)
+            before = LAUNCHES["quant_matmul_mma"]
+            y = qmm(x, w_q, scales)
+            took = LAUNCHES["quant_matmul_mma"] - before
+            body = "mma" if took else "CUDA-core"
+            check(took == int(x.dtype == torch.bfloat16), f"{self.tag}: K2 "
+                  f"{key} took the {body} body")
+            with torch.no_grad():
+                ref = QM.quant_matmul_ref(x, w_q, scales)
+                self._record(key, "quant_matmul", key[1:3]
+                             + (str(x.dtype)[6:],), body,
+                             {"y": (y, ref, QM.quant_matmul_tolerance(
+                                 x, w_q, scales, ref))})
+            return y
+
+        for (mod, name, _), fn in zip(self.saved,
+                                      (k5, k5_bwd, k6, k6_bwd, k2)):
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def by_kernel(self):
+        """{kernel: (launches audited, max abs err, largest share)}."""
+        out = {}
+        for r in self.rows.values():
+            n, e, sh = out.get(r["kernel"], (0, 0.0, 0.0))
+            out[r["kernel"]] = (n + 1, max(e, r["max_abs_err"]),
+                                max(sh, r["largest_share_of_bound"]))
+        return out
+
+# the kernels `KernelAudit` holds against their plain versions, by the
+# name of their launch count
+AUDITED = ("flash_attention", "flash_attention_bwd", "ssm_scan",
+           "ssm_scan_bwd", "quant_matmul")
+
+
+def audited_all(audit, launches, what):
+    """Check that every audited kind of kernel ``launches`` counts had a
+    launch held against its plain version by ``audit``."""
+    missing = [k for k in AUDITED
+               if launches.get(k) and k not in audit.by_kernel()]
+    check(not missing, f"{what}: {missing} launched but not held against "
+          f"the plain version")
+
+
+def planning_sweep(card: str):
+    """Phase 35: `launch.dryrun.run_cell` for every arch x shape of the
+    registry but `SWEEP_LEFT_OUT`, on the meta device: status, the H100
+    roofline's t_step and dominant term, the arguments' and temporaries'
+    GiB against the card's 80 GB; each fit equal to the direct count."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline.hw import H100
+    out = {}
+    with Phase(35, "dry-run sweep on the meta device"):
+        for arch in ARCHS:
+            for shape_name in SHAPES:
+                if (arch, shape_name) in SWEEP_LEFT_OUT:
+                    print(f"[35] {arch} x {shape_name}: left out, "
+                          f"{SWEEP_LEFT_OUT[(arch, shape_name)]}")
+                    continue
+                t0 = time.perf_counter()
+                rec = D.run_cell(arch, shape_name, "single")
+                wall = time.perf_counter() - t0
+                check(rec["status"] in ("ok", "skipped"),
+                      f"dry-run {arch} x {shape_name}: {rec['status']}")
+                if rec["status"] == "skipped":
+                    print(f"[35] {arch} x {shape_name}: skipped "
+                          f"({rec['reason'][:60]}...)")
+                    continue
+                check(rec["fit"]["matches_direct"],
+                      f"dry-run {arch} x {shape_name}: the depth fit "
+                      f"differs from the direct count")
+                r, m = rec["roofline"], rec["memory"]
+                out[(arch, shape_name)] = rec
+                print(f"[35] {card}: {arch} x {shape_name}: t_step "
+                      f"{r['t_step_s']:.6g} s ({r['dominant']}; compute "
+                      f"{r['t_compute_s']:.6g} s, memory "
+                      f"{r['t_memory_s']:.6g} s), arguments "
+                      f"{m['argument_bytes'] / 2 ** 30:.3f} GiB + "
+                      f"temporaries {m['temp_bytes'] / 2 ** 30:.3f} GiB "
+                      f"against {H100.hbm_bytes / 1e9:.0f} GB "
+                      f"(fits: {rec['fits_hbm']}), useful FLOPs "
+                      f"{rec['useful_flops_ratio']:.3f}, counted in "
+                      f"{wall:.2f} s")
+    return out
+
+
+def planning_cells(card: str, dev):
+    """Phase 36: `PLAN_CELLS` counted on meta (the prediction), then the
+    same step on the card at the same shapes under the same counter: the
+    FLOPs and each kernel's analytic record equal to the meta count, the
+    peak within `PEAK_REL`/`PEAK_ABS` of the predicted arguments and
+    temporaries, the median step time beside the roofline's t_step; then
+    one more step under a `KernelAudit`, which holds the first launch of
+    each distinct kernel call against its plain version. Returns the
+    kernels' launches, the cells' numbers and the audit."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import analysis as RA
+    out = {"launches": {}, "cells": {}, "audit": KernelAudit("36")}
+    with Phase(36, "dry-run against the card"):
+        for arch, shape_name, variant, batch in PLAN_CELLS:
+            cfg = D.cell_config(arch, variant)
+            shape = D.cell_shape(shape_name, batch)
+            _, bits, kv = D.VARIANTS[variant]
+            bits, kv = (bits, kv) if shape.kind == "decode" else (None, None)
+            key = f"{arch} {shape_name} {variant} B={batch}"
+            reset_launches()
+            step, args = D.lower_cell(cfg, shape, serve_bits=bits,
+                                      kv_dtype=kv)
+            meta = RA.count_step(step, *args)
+            check(sum(LAUNCHES.values()) == 0,
+                  f"{key}: the meta count launched a kernel")
+            pred_mem = RA.memory_dict(meta)
+            pred = RA.Roofline(meta.counter.flops, meta.counter.bytes, 0)
+            del step, args
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            step, args = D.lower_cell(cfg, shape, serve_bits=bits,
+                                      kv_dtype=kv, device=dev, seed=36)
+            torch.cuda.synchronize()
+            args_measured = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            real = RA.count_step(step, *args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = {k: v for k, v in LAUNCHES.items() if v}
+            del real.result
+            check(real.counter.flops == meta.counter.flops,
+                  f"{key}: {real.counter.flops} FLOPs counted on the card, "
+                  f"{meta.counter.flops} on meta")
+            check(real.counter.kernels == meta.counter.kernels,
+                  f"{key}: kernel records differ: {real.counter.kernels} "
+                  f"on the card, {meta.counter.kernels} on meta")
+            for name, rec in real.counter.kernels.items():
+                check(launches.get(name) == rec["launches"],
+                      f"{key}: {name} recorded {rec['launches']} launches, "
+                      f"launched {launches.get(name)}")
+            check(launches, f"{key}: no kernel launched")
+            predicted = pred_mem["argument_bytes"] + pred_mem["temp_bytes"]
+            slack = PEAK_REL * predicted + PEAK_ABS
+            print(f"[36] {card}: {key}: FLOPs {real.counter.flops} on the "
+                  f"card = {meta.counter.flops} on meta; bytes "
+                  f"{real.counter.bytes} (meta {meta.counter.bytes}); "
+                  f"kernels {real.counter.kernels}")
+            print(f"[36] {card}: {key}: arguments "
+                  f"{pred_mem['argument_bytes'] / 2 ** 30:.4f} GiB "
+                  f"predicted, {args_measured / 2 ** 30:.4f} GiB "
+                  f"allocated; peak {peak / 2 ** 30:.4f} GiB measured, "
+                  f"{predicted / 2 ** 30:.4f} GiB predicted "
+                  f"(arguments + temporaries {pred_mem['temp_bytes'] / 2 ** 30:.4f}"
+                  f" GiB; the card's own count "
+                  f"{RA.memory_dict(real)['temp_bytes'] / 2 ** 30:.4f}), "
+                  f"measured/predicted {peak / predicted:.4f}")
+            check(abs(peak - predicted) <= slack,
+                  f"{key}: peak {peak} bytes, predicted {predicted} "
+                  f"(bound {slack:.0f})")
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = step(*args)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                del res
+            med = sorted(ms)[len(ms) // 2]
+            # the kernels at this cell's shapes, each distinct call held
+            # against its plain version (after the peak and the times)
+            with out["audit"]:
+                res = step(*args)
+                torch.cuda.synchronize()
+            del res
+            audited_all(out["audit"], launches, key)
+            print(f"[36] {card}: {key}: median step {med:.3f} ms over 5, "
+                  f"roofline t_step {pred.t_step * 1e3:.3f} ms "
+                  f"({pred.dominant}), measured/roofline "
+                  f"{med / (pred.t_step * 1e3):.3f}")
+            out["launches"][key] = launches
+            out["cells"][key] = {
+                "flops": real.counter.flops, "bytes": real.counter.bytes,
+                "meta_bytes": meta.counter.bytes,
+                "predicted_peak": predicted, "peak": peak,
+                "argument_bytes": pred_mem["argument_bytes"],
+                "median_ms": med, "t_step_ms": pred.t_step * 1e3,
+                "dominant": pred.dominant}
+            del step, args, real, meta
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def planning_examples(card: str, dev):
+    """Phase 37: the four LM examples through their entry points
+    (``python -m repro_torch.examples.<name>`` runs the same ``main``),
+    each with its own check, under one `KernelAudit`. Returns the kernels'
+    launches by example and the audit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.examples import (lm_compression, quickstart,
+                                      serve_demo, train_lm_100m)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.roofline.hw import H100
+    launches = {}
+    audit = KernelAudit("37")
+    with Phase(37, "the LM examples"), audit:
+        reset_launches()
+        lm = lm_compression.main([])
+        launches["lm_compression"] = dict(LAUNCHES)
+        check(lm["front"] and np.isfinite(lm["speedup"]) and
+              lm["speedup"] >= 1.0, f"lm_compression: {lm}")
+        print(f"[37] {card}: lm_compression: {lm['n_groups']} groups, bf16 "
+              f"baseline loss {lm['base_loss']:.4f} at "
+              f"{lm['base_cost_us']:.6f} us/token on {H100.name}, front "
+              f"{lm['front']}, projected decode speed-up "
+              f"{lm['speedup']:.3f}x")
+        reset_launches()
+        qs = quickstart.main([])
+        launches["quickstart"] = dict(LAUNCHES)
+        for name, row in qs["techniques"].items():
+            check(row["gain"] > 1.0 and 0 <= row["accuracy"] <= 1,
+                  f"quickstart {name}: {row}")
+        print(f"[37] {card}: quickstart area gains " + ", ".join(
+            f"{k} {v['gain']:.3f}x (acc {v['accuracy']:.3f})"
+            for k, v in qs["techniques"].items()))
+        reset_launches()
+        sd = serve_demo.main([])
+        launches["serve_demo"] = dict(LAUNCHES)
+        for arch, row in sd.items():
+            for mode in ("dense", "w8"):
+                check(row[mode]["tokens"] == 6 * 8,
+                      f"serve_demo {arch} {mode}: {row[mode]['tokens']} "
+                      f"tokens")
+        reset_launches()
+        with tempfile.TemporaryDirectory(dir=ROOT / "src" / "repro_torch"
+                                         / "_build") as tmp:
+            tl = train_lm_100m.main(["--steps", "30", "--ckpt-dir", tmp,
+                                     "--log-every", "5"])
+        launches["train_lm_100m"] = dict(LAUNCHES)
+        check(tl["final_loss"] < tl["first_loss"],
+              f"train_lm_100m: loss {tl['first_loss']} -> "
+              f"{tl['final_loss']}")
+        print(f"[37] {card}: train_lm_100m {tl['params'] / 1e6:.1f}M "
+              f"params, 30 steps: loss {tl['first_loss']:.4f} -> "
+              f"{tl['final_loss']:.4f} in {tl['wall_s']:.2f} s")
+        for name, got in launches.items():
+            print(f"[37] launches in {name}: "
+                  f"{ {k: v for k, v in got.items() if v} }")
+        check(launches["quickstart"]["netlist_sim"] > 0,
+              "quickstart launched no K1")
+        for name in ("lm_compression", "train_lm_100m"):
+            check(launches[name]["flash_attention"] > 0 and
+                  launches[name]["flash_attention_bwd"] > 0,
+                  f"{name} launched no K5 forward or backward")
+        for k in ("flash_attention", "ssm_scan", "quant_matmul"):
+            check(launches["serve_demo"][k] > 0,
+                  f"serve_demo launched no {k}")
+        for name, got in launches.items():
+            audited_all(audit, got, f"examples.{name}")
+    return launches, audit
+
+
+def gradient_compression(card: str, dev):
+    """Phase 38: `dist.grad_compression` over qwen3-0.6b's real gradient
+    trees (4 batches of 2 x 512 tokens, through K5): every leaf of the
+    first round within half its step of the gradient, and after 4 rounds
+    the sent sum plus the residual equal to the true sum; K5's launches
+    held against its plain version by a `KernelAudit`. Returns K5's
+    launches and the audit."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist import grad_compression as GC
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.nn import transformer as T
+    from repro_torch.train import losses
+    from repro_torch.train.optimizer import tree_leaves
+    with Phase(38, "gradient compression"):
+        cfg = ARCHS["qwen3-0.6b"]
+        gen = torch.Generator(device=dev).manual_seed(38)
+        params = T.init(gen, cfg, device=dev)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        reset_launches()
+        grads = []
+        audit = KernelAudit("38")
+        with audit:
+            for i in range(4):
+                tokens = torch.randint(0, cfg.vocab_size, (2, 512),
+                                       generator=gen, device=dev)
+                logits, aux = T.forward(params, {"tokens": tokens}, cfg)
+                loss = losses.next_token_loss(logits, tokens, aux=aux)
+                grads.append([g.detach() for g in
+                              torch.autograd.grad(loss, leaves)])
+                del logits, loss
+        launches = dict(LAUNCHES)
+        audited_all(audit, launches, "qwen3-0.6b gradients")
+        check(launches["flash_attention_bwd"] == 4 * 28,
+              f"gradients took {launches['flash_attention_bwd']} K5 "
+              f"backward launches")
+        err = GC.init_error_state(grads[0])
+        true_sum = [torch.zeros_like(e) for e in err]
+        sent_sum = [torch.zeros_like(e) for e in err]
+        worst = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k, g in enumerate(grads):
+            sent, err = GC.compress_tree(g, err)
+            for i, (gi, si) in enumerate(zip(g, sent)):
+                if k == 0:
+                    # the step compress_tree took: of the float32 leaf (a
+                    # bf16 leaf's own amax / 127 rounds in bf16)
+                    _, scale = GC.quantize_leaf(gi.float())
+                    slack = 4 * torch.finfo(torch.float32).eps * \
+                        gi.float().abs().max()
+                    dev_ = (gi.float() - si).abs().max()
+                    worst = max(worst, float(dev_ / (scale / 2 + slack)))
+                true_sum[i] += gi.float()
+                sent_sum[i] += si
+        torch.cuda.synchronize()
+        compress_s = time.perf_counter() - t0
+        check(worst <= 1.0, f"a leaf of round 1 off by {worst} of half "
+              f"its step")
+        gap = max(float((s + e - t).abs().max() /
+                        t.abs().max().clamp_min(1e-30))
+                  for s, e, t in zip(sent_sum, err, true_sum))
+        check(gap <= 1e-5, f"error feedback: sent + residual off the true "
+              f"sum by {gap} of its largest value")
+        n = sum(g.numel() for g in grads[0])
+        print(f"[38] {card}: qwen3-0.6b, {len(grads[0])} leaves, "
+              f"{n} values a round: round 1 within {worst:.4f} of half a "
+              f"step (worst leaf); after 4 rounds sent + residual = true "
+              f"sum within {gap:.3g} relative; 4 rounds compressed in "
+              f"{compress_s:.3f} s (float32 wire {4 * n / 2 ** 20:.1f} MiB, "
+              f"int8 {n / 2 ** 20:.1f} MiB)")
+        del grads, params, leaves
+    return launches, audit
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -4992,8 +5537,47 @@ def main() -> None:
         + [r["max_share"] for r in families["k5_bwd_ms"].values()])
     print(f"[34] {card}: training " + ", ".join(
         f"{k}: {v}" for k, v in families["train"].items()))
-    qmm_entry["launches"] = sum(qmm_entry["launches_by_path"].values())
     qmm_entry["vision_cross_projection"] = mla_cross["k2_cross"]
+    gc.collect()
+    torch.cuda.empty_cache()        # the family states are gone
+    # phases 35-38: the planning path (dry-run, its cells on the card, the
+    # LM examples, gradient compression)
+    planning_sweep(card)
+    cells = planning_cells(card, dev)
+    examples, examples_audit = planning_examples(card, dev)
+    compressed, compressed_audit = gradient_compression(card, dev)
+    runs = {f"{k} (phase 36)": v for k, v in cells["launches"].items()}
+    runs.update({f"examples.{k} (phase 37)": v for k, v in examples.items()})
+    runs["qwen3-0.6b gradients for compression (phase 38)"] = compressed
+    by_entry = ((netlist_entry, "netlist_sim", "netlist_sim_smem",
+                 "launches_smem_body"),
+                (qmm_entry, "quant_matmul", None, None),
+                (fa_entry, "flash_attention", "flash_attention_wgmma",
+                 "launches_wgmma_body"),
+                (bwd_fa, "flash_attention_bwd", "flash_attention_bwd_wgmma",
+                 "launches_wgmma_body"),
+                (ssm_entry, "ssm_scan", None, None))
+    for entry, name, body, body_key in by_entry:
+        for path, got in runs.items():
+            if got.get(name):
+                entry["launches_by_path"][path] = got[name]
+                if body:
+                    entry[body_key] += got.get(body, 0)
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    fa_entry["planning_cells"] = cells["cells"]
+    # phases 36-38's launches held against the plain versions, each
+    # distinct call once
+    by_name = {"flash_attention": fa_entry, "flash_attention_bwd": bwd_fa,
+               "ssm_scan": ssm_entry, "ssm_scan_bwd": bwd_entries[1],
+               "quant_matmul": qmm_entry}
+    for phase, audit in ((36, cells["audit"]), (37, examples_audit),
+                         (38, compressed_audit)):
+        for name, (n, err, share) in audit.by_kernel().items():
+            entry = by_name[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry.setdefault("audited_calls_by_phase", {})[str(phase)] = {
+                "calls": n, "max_abs_err": err,
+                "largest_share_of_bound": share}
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
                                   bsmm_entry, fa_entry, ssm_entry]
                       + bwd_entries}))

@@ -14,12 +14,27 @@ import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
+_DEFAULT_DEVICE = "cuda"
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means CUDA. A CUDA device without a card raises; the CPU is
-    used only when the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
+
+def set_default_device(device: str) -> None:
+    """What ``device=None`` means in every entry point: ``"cuda"`` (the
+    default) or ``"cpu"`` (`configs.backend.set_platform`)."""
+    global _DEFAULT_DEVICE
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"default device {device!r}: cuda or cpu")
+    _DEFAULT_DEVICE = device
+
+
+def resolve_device(device: DeviceLike = None, *,
+                   meta: bool = False) -> torch.device:
+    """``None`` means CUDA (unless `configs.backend.set_platform` chose the
+    CPU). A CUDA device without a card raises; the CPU is used only when
+    the caller asks for it. ``meta`` lets ``"meta"`` through, for the
+    initializers alone (`launch.specs` builds shapes on it and draws
+    nothing)."""
+    dev = torch.device(_DEFAULT_DEVICE if device is None else device)
+    if dev.type not in ("cuda", "cpu") and not (meta and dev.type == "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
         if not torch.cuda.is_available():

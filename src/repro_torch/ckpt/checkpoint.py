@@ -32,14 +32,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import path_str
+
 _UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 _SINT = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-
-
-def path_str(path) -> str:
-    """Join a key path into "a/b/0/c" form, the stable leaf identifier of
-    checkpoint manifests (the reference's `dist.sharding.path_str`)."""
-    return "/".join(str(k) for k in path)
 
 
 def _leaves_with_path(tree, path=()) -> List[Tuple[tuple, Any]]:

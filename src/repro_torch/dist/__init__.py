@@ -1,6 +1,8 @@
-"""Fault-tolerance helpers of the search runtime: deadline-based straggler
-ejection, batch redistribution over the survivors, checkpoint cadence.
+"""Distributed-training substrate, the counterpart of `repro.dist`:
+sharding rules (`sharding`), compressed gradient all-reduce
+(`grad_compression`) and fault-tolerance helpers (`fault_tolerance`).
 
-A copy of `repro.dist.fault_tolerance`. The reference's sharding rules and
-compressed all-reduce belong to the LM stack and are not ported yet.
+The rules resolve on abstract shapes (meta tensors against an abstract
+mesh of axis names and sizes), so they are testable without devices and
+hold from one card to a pod.
 """

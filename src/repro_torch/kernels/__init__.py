@@ -20,6 +20,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.obs import prof as PF
+
 LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
                              "quant_matmul": 0,
                              "flash_attention": 0,
@@ -31,6 +33,21 @@ LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
                              "flash_attention_bwd": 0,
                              "flash_attention_bwd_wgmma": 0,
                              "ssm_scan_bwd": 0}
+
+
+def check_device(name: str, t: torch.Tensor) -> None:
+    """Where a kernel's wrapper goes past its CPU branch: CUDA launches,
+    and meta, while something watches the launches (`obs.prof.watching`:
+    a `roofline.analysis.StepCounter` counting a step), takes the
+    wrapper's meta branch (empty outputs of the kernel's shapes and its
+    analytic cost reported, no launch, no plain version). Anything else
+    raises."""
+    if t.device.type == "cuda":
+        return
+    if t.device.type == "meta" and PF.watching():
+        return
+    raise ValueError(f"{name} runs on CUDA or CPU, not {t.device} (meta "
+                     f"tensors only under roofline.analysis.count_step)")
 
 
 def reset_launches() -> None:

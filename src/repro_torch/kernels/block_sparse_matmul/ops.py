@@ -21,7 +21,6 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.obs import prof as PF
-from repro_torch.obs import trace as TR
 from repro_torch.kernels.block_sparse_matmul.ref import \
     block_sparse_matmul_ref
 
@@ -131,15 +130,15 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
         if x.dtype == torch.bfloat16:
             LAUNCHES["block_sparse_matmul_mma"] += 1
 
-    if not TR.active():
+    if not PF.observed():
         launch()
         return y
-    # the live share is this call's data (one host read, traced path only)
+    # the live share is this call's data (one host read, reported path only)
     live = float((block_mask > 0).float().mean())
     ops, nbytes = cost(M, K, N, live,
                        block_mask.numel() * block_mask.element_size(),
                        x.element_size())
-    with PF.dispatch("kernels.block_sparse_matmul",
+    with PF.kernel("kernels.block_sparse_matmul",
                      ("block_sparse_matmul", (M, K), (K, N), block_k,
                       block_n, str(x.dtype)),
                      device=x.device, args=(x, w, block_mask), flops=ops,

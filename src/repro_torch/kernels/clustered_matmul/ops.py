@@ -18,7 +18,6 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.obs import prof as PF
-from repro_torch.obs import trace as TR
 from repro_torch.kernels.clustered_matmul.ref import clustered_matmul_ref
 
 _X = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -113,11 +112,11 @@ def clustered_matmul(x: torch.Tensor, idx: torch.Tensor,
                                f"CUDA error {rc}")
         LAUNCHES["clustered_matmul"] += 1
 
-    if not TR.active():
+    if not PF.observed():
         launch()
         return y
     ops, nbytes = cost(M, K, N, C, x.element_size(), idx.element_size())
-    with PF.dispatch("kernels.clustered_matmul",
+    with PF.kernel("kernels.clustered_matmul",
                      ("clustered_matmul", (M, K), (K, N), C, str(x.dtype),
                       str(idx.dtype)),
                      device=x.device, args=(x, idx, codebook), flops=ops,

@@ -26,7 +26,12 @@ can read, `takes_wgmma_bwd`, takes its wgmma body, counted also in
 ``LAUNCHES["flash_attention_bwd_wgmma"]``), so the output always carries a
 ``grad_fn`` there. Otherwise K5 launches without lse, as the serve and
 prefill paths do. On the CPU the plain version's own autograd gives the
-gradient.
+gradient. Meta tensors, while a watcher counts the launches (a
+`roofline.analysis.StepCounter`, `obs.prof.watch`), take the
+same route with no launch (the meta branch): empty outputs of the
+kernels' shapes, each launch's analytic `cost` or `bwd_cost` recorded
+(`kernels.check_device`); the plain version, which builds the score
+matrix the kernel never builds, is not run.
 """
 from __future__ import annotations
 
@@ -36,9 +41,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, check_device
 from repro_torch.obs import prof as PF
-from repro_torch.obs import trace as TR
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_plain, flash_attention_lse_plain,
     flash_attention_ref, flash_attention_tolerance)
@@ -180,18 +184,25 @@ def _launch_checks(q: torch.Tensor, k: torch.Tensor,
     if B * H > 65535 or max(T, S) >= 2 ** 31 or S == 0:
         raise ValueError(f"flash_attention: shape B={B}, T={T}, S={S}, "
                          f"H={H} out of the kernel's range")
-    if q.device.index != torch.cuda.current_device():
+    if q.device.type == "cuda" and \
+            q.device.index != torch.cuda.current_device():
         raise ValueError(f"q lies on {q.device}, not the current device")
 
 
 def _launch_forward(q, k, v, causal, window, softcap, with_lse: bool):
     """K5 on CUDA tensors: o, and lse (B, H, T) float32 when
-    ``with_lse`` (else None)."""
+    ``with_lse`` (else None). On meta tensors (the meta branch) the same
+    outputs, empty, and nothing launched."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    if q.device.type == "meta":          # the meta branch: no launch
+        PF.launched("kernels.flash_attention", *cost(
+            B, T, S, H, KV, hd, q.element_size(), causal=causal,
+            window=window), "flash_attention")
+        return o, lse
     strides = (ctypes.c_int64 * 12)(*(s for a in (q, k, v, o)
                                       for s in a.stride()[:3]))
     wgmma = takes_wgmma(q, k, v)
@@ -210,12 +221,12 @@ def _launch_forward(q, k, v, causal, window, softcap, with_lse: bool):
         if wgmma:
             LAUNCHES["flash_attention_wgmma"] += 1
 
-    if not TR.active():
+    if not PF.observed():
         launch()
         return o, lse
     flops, nbytes = cost(B, T, S, H, KV, hd, q.element_size(),
                          causal=causal, window=window)
-    with PF.dispatch("kernels.flash_attention",
+    with PF.kernel("kernels.flash_attention",
                      ("flash_attention", (B, T, S, H, KV, hd), str(q.dtype),
                       bool(causal), int(window), name),
                      device=q.device, args=(q, k, v), flops=flops,
@@ -235,7 +246,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     raise, reading q, k, v, o and do by strides; those `takes_wgmma_bwd`
     accepts go through its wgmma body, counted also in
     ``LAUNCHES["flash_attention_bwd_wgmma"]``. CPU tensors run the plain
-    version `flash_attention_bwd_plain`."""
+    version `flash_attention_bwd_plain`; meta tensors, under a
+    `roofline.analysis.StepCounter`, the meta branch."""
     _check(q, k, v)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -251,9 +263,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
-                         f"{q.device}")
+    check_device("flash_attention", q)
     _launch_checks(q, k, v)
     # autograd may hand over a gradient with any strides
     o, do, lse = (a if a.stride(-1) == 1 else a.contiguous()
@@ -266,6 +276,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     delta = torch.empty((2, B, H, -(-T // BWD_ROWS) * BWD_ROWS) if wgmma
                         else (B, H, T), dtype=torch.float32,
                         device=q.device)
+    if q.device.type == "meta":          # the meta branch: no launch
+        PF.launched("kernels.flash_attention_bwd", *bwd_cost(
+            B, T, S, H, KV, hd, q.element_size(), causal=causal,
+            window=window), "flash_attention_bwd")
+        return dq, dk, dv
     strides = (ctypes.c_int64 * 15)(*(s for a in (q, k, v, o, do)
                                       for s in a.stride()[:3]))
     name = "bwd_bf16_wgmma" if wgmma else "bwd_" + _SUFFIX[q.dtype]
@@ -284,12 +299,12 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         if wgmma:
             LAUNCHES["flash_attention_bwd_wgmma"] += 1
 
-    if not TR.active():
+    if not PF.observed():
         launch()
         return dq, dk, dv
     flops, nbytes = bwd_cost(B, T, S, H, KV, hd, q.element_size(),
                              causal=causal, window=window)
-    with PF.dispatch("kernels.flash_attention_bwd",
+    with PF.kernel("kernels.flash_attention_bwd",
                      ("flash_attention_bwd", (B, T, S, H, KV, hd),
                       str(q.dtype), bool(causal), int(window), name),
                      device=q.device, args=(q, k, v, o, do, lse),
@@ -331,9 +346,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
-                         f"{q.device}")
+    check_device("flash_attention", q)
     _launch_checks(q, k, v)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
@@ -351,9 +364,7 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                                       softcap=softcap),
                 flash_attention_lse_plain(q, k, v, causal=causal,
                                           window=window, softcap=softcap))
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
-                         f"{q.device}")
+    check_device("flash_attention", q)
     _launch_checks(q, k, v)
     return _launch_forward(q, k, v, causal, window, softcap, True)
 

@@ -51,6 +51,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.circuit import ir
+from repro_torch.configs import backend
 from repro_torch.kernels import LAUNCHES
 from repro_torch.obs import metrics as MT
 from repro_torch.obs import prof as PF
@@ -420,12 +421,12 @@ def netlist_sim(pop: PackedPopulation, x: torch.Tensor, *,
     run = StagedLaunch(pop, x)
     if stats is not None:
         stats.update(run.stats)
-    if not TR.active():
+    if not PF.observed():
         run.launch()
     else:
         ops, nbytes = cost(pop, x.shape[1], run.lane_bytes,
                            smem=run.tile is not None)
-        with PF.dispatch("kernels.netlist_sim." + run.body, run.key,
+        with PF.kernel("kernels.netlist_sim." + run.body, run.key,
                          device=x.device, args=run.inputs, flops=ops,
                          bytes_accessed=nbytes, library="netlist_sim",
                          p=pop.n_candidates, b=x.shape[1],
@@ -447,12 +448,16 @@ def simulate_population(pop: PackedPopulation, x: np.ndarray, *,
     """Simulate P packed candidates over a batch in one launch.
 
     x: (B, n_in) shared inputs or (P, B, n_in) per-candidate. engine:
-    ``"cuda"`` (the default: the kernel on a CUDA device, its plain version
-    on ``device="cpu"``), ``"levels"`` (the plain version on ``device``) or
-    ``"ref"`` (numpy). -> {"amx": (P, B, C) int64 comparator operands,
+    ``"cuda"`` (the kernel on a CUDA device, its plain version on
+    ``device="cpu"``), ``"levels"`` (the plain version on ``device``) or
+    ``"ref"`` (numpy); None takes
+    `configs.backend.default_netlist_engine` of the device: ``"cuda"`` on
+    a CUDA device, ``"levels"`` on the CPU, unless ``REPRO_NETLIST_ENGINE``
+    says otherwise. -> {"amx": (P, B, C) int64 comparator operands,
     "argmax": (P, B) int64 class decisions}."""
     x = np.asarray(_normalize_x(pop, x))
-    engine = engine or "cuda"
+    if engine is None:
+        engine = backend.default_netlist_engine(resolve_device(device))
     if engine == "ref":
         return simulate_population_ref(pop, x)
     if engine not in ("levels", "cuda"):

@@ -3,8 +3,11 @@
 
 `quant_matmul` launches the kernel for CUDA tensors (counted in
 ``repro_torch.kernels.LAUNCHES["quant_matmul"]``) or raises; only for CPU
-tensors does it run the plain version `quant_matmul_ref`. The reference's
-padding to (128, 128, 128) blocks is gone: the kernel masks its ragged edges.
+tensors does it run the plain version `quant_matmul_ref`. Meta tensors,
+under a `roofline.analysis.StepCounter`, take the meta branch: y empty,
+the kernel's `cost` recorded, nothing launched (`kernels.check_device`).
+The reference's padding to (128, 128, 128) blocks is gone: the kernel
+masks its ragged edges.
 
 The kernel splits K over a thread-block cluster and reduces the partial
 sums in a fixed order inside the one launch. bf16 x takes its tensor-core
@@ -20,9 +23,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, refuse_grad
+from repro_torch.kernels import LAUNCHES, check_device, refuse_grad
 from repro_torch.obs import prof as PF
-from repro_torch.obs import trace as TR
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -82,19 +84,23 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     _check(x, w_q, scales)
     if x.device.type == "cpu":
         return quant_matmul_ref(x, w_q, scales)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant_matmul runs on CUDA or CPU, not {x.device}")
+    check_device("quant_matmul", x)
     refuse_grad("quant_matmul", x, w_q, scales)
     if not (x.is_contiguous() and w_q.is_contiguous()
             and scales.is_contiguous()):
         raise ValueError("quant_matmul's kernel takes contiguous tensors")
-    if x.device.index != torch.cuda.current_device():
+    if x.device.type == "cuda" and \
+            x.device.index != torch.cuda.current_device():
         raise ValueError(f"x lies on {x.device}, not the current device")
     M, K = x.shape
     N = w_q.shape[1]
     if max(M, K, N) >= 2 ** 31 or M > 8 * 65535:
         raise ValueError(f"quant_matmul: shape {(M, K, N)} too large")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":         # the meta branch: no launch
+        PF.launched("kernels.quant_matmul", *cost(M, K, N, x.element_size()),
+                    "quant_matmul")
+        return y
     fn = _kernel(x.dtype)
 
     def launch():
@@ -108,11 +114,11 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
         if x.dtype == torch.bfloat16:
             LAUNCHES["quant_matmul_mma"] += 1
 
-    if not TR.active():
+    if not PF.observed():
         launch()
         return y
     ops, nbytes = cost(M, K, N, x.element_size())
-    with PF.dispatch("kernels.quant_matmul",
+    with PF.kernel("kernels.quant_matmul",
                      ("quant_matmul", (M, K), (K, N), str(x.dtype)),
                      device=x.device, args=(x, w_q, scales), flops=ops,
                      bytes_accessed=nbytes, library="quant_matmul",

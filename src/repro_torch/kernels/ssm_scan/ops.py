@@ -8,7 +8,10 @@ bf16), and dt (B, T, d), A (d, N), D (d,) in float32; it returns y
 ``repro_torch.kernels.LAUNCHES["ssm_scan"]``) or raises; the kernel masks
 ragged T and d itself, so nothing is padded or copied. Only for CPU tensors
 does it run the plain version `ssm_scan_ref`, whose own autograd gives the
-gradient there.
+gradient there. Meta tensors, under a `roofline.analysis.StepCounter`,
+take the meta branch of the forward and the backward: empty outputs of the
+kernels' shapes, their analytic costs recorded, nothing launched
+(`kernels.check_device`).
 
 On CUDA, when grad mode is on and an input requires grad, `ssm_scan` goes
 through `SsmScanFn`, whose forward has K6 also store the states at the
@@ -25,9 +28,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, check_device
 from repro_torch.obs import prof as PF
-from repro_torch.obs import trace as TR
 from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_plain,
                                                ssm_scan_ref,
                                                ssm_scan_states_plain)
@@ -115,7 +117,8 @@ def _launch_checks(u, dt, B_, C_, A, D) -> None:
     if Bsz > 65535 or Bsz * T * max(d, N) >= 2 ** 62 or max(T, d) >= 2 ** 31:
         raise ValueError(f"ssm_scan: shape {(Bsz, T, d, N)} out of the "
                          f"kernel's range")
-    if u.device.index != torch.cuda.current_device():
+    if u.device.type == "cuda" and \
+            u.device.index != torch.cuda.current_device():
         raise ValueError(f"u lies on {u.device}, not the current device")
 
 
@@ -135,8 +138,7 @@ def ssm_scan_bwd(u, dt, B_, C_, A, D, dy, states):
                          f"{dy.dtype} on {dy.device}")
     if u.device.type == "cpu":
         return ssm_scan_bwd_plain(u, dt, B_, C_, A, D, dy)
-    if u.device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on CUDA or CPU, not {u.device}")
+    check_device("ssm_scan", u)
     _launch_checks(u, dt, B_, C_, A, D)
     Bsz, T, d = u.shape
     N = A.shape[1]
@@ -155,6 +157,12 @@ def ssm_scan_bwd(u, dt, B_, C_, A, D, dy, states):
     du, ddt = torch.empty_like(u), torch.empty_like(dt)
     dB, dC = torch.empty_like(B_), torch.empty_like(C_)
     dA, dD = torch.empty_like(A), torch.empty_like(D)
+    out = (du, ddt, dB, dC, dA, dD)
+    if u.device.type == "meta":         # the meta branch: no launch
+        PF.launched("kernels.ssm_scan_bwd",
+                    *bwd_cost(Bsz, T, d, N, u.element_size())[:2],
+                    "ssm_scan_bwd")
+        return out
     fn = _kernel(u.dtype, "ssm_scan_bwd")
 
     def launch():
@@ -169,12 +177,11 @@ def ssm_scan_bwd(u, dt, B_, C_, A, D, dy, states):
                                f"error {rc}")
         LAUNCHES["ssm_scan_bwd"] += 1
 
-    out = (du, ddt, dB, dC, dA, dD)
-    if not TR.active():
+    if not PF.observed():
         launch()
         return out
     ops, nbytes, _ = bwd_cost(Bsz, T, d, N, u.element_size())
-    with PF.dispatch("kernels.ssm_scan_bwd",
+    with PF.kernel("kernels.ssm_scan_bwd",
                      ("ssm_scan_bwd", (Bsz, T, d), N, str(u.dtype)),
                      device=u.device, args=(u, dt, B_, C_, A, D, dy),
                      flops=ops, bytes_accessed=nbytes,
@@ -214,8 +221,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     _check(u, dt, B_, C_, A, D)
     if u.device.type == "cpu":
         return ssm_scan_ref(u, dt, B_, C_, A, D)
-    if u.device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on CUDA or CPU, not {u.device}")
+    check_device("ssm_scan", u)
     _launch_checks(u, dt, B_, C_, A, D)
     if torch.is_grad_enabled() and any(
             a.requires_grad for a in (u, dt, B_, C_, A, D)):
@@ -233,8 +239,7 @@ def ssm_scan_with_states(u, dt, B_, C_, A, D):
         return (ssm_scan_ref(u, dt, B_, C_, A, D),
                 ssm_scan_states_plain(u, dt, B_, C_, A, D, BWD_CHUNK,
                                       MAX_STATE))
-    if u.device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on CUDA or CPU, not {u.device}")
+    check_device("ssm_scan", u)
     _launch_checks(u, dt, B_, C_, A, D)
     return _launch_forward(u, dt, B_, C_, A, D, True)
 
@@ -246,6 +251,10 @@ def _launch_forward(u, dt, B_, C_, A, D, with_states: bool = False):
     y = torch.empty_like(u)
     states = torch.empty(_states_shape(Bsz, T, d), dtype=torch.float32,
                          device=u.device) if with_states else None
+    if u.device.type == "meta":         # the meta branch: no launch
+        PF.launched("kernels.ssm_scan",
+                    *cost(Bsz, T, d, N, u.element_size()), "ssm_scan")
+        return (y, states) if with_states else y
     fn = _kernel(u.dtype)
 
     def launch():
@@ -258,11 +267,11 @@ def _launch_forward(u, dt, B_, C_, A, D, with_states: bool = False):
                                f"{rc}")
         LAUNCHES["ssm_scan"] += 1
 
-    if not TR.active():
+    if not PF.observed():
         launch()
     else:
         ops, nbytes = cost(Bsz, T, d, N, u.element_size())
-        with PF.dispatch("kernels.ssm_scan",
+        with PF.kernel("kernels.ssm_scan",
                          ("ssm_scan", (Bsz, T, d), N, str(u.dtype),
                           with_states),
                          device=u.device, args=(u, dt, B_, C_, A, D),

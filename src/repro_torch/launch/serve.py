@@ -15,7 +15,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, backend
 from repro_torch.nn import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -30,6 +30,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    backend.configure()               # the REPRO_* knobs
 
     dev = resolve_device(args.device)
     cfg = ARCHS[args.arch].reduced()

@@ -22,7 +22,7 @@ import signal
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, backend
 from repro_torch.core import pruning as P
 from repro_torch.core import quantization as Q
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
@@ -95,6 +95,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    backend.configure()               # the REPRO_* knobs
 
     dev = resolve_device(args.device)
     cfg = ARCHS[args.arch]

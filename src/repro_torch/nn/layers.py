@@ -69,9 +69,11 @@ def trunc_normal(generator: torch.Generator, shape, std: float, dtype,
     the two frameworks' random bits differ). ``lead`` prepends stacking
     axes whose entries are drawn one at a time, so the float32 draw never
     holds more than one repeat (falcon-mamba-7b's stacked ``in_proj`` is
-    17 GB in float32)."""
+    17 GB in float32). On the meta device it draws nothing."""
     out = torch.empty(tuple(lead) + tuple(shape), dtype=torch_dtype(dtype),
                       device=device or generator.device)
+    if out.device.type == "meta":
+        return out
     for idx in itertools.product(*(range(n) for n in lead)):
         t = torch.empty(tuple(shape), dtype=torch.float32,
                         device=generator.device)
@@ -79,6 +81,15 @@ def trunc_normal(generator: torch.Generator, shape, std: float, dtype,
                                     generator=generator)
         out[idx] = t * std
     return out
+
+
+def uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """U[0, 1) in float32, drawn on the generator's device and moved to
+    ``device``; on the meta device nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), device="meta")
+    return torch.rand(tuple(shape), generator=generator,
+                      device=generator.device).to(device)
 
 
 def dense_init(generator, d_in: int, d_out: int, dtype, *, bias=False,

@@ -48,8 +48,7 @@ def rglru_init(generator: torch.Generator, cfg: ArchConfig, dtype, *,
     lead = tuple(lead)
     dev = device or generator.device
     kw = dict(lead=lead, device=dev)
-    u = 0.9 + 0.099 * torch.rand(lead + (w,), generator=generator,
-                                 device=generator.device).to(dev)
+    u = 0.9 + 0.099 * L.uniform(generator, lead + (w,), dev)
     return {
         "w_x": L.dense_init(generator, d, w, dtype, **kw),
         "w_gate": L.dense_init(generator, d, w, dtype, **kw),
@@ -81,11 +80,13 @@ def _rglru_scan(x, r_gate, i_gate, lam, c: float, h0):
     """x/r_gate/i_gate: (B,T,w) float32; h0 (B,w) float32. Returns y
     (B,T,w) and h_last (B,w)."""
     log_a = _log_a(r_gate, lam, c)
-    a = torch.exp(log_a).transpose(0, 1).contiguous()           # (T,B,w)
-    gated = (_beta(log_a) * (i_gate * x)).transpose(0, 1).contiguous()
+    # one unbind a tensor (its backward one stack), not a select a step
+    # (whose backward would write a zero-filled (T, B, w) gradient a step)
+    a = torch.unbind(torch.exp(log_a), dim=1)                   # T x (B,w)
+    gated = torch.unbind(_beta(log_a) * (i_gate * x), dim=1)
     hs, h = [], h0
-    for t in range(a.shape[0]):
-        h = torch.addcmul(gated[t], a[t], h)
+    for a_t, g_t in zip(a, gated):
+        h = torch.addcmul(g_t, a_t, h)
         hs.append(h)
     return torch.stack(hs, dim=1), h
 
@@ -135,7 +136,7 @@ def make_rglru_cache(cfg: ArchConfig, batch: int, dtype, *, lead=(),
     ``device`` (CUDA unless ``"cpu"``)."""
     w = _width(cfg)
     lead = tuple(lead)
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     return {
         "conv": torch.zeros(lead + (batch, cfg.rglru.d_conv - 1, w),
                             dtype=L.torch_dtype(dtype), device=device),

@@ -51,8 +51,7 @@ def ssm_init(generator: torch.Generator, cfg: ArchConfig, dtype, *,
     f32 = torch.float32
     a = torch.arange(1, s.d_state + 1, dtype=f32, device=dev).expand(
         lead + (d_inner, s.d_state))
-    r = torch.rand(lead + (d_inner,), generator=generator,
-                   device=generator.device).to(dev)
+    r = L.uniform(generator, lead + (d_inner,), dev)
     dt_init = torch.exp(r * (math.log(0.1) - math.log(0.001))
                         + math.log(0.001))
     return {
@@ -151,7 +150,7 @@ def make_ssm_cache(cfg: ArchConfig, batch: int, dtype, *, lead=(),
     ``dtype`` and the float32 state."""
     s, d_inner, _ = _dims(cfg)
     lead = tuple(lead)
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     return {
         "conv": torch.zeros(lead + (batch, s.d_conv - 1, d_inner),
                             dtype=L.torch_dtype(dtype), device=device),

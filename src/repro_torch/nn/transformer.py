@@ -143,16 +143,29 @@ def _block_apply(p, x, cfg: ArchConfig, spec: LayerSpec, *, cache=None,
 # ---------------------------------------------------------------------------
 
 
-def _take(tree, r: int):
-    """Repeat ``r`` of a stacked tree. A quantized leaf keeps its scales:
+def _unbind(tree):
+    """The repeats of a stacked tree at once, a list of trees, each leaf
+    split by `torch.unbind` into views of the stack. Its backward is one
+    ``stack`` of the repeats' gradients, where ``tree[r]`` for each r would
+    add a zero-filled gradient of the whole stack per repeat, bytes that
+    grow as the square of the depth. A quantized leaf keeps its scales:
     they are shared by every repeat (taken over the stacked weight)."""
     if L.is_qleaf(tree):
-        return {"q": tree["q"][r], "scale": tree["scale"]}
+        return [{"q": q, "scale": tree["scale"]}
+                for q in torch.unbind(tree["q"], 0)]
     if isinstance(tree, dict):
-        return {k: _take(v, r) for k, v in tree.items()}
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
     if isinstance(tree, tuple):
-        return tuple(_take(v, r) for v in tree)
-    return tree[r]
+        parts = [_unbind(v) for v in tree]
+        return [tuple(p[r] for p in parts) for r in range(len(parts[0]))]
+    return list(torch.unbind(tree, 0))
+
+
+def _take(tree, r: int):
+    """Repeat ``r`` of a stacked tree, as `_unbind` splits it."""
+    return _unbind(tree)[r]
 
 
 _BATCHLESS_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -198,9 +211,11 @@ def _segment_apply(seg_params, x, cfg: ArchConfig, seg, *, caches=None,
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_repeat = _unbind(seg_params)
+    cache_per_repeat = None if caches is None else _unbind(caches)
     for r in range(seg.repeats):
-        params = _take(seg_params, r)
-        cache_r = None if caches is None else _take(caches, r)
+        params = per_repeat[r]
+        cache_r = None if caches is None else cache_per_repeat[r]
         if remat and cache_r is None:
             x, aux = checkpoint(body, x, aux, params, None,
                                 use_reentrant=False, preserve_rng_state=False,
@@ -219,8 +234,10 @@ def init(generator: torch.Generator, cfg: ArchConfig, dtype=None,
          device: DeviceLike = None):
     """Random parameters at ``cfg``'s shapes, drawn from ``generator`` on
     its own device and placed on ``device`` (CUDA unless ``"cpu"``). A
-    stacked leaf is drawn one repeat at a time (`layers.trunc_normal`)."""
-    dev = resolve_device(device)
+    stacked leaf is drawn one repeat at a time (`layers.trunc_normal`).
+    On ``device="meta"`` nothing is drawn: every leaf is an empty meta
+    tensor of its shape and dtype (`launch.specs`)."""
+    dev = resolve_device(device, meta=True)
     dtype = L.torch_dtype(dtype or cfg.dtype)
     p: Dict[str, Any] = {
         "embed": L.embedding_init(generator, cfg.vocab_size, cfg.d_model,
@@ -273,8 +290,9 @@ def _encoder_forward(p, frames, cfg: ArchConfig, *, remat: bool = True):
         return x + L.mlp_apply(blk["mlp"], _norm(blk["norm2"], x, cfg),
                                cfg.mlp_type, dtype=cfg.dtype)
 
+    blocks = _unbind(p["segments"][0])
     for r in range(cfg.encoder.num_layers):
-        blk = _take(p["segments"][0], r)[0]
+        blk = blocks[r][0]
         if remat:
             x = checkpoint(body, x, blk, use_reentrant=False,
                            preserve_rng_state=False)
@@ -354,8 +372,9 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
     positions ``kv_len`` (a Python int: the host knows it), and for an
     encoder-decoder or vision config the cross-attention context
     ``enc_out``, zeros of (batch, frames or patches, d_model) in ``dtype``
-    until the caller puts the encoder's output or the patches there."""
-    dev = resolve_device(device)
+    until the caller puts the encoder's output or the patches there.
+    ``device="meta"`` gives the shapes alone (`launch.specs`)."""
+    dev = resolve_device(device, meta=True)
     caches = tuple(tuple(_layer_cache(cfg, spec, batch, max_len, dtype,
                                       (seg.repeats,), dev)
                          for spec in seg.pattern)

@@ -5,6 +5,9 @@ Every instrumented boundary (the six kernel wrappers, K1's two bodies as
 two sites, and the population QAT finetune) dispatches through
 :func:`dispatch(site, key, ...) <dispatch>`, where ``key`` is the call's
 static-shape tuple — what the reference's jit compiles one executable per.
+A kernel wrapper enters it through :func:`kernel`, the one hook a launch
+reports to, which also hands the launch's analytic FLOPs and bytes to
+whatever :func:`watch` es the launches (`roofline.analysis.StepCounter`).
 The registry records, per key, with the reference's schema and names so
 `repro_torch.obs.report` (and the reference's) read it:
 
@@ -40,7 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -149,6 +152,73 @@ def key_str(key: Any) -> str:
     return key if isinstance(key, str) else repr(key)
 
 
+# -- the kernel-launch hook ----------------------------------------------------
+
+# fn(name, flops, bytes, library) for each launch of a hand-written kernel
+_WATCHERS: List[Callable[[str, int, int, str], None]] = []
+
+
+def watch(fn: Callable[[str, int, int, str], None]) -> None:
+    """Call ``fn(name, flops, bytes, library)`` for every launch a kernel
+    wrapper reports (:func:`kernel`, :func:`launched`), ``name`` its site
+    without ``kernels.``. A `roofline.analysis.StepCounter` watches while
+    it counts."""
+    with _LOCK:
+        _WATCHERS.append(fn)
+
+
+def unwatch(fn: Callable[[str, int, int, str], None]) -> None:
+    with _LOCK:
+        _WATCHERS.remove(fn)
+
+
+def watching() -> bool:
+    """Whether anything watches the launches: the only case in which a
+    kernel wrapper takes its meta branch (`kernels.check_device`)."""
+    return bool(_WATCHERS)
+
+
+def observed() -> bool:
+    """Whether a launch reports at all (a watcher, or the profiler): when
+    not, a wrapper launches without pricing its launch."""
+    return bool(_WATCHERS) or profiling()
+
+
+def launched(site: str, flops: int, bytes_accessed: int,
+             library: str) -> None:
+    """Tell every watcher of one launch of the kernel at ``site``, priced
+    by its wrapper's analytic cost. A wrapper's meta branch calls this
+    alone and launches nothing."""
+    name = site[len("kernels."):] if site.startswith("kernels.") else site
+    for fn in list(_WATCHERS):
+        fn(name, int(flops), int(bytes_accessed), library)
+
+
+class _NoSpan:
+    @staticmethod
+    def set(**attrs) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def kernel(site: str, key: Any, *, device, flops: int, bytes_accessed: int,
+           library: str, args: Any = (), **attrs):
+    """One launch of a hand-written kernel on the card, the hook its
+    wrapper enters around the launch when :func:`observed`: the watchers
+    learn of it (:func:`launched`) and, with profiling on, the launch is a
+    :func:`dispatch` of ``site`` specialized on ``key``. Yields what
+    :func:`dispatch` yields (a stand-in that records nothing when not
+    profiling)."""
+    launched(site, flops, bytes_accessed, library)
+    if not profiling():
+        yield _Call(_NoSpan)
+        return
+    with dispatch(site, key, device=device, args=args, flops=flops,
+                  bytes_accessed=bytes_accessed, library=library,
+                  **attrs) as call:
+        yield call
+
+
 class _Call:
     """What :func:`dispatch` yields: ``set(**attrs)`` adds attributes to
     the dispatch's span; ``outputs`` takes the call's result, for the
@@ -241,5 +311,6 @@ def reset() -> None:
     REGISTRY.reset()
 
 
-__all__ = ["ExecutableRegistry", "REGISTRY", "dispatch", "key_str",
-           "profiling", "reset", "restore", "snapshot"]
+__all__ = ["ExecutableRegistry", "REGISTRY", "dispatch", "kernel",
+           "key_str", "launched", "observed", "profiling", "reset",
+           "restore", "snapshot", "unwatch", "watch", "watching"]

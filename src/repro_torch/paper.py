@@ -25,6 +25,7 @@ import dataclasses
 from typing import Dict, Optional, Sequence
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs import backend
 from repro_torch.configs.printed_mlp import PRINTED_MLPS
 from repro_torch.core import batch_eval as BE
 from repro_torch.core import minimize as MZ
@@ -167,6 +168,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
+    backend.configure()               # the REPRO_* knobs
     dev = resolve_device(args.device)
 
     cfg = PRINTED_MLPS[args.dataset]

@@ -31,17 +31,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import P, param_specs, path_str
 from repro_torch.nn import layers as L
 from repro_torch.nn import transformer as T
 from repro_torch.nn.layers import is_qleaf
 
 __all__ = ["is_qleaf", "quantize_params", "dequantize_params",
-           "abstract_quantized", "make_quant_serve_step"]
-
-
-def path_str(path) -> str:
-    """Join a tree path into "a/b/0/c" form (`repro.dist.sharding`)."""
-    return "/".join(str(k) for k in path)
+           "abstract_quantized", "make_quant_serve_step",
+           "quantized_shardings"]
 
 
 def _is_quantizable(path_str: str, leaf) -> bool:
@@ -130,3 +127,28 @@ def make_quant_serve_step(cfg: ArchConfig):
         return nxt, state
 
     return serve_step
+
+
+def quantized_shardings(cfg: ArchConfig, mesh, params_shapes, bits: int = 8,
+                        fsdp: bool = True):
+    """(spec tree, quantized shapes): q inherits the original weight's
+    spec, scale replicates. ``fsdp=False`` drops the data-axis weight
+    sharding (TP-only serving). The reference passes ``fsdp_enabled=`` to
+    a `param_specs` that does not take it and raises (fault C7); this is
+    what it means, `dist.sharding.param_specs(..., fsdp=fsdp)`. Specs are
+    `dist.sharding.P` (`dist.sharding.placements` turns one into a
+    DTensor's placements)."""
+    del cfg                     # for call-site symmetry with the reference
+    specs = param_specs(params_shapes, mesh, fsdp=fsdp)
+    qshapes = abstract_quantized(params_shapes, bits)
+
+    def merge(spec, q_leaf):
+        if is_qleaf(q_leaf):
+            return {"q": spec, "scale": P()}
+        if isinstance(q_leaf, dict):
+            return {k: merge(spec[k], q_leaf[k]) for k in q_leaf}
+        if isinstance(q_leaf, tuple):
+            return tuple(merge(s, q) for s, q in zip(spec, q_leaf))
+        return spec
+
+    return merge(specs, qshapes), qshapes

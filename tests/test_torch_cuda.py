@@ -1765,3 +1765,85 @@ def test_mla_and_cross_w8_decode_goes_through_k2(card, monkeypatch, name):
                                             else 0)
     torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the planning path: the kernels' meta branches and count_step on the card
+# ---------------------------------------------------------------------------
+
+
+def _kernel_cases(dev):
+    """name -> (fn, args): K5 forward and backward through autograd, K2,
+    K6 forward and backward, at small model shapes on ``dev``."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def t(*shape, dtype=torch.bfloat16, grad=False):
+        x = torch.randn(shape, generator=g).to(dtype).to(dev)
+        return x.requires_grad_(grad)
+
+    def k5(q, k, v):
+        o = FA.flash_attention(q, k, v, causal=True)
+        return torch.autograd.grad(o.float().sum(), (q, k, v))
+
+    def k6(u, dt, B_, C_, A, D):
+        y = SS.ssm_scan(u, dt, B_, C_, A, D)
+        return torch.autograd.grad(y.float().sum(), (u, dt))
+
+    w = torch.randint(-127, 128, (512, 384), generator=g,
+                      dtype=torch.int8).to(dev)
+    return {
+        "k5": (k5, (t(2, 256, 8, 64, grad=True), t(2, 256, 2, 64, grad=True),
+                    t(2, 256, 2, 64, grad=True))),
+        "k2": (QM.quant_matmul, (t(16, 512), w,
+                                 t(384, dtype=torch.float32).abs())),
+        "k6": (k6, (t(1, 64, 256, grad=True),
+                    t(1, 64, 256, dtype=torch.float32, grad=True).abs(),
+                    t(1, 64, 16), t(1, 64, 16),
+                    -t(256, 16, dtype=torch.float32).abs(),
+                    t(256, dtype=torch.float32))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k5", "k2", "k6"])
+def test_meta_branch_records_the_cost_of_the_cuda_launch(card, case):
+    from repro_torch.roofline import analysis as RA
+    fn, args = _kernel_cases(card)[case]
+    reset_launches()
+    on_card = RA.count_step(fn, *args)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    meta_args = [a.detach().to("meta").requires_grad_(a.requires_grad)
+                 for a in args]
+    reset_launches()
+    on_meta = RA.count_step(fn, *meta_args)
+    assert not any(LAUNCHES.values())       # the meta branch launches none
+    assert on_card.counter.kernels == on_meta.counter.kernels
+    assert on_card.counter.flops == on_meta.counter.flops
+    for name, rec in on_card.counter.kernels.items():
+        assert launched[name] == rec["launches"]
+    assert on_card.counter.kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", [("qwen3-0.6b", "train"),
+                                       ("qwen3-0.6b", "decode"),
+                                       ("falcon-mamba-7b", "prefill")])
+def test_count_step_on_the_card_equals_the_meta_count(card, arch, kind):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import analysis as RA
+    cfg = ARCHS[arch].reduced(d_model=256, d_ff=512, num_heads=4,
+                              num_kv_heads=2, head_dim=64, dtype="bfloat16")
+    shape = ShapeConfig("tiny", 128, 2, kind)
+    bits = 8 if kind == "decode" else None
+    step, args = D.lower_cell(cfg, shape, serve_bits=bits)
+    meta = RA.count_step(step, *args)
+    step, args = D.lower_cell(cfg, shape, serve_bits=bits, device=card)
+    real = RA.count_step(step, *args)
+    torch.cuda.synchronize()
+    assert real.counter.flops == meta.counter.flops > 0
+    assert real.counter.kernels == meta.counter.kernels
+    assert real.counter.kernels
+    assert RA.memory_dict(real)["temp_bytes"] == \
+        RA.memory_dict(meta)["temp_bytes"]

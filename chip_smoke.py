@@ -247,7 +247,8 @@ Phases, each fatal on failure, each with its seconds printed:
 36. the dry-run held against the card at full width in `PLAN_CELLS`
    (qwen3-0.6b train_4k at 1 x 4096, all 28 layers, K5 forward and
    backward; qwen3-0.6b decode_32k, w8, batch 8, K2; falcon-mamba-7b
-   prefill_32k at batch 1, K6): the same `roofline.analysis.count_step`
+   prefill_32k at batch 1, K6; falcon-mamba-7b decode_32k, w4, batch 8,
+   K2's int4 bodies): the same `roofline.analysis.count_step`
    over the real step, its FLOPs and kernel records equal to the meta
    count, the peak within `PEAK_REL`/`PEAK_ABS` of the predicted
    arguments + temporaries, the median step time beside t_step, then one
@@ -270,6 +271,27 @@ Phases, each fatal on failure, each with its seconds printed:
    4096, K6 at 1 x 32768, the gradients at 2 x 512).
    Phases 35-38 run in ``planning_sweep``, ``planning_cells``,
    ``planning_examples`` and ``gradient_compression``.
+39. K2's packed-int4 bodies (w4 payloads stored two weights a byte) against
+   the plain version on the same payload: qwen3-0.6b's 7 and
+   falcon-mamba-7b's 5 decode shapes at M = 1, 8 and 16, and a ragged one
+   (N odd, ceil(N/2) no multiple of 16, K no multiple of 16), bf16 x (the
+   mma path) and float32 x (the CUDA cores), each case's body checked;
+   their device times at M = 8 from CUDA graphs for a qwen3-0.6b layer
+   and a falcon-mamba-7b step, beside the int8 body's on the same values,
+   the plain version's, torch.matmul's on the dequantized weight and the
+   byte bound at packed bytes;
+40. qwen3-0.6b w4 decode at full width as phase 9 (596,049,920 seeded bf16
+   parameters, batch 8, 32 prompt + 32 greedy steps): the w8 and w4
+   payloads on the card by ``nbytes`` and by ``memory_allocated``, w4
+   half of w8 up to the odd-width padding nibbles; K2 196 launches a
+   step, all through the int4 body and its mma path; the same tokens
+   teacher-forced through K2's plain version within phase 9's bound; ms a
+   step and the busy share;
+41. falcon-mamba-7b w4 decode at full width as phase 15 (batch 8, 16 + 16
+   steps): its payloads as in 40; K2 257 a step, all through the int4
+   body, 256 on the mma path (dt_proj's x is float32); teacher-forced
+   within phase 15's bound; ms a step and the busy share.
+   Phases 39-41 run in ``w4_serving``, after phase 17.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -945,7 +967,8 @@ def lm_serving(card: str, dev):
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "body": "bf16 x: mma.sync.m16n8k16 (tensor cores) on int8 "
                  "dequantized in registers; float32 x: CUDA cores; split-K "
-                 "over a thread-block cluster, staged by cp.async",
+                 "over a thread-block cluster, staged by cp.async; packed "
+                 "4-bit payloads: the int4 bodies (int4_body)",
          "replaces": "src/repro/kernels/quant_matmul/kernel.py:40",
          "launches": k2_launches, "max_abs_err": qmm_err,
          "tolerance": "quant_matmul_tolerance (2 K eps32 sum|x w| "
@@ -993,14 +1016,15 @@ def ssm_inputs(gen, B, T, d, N, dtype, dev):
     return u, dt, B_, C_, A, normal(d)
 
 
-def qmm_bound_ms(M, K, N, x_bytes):
+def qmm_bound_ms(M, K, N, x_bytes, packed=False):
     """(bound ms, "bytes" or "operations") of y = x @ dequant(w): x read,
-    int8 weight and scales read, y written once; 2MKN operations at the
-    bf16 tensor-core rate (float32 x: the TF32 rate, the most a float32
-    product could reach). The counts are the wrapper's own (`cost`), the
-    ones its profiled dispatches record."""
+    the weight payload (int8, or ``packed`` 4-bit at ceil(N/2) bytes a
+    row) and scales read, y written once; 2MKN operations at the bf16
+    tensor-core rate (float32 x: the TF32 rate, the most a float32 product
+    could reach). The counts are the wrapper's own (`cost`), the ones its
+    profiled dispatches record."""
     from repro_torch.kernels.quant_matmul.ops import cost
-    ops, nbytes = cost(M, K, N, x_bytes)
+    ops, nbytes = cost(M, K, N, x_bytes, packed)
     rate = BF16_TENSOR_FLOPS if x_bytes == 2 else TF32_TENSOR_FLOPS
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / rate * 1e3
@@ -1404,6 +1428,328 @@ def _within(got, ref, tol):
     diff = (got.float() - ref.float()).abs()
     share = float((diff / torch.clamp_min(tol, 1e-30)).max())
     return float(diff.max()), share, bool((diff <= tol).all())
+
+
+def _qleaves(tree):
+    """The quantized leaves of a parameter tree."""
+    from repro_torch.nn.layers import is_qleaf
+    if is_qleaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [q for v in tree.values() for q in _qleaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [q for v in tree for q in _qleaves(v)]
+    return []
+
+
+def payload_on_card(params, bits: int, dev):
+    """Quantize ``params`` at ``bits`` on the card and count the result:
+    (tree, payload bytes, scale bytes, leaves, rows of odd width N) by
+    ``nbytes``, and the bytes `torch.cuda.memory_allocated` grew by (the
+    payloads and scales; the leaves left unquantized are shared)."""
+    import torch
+    from repro_torch.serve import quantized as QS
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    qt = QS.quantize_params(params, bits=bits)
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated(dev) - base
+    leaves = _qleaves(qt)
+    pay = sum(q["q"].nbytes for q in leaves)
+    scales = sum(q["scale"].nbytes for q in leaves)
+    odd_rows = sum(q["q"].numel() // q["q"].shape[-1] for q in leaves
+                   if q["scale"].shape[0] % 2)
+    return qt, {"payload_bytes": pay, "scale_bytes": scales,
+                "leaves": len(leaves), "odd_width_rows": odd_rows,
+                "allocated_bytes": grew}
+
+
+# phases 40 and 41: (arch, batch, prompt steps, greedy steps)
+W4_DECODE = {"qwen3-0.6b": (8, 32, 32), "falcon-mamba-7b": (8, 16, 16)}
+
+
+def w4_serving(card: str, dev):
+    """Phases 39-41: K2's packed-int4 bodies alone at qwen3-0.6b's and
+    falcon-mamba-7b's decode shapes and a ragged one, against the plain
+    version and timed beside the int8 body and cuBLAS; then the w4 decode
+    of both models at full width, their payloads on the card against
+    w8's. Returns K2's launches by path and the numbers of the
+    ``{"kernels": [...]}`` line's int4 entry."""
+    import math
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels.quant_matmul.ops import cost as qmm_cost
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import transformer as T
+    from repro_torch.serve import quantized as QS
+
+    gen = torch.Generator(device=dev).manual_seed(39)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    fm = ARCHS["falcon-mamba-7b"]
+    d, di = fm.d_model, fm.ssm.expand * fm.d_model
+    r, N_ = fm.ssm.dt_rank, fm.ssm.d_state
+    # (K, N, x's type, times summed: one qwen3-0.6b layer, one
+    # falcon-mamba-7b decode step)
+    qwen = {n: (K, N, "bf16", 1) for n, (K, N) in QWEN3_QMM.items()}
+    falcon = {"in_proj": (d, 2 * di, "bf16", fm.num_layers),
+              "x_proj": (di, r + 2 * N_, "bf16", fm.num_layers),
+              "dt_proj": (r, di, "f32", fm.num_layers),
+              "out_proj": (di, d, "bf16", fm.num_layers),
+              "lm_head": (d, fm.vocab_size, "bf16", 1)}
+    out = {"k2": {}, "max_abs_err": 0.0, "largest_share_of_bound": 0.0}
+
+    def operands(M, K, N, dname):
+        x = torch.randn((M, K), generator=gen, device=dev).to(dtypes[dname])
+        q = torch.randint(-7, 8, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sc = (torch.rand((N,), generator=gen, device=dev) + 0.1) * 0.01
+        return x, q, QM.pack_int4(q), sc
+
+    # -- 39. the int4 bodies alone ----------------------------------------
+    with Phase(39, "quant_matmul int4 body vs plain, and its times"):
+        cases = {}
+        for M in (1, 8, 16):
+            for name, (K, N, xname, _) in {**qwen, **falcon}.items():
+                for dname in sorted({xname, "f32"}):
+                    cases[(M, K, N, dname)] = name
+            # N odd (its last high nibble padding), ceil(N/2) = 501 no
+            # multiple of 16 (single-byte staging), K no multiple of 16
+            for dname in dtypes:
+                cases[(M, 1000, 1001, dname)] = "ragged"
+        for (M, K, N, dname), name in cases.items():
+            x, _, w4, sc = operands(M, K, N, dname)
+            reset_launches()
+            got = QM.quant_matmul(x, w4, sc)
+            torch.cuda.synchronize()
+            check(LAUNCHES["quant_matmul"] == LAUNCHES["quant_matmul_int4"]
+                  == 1 and LAUNCHES["quant_matmul_mma"]
+                  == int(dname == "bf16"),
+                  f"quant_matmul int4 {name} {(M, K, N)} {dname} took the "
+                  f"wrong body: {dict(LAUNCHES)}")
+            ref = QM.quant_matmul_ref(x, w4, sc)
+            err, share, ok = _within(got, ref, QM.quant_matmul_tolerance(
+                x, w4, sc, ref))
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["largest_share_of_bound"] = max(
+                out["largest_share_of_bound"], share)
+            print(f"[39] quant_matmul int4 {name} M={M} K={K} N={N} {dname} "
+                  f"({'mma' if dname == 'bf16' else 'cuda-core'} body): max "
+                  f"abs err {err:.3e}, largest share of the bound "
+                  f"{share:.3f}, within={ok}")
+            check(ok, f"quant_matmul's int4 body disagrees at {name} "
+                  f"{(M, K, N)} {dname}")
+            del x, w4, sc, got, ref
+
+        # device times at M = 8 (CUDA graphs over weight sets rotated past
+        # the L2), the int4 body eager beside; the int8 body on the same
+        # values, torch.matmul on the dequantized weight in x's type
+        M = 8
+        for label, shapes in (("qwen3_layer", qwen),
+                              ("falcon_mamba_step", falcon)):
+            tot = dict.fromkeys(("ms", "eager_ms", "plain_ms", "int8_ms",
+                                 "library_ms", "bound_ms", "bytes"), 0.0)
+            bound_by = set()
+            for name, (K, N, xname, weight) in shapes.items():
+                xdt = dtypes[xname]
+                copies = max(2, math.ceil(120e6 / (K * ((N + 1) // 2))))
+                x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+                sets4, sets8, deq = [], [], []
+                for _ in range(copies):
+                    _, q, w4, sc = operands(M, K, N, xname)
+                    sets4.append((x, w4, sc))
+                    sets8.append((x, q, sc))
+                    deq.append((x, L.dequantize({"q": w4, "scale": sc},
+                                                xdt)))
+                    del q
+                t = dict(
+                    ms=_graph_ms(QM.quant_matmul, sets4, reps=4 * copies),
+                    eager_ms=_rotating_ms(QM.quant_matmul, sets4,
+                                          reps=4 * copies),
+                    plain_ms=_graph_ms(QM.quant_matmul_ref, sets4,
+                                       reps=max(2, copies)),
+                    int8_ms=_graph_ms(QM.quant_matmul, sets8,
+                                      reps=4 * copies),
+                    library_ms=_graph_ms(torch.matmul, deq,
+                                         reps=4 * copies))
+                t["bound_ms"], by = qmm_bound_ms(M, K, N, x.element_size(),
+                                                 packed=True)
+                bound_by.add(by)
+                int8_bound, _ = qmm_bound_ms(M, K, N, x.element_size())
+                t["bytes"] = qmm_cost(M, K, N, x.element_size(), True)[1]
+                print(f"[39] {card}: quant_matmul {name} M={M} K={K} N={N} "
+                      f"{xname}: int4 body {t['ms']:.4f} ms on the device "
+                      f"(eager {t['eager_ms']:.4f}), int8 body "
+                      f"{t['int8_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+                      f"torch.matmul on the dequantized {xname} weight "
+                      f"{t['library_ms']:.4f}; bound {t['bound_ms']:.5f} ms "
+                      f"({by}; int8 {int8_bound:.5f}); int4 "
+                      f"{t['ms'] / t['bound_ms']:.1f}x its bound, "
+                      f"{t['ms'] / t['int8_ms']:.3f}x the int8 body")
+                for key, val in t.items():
+                    tot[key] += weight * val
+                del sets4, sets8, deq, x
+            tot["bound_by"] = "/".join(sorted(bound_by))
+            print(f"[39] {card}: quant_matmul int4, {label} on the device: "
+                  f"int4 body {tot['ms']:.4f} ms, int8 body "
+                  f"{tot['int8_ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+                  f"ms, torch.matmul {tot['library_ms']:.4f} ms, bound "
+                  f"{tot['bound_ms']:.5f} ms; eager int4 "
+                  f"{tot['eager_ms']:.4f} ms")
+            out[label] = tot
+
+    # -- 40, 41. w4 decode at full width ------------------------------------
+    for n, arch in ((40, "qwen3-0.6b"), (41, "falcon-mamba-7b")):
+        cfg = ARCHS[arch]
+        Bd, P, G = W4_DECODE[arch]
+        ssm = cfg.ssm is not None
+        layers = cfg.num_layers
+        per_step = 4 * layers + 1 if ssm else 7 * layers
+        mma_step = per_step - layers if ssm else per_step   # dt_proj float32
+        rel_bound = layers * 2.0 ** -8      # as phases 9 and 15
+        with Phase(n, f"{arch} w4 decode"):
+            t0 = time.perf_counter()
+            params = T.init(gen, cfg, device=dev)
+            torch.cuda.synchronize()
+            print(f"[{n}] {arch}: {T.param_count(params)} parameters drawn "
+                  f"in {time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            q8, pay8 = payload_on_card(params, 8, dev)
+            del q8
+            gc.collect()
+            torch.cuda.empty_cache()
+            qparams, pay4 = payload_on_card(params, 4, dev)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[{n}] {arch}: quantized at 8 and at 4 bits in "
+                  f"{time.perf_counter() - t0:.3f} s")
+            # the allocator rounds each tensor to 512 bytes; 1 MiB for what
+            # else the card allocates meanwhile (256 KiB seen after phase 17)
+            slack = 512 * 2 * pay4["leaves"] + 2 ** 20
+            print(f"[{n}] {card}: {arch} payloads on the card: w8 "
+                  f"{pay8['payload_bytes'] / 2**30:.4f} GiB + scales "
+                  f"{pay8['scale_bytes'] / 2**20:.3f} MiB "
+                  f"(memory_allocated grew {pay8['allocated_bytes'] / 2**30:.4f}"
+                  f" GiB); w4 {pay4['payload_bytes'] / 2**30:.4f} GiB + "
+                  f"scales {pay4['scale_bytes'] / 2**20:.3f} MiB (grew "
+                  f"{pay4['allocated_bytes'] / 2**30:.4f} GiB); "
+                  f"{pay4['leaves']} leaves, {pay4['odd_width_rows']} rows of "
+                  f"odd width; w4/w8 payload "
+                  f"{pay4['payload_bytes'] / pay8['payload_bytes']:.6f}")
+            check(pay4["leaves"] == pay8["leaves"]
+                  and pay4["scale_bytes"] == pay8["scale_bytes"]
+                  and 2 * pay4["payload_bytes"] == pay8["payload_bytes"]
+                  + pay4["odd_width_rows"],
+                  f"{arch}: the w4 payload is not half of w8's: {pay4} "
+                  f"{pay8}")
+            for pay in (pay4, pay8):
+                check(abs(pay["allocated_bytes"] - pay["payload_bytes"]
+                          - pay["scale_bytes"]) <= slack,
+                      f"{arch}: memory_allocated grew by "
+                      f"{pay['allocated_bytes']} bytes, the tree's payload "
+                      f"and scales are {pay['payload_bytes']} + "
+                      f"{pay['scale_bytes']}")
+            check(all(L.is_packed(q["q"]) for q in _qleaves(qparams)),
+                  f"{arch}: a w4 payload is not packed")
+            serve = QS.make_quant_serve_step(cfg)
+            prompt = torch.randint(0, cfg.vocab_size, (Bd, P),
+                                   generator=gen, device=dev)
+            state = T.init_decode_state(cfg, Bd, P + G, cfg.dtype,
+                                        device=dev)
+            fed = []
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            nxt = None
+            for t in range(P + G):
+                if t == P:
+                    torch.cuda.synchronize()
+                    t_gen = time.perf_counter()
+                inp = prompt[:, t:t + 1] if t < P else nxt
+                fed.append(inp)
+                nxt, state = serve(qparams, state, inp)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = dict(LAUNCHES)
+            k2 = launches["quant_matmul"]
+            print(f"[{n}] w4 decode, batch {Bd}, {P} prompt + {G} greedy "
+                  f"steps: launches {launches} ({k2 / (P + G):.0f} "
+                  f"quant_matmul a step)")
+            check(k2 == per_step * (P + G),
+                  f"quant_matmul launched {k2} times in {P + G} steps, not "
+                  f"{per_step} a step")
+            check(launches["quant_matmul_int4"] == k2,
+                  f"{launches['quant_matmul_int4']} of {k2} quant_matmul "
+                  f"launches took the int4 body")
+            check(launches["quant_matmul_mma"] == mma_step * (P + G),
+                  f"{launches['quant_matmul_mma']} quant_matmul launches "
+                  f"took the mma path, not {mma_step * (P + G)}")
+            step_ms = (t1 - t0) / (P + G) * 1e3
+            print(f"[{n}] {card}: w4 decode {step_ms:.3f} ms a step; greedy "
+                  f"part {Bd * G / (t1 - t_gen):.1f} tokens/s")
+
+            def teacher_forced():
+                st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype,
+                                         device=dev)
+                lgs = []
+                for inp in fed:
+                    lg, st = T.decode_step(qparams, st, inp, cfg)
+                    lgs.append(lg[:, 0])
+                return torch.stack(lgs)
+
+            t0 = time.perf_counter()
+            kern = teacher_forced()
+            L.quant_matmul = QM.quant_matmul_ref
+            try:
+                plain = teacher_forced()
+            finally:
+                L.quant_matmul = QM.quant_matmul
+            rels = [_rel(kern[i], plain[i]) for i in range(P + G)]
+            agree = float((kern.argmax(-1) == plain.argmax(-1)).float()
+                          .mean())
+            fed_greedy = torch.cat(fed[P:], 1)
+            gen_greedy = kern[P - 1:-1].argmax(-1).t()
+            print(f"[{n}] teacher-forced runs, kernel and plain: "
+                  f"{time.perf_counter() - t0:.3f} s")
+            print(f"[{n}] teacher-forced logits, kernel vs K2's plain "
+                  f"version, per step relative L2 (bound {rel_bound:.3e}): "
+                  + " ".join(f"{v:.2e}" for v in rels))
+            print(f"[{n}] argmax agreement {agree:.4f} over "
+                  f"{Bd * (P + G)} positions; the serve step's greedy tokens "
+                  f"reproduced: {bool((fed_greedy == gen_greedy).all())}")
+            check(bool(torch.isfinite(kern).all()), "decode logits not "
+                  "finite")
+            check(bool((fed_greedy == gen_greedy).all()),
+                  "teacher-forced kernel run does not reproduce the greedy "
+                  "tokens of the serve step")
+            check(max(rels) <= rel_bound, "w4 decode logits differ from the "
+                  "plain version's beyond the bound")
+            del kern, plain
+
+            def eight_steps():
+                st = T.init_decode_state(cfg, Bd, P + G, cfg.dtype,
+                                         device=dev)
+                for inp in fed[:8]:
+                    serve(qparams, st, inp)
+
+            # the device's activity alone: recording every host op of
+            # 25-45k kernels takes most of a minute
+            wall_s, busy_s, n_k = device_busy(eight_steps, cpu=False)
+            print(f"[{n}] {card}: 8 w4 decode steps: wall {wall_s:.4f} s, "
+                  f"device busy {busy_s:.4f} s in {n_k} kernels, busy share "
+                  f"{busy_s / wall_s:.3f}")
+            out["k2"][f"{arch} w4 decode, {P + G} steps (phase {n})"] = k2
+            out[arch] = {"w8_payload": pay8, "w4_payload": pay4,
+                         "step_ms": step_ms, "busy_share": busy_s / wall_s,
+                         "max_rel_l2": max(rels)}
+            del qparams, state, fed, prompt, nxt
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
 
 
 def cmm_bound_ms(M, K, N, C, x_bytes):
@@ -4661,7 +5007,8 @@ SWEEP_LEFT_OUT = {("recurrentgemma-9b", "train_4k"):
 # in batch only: (arch, shape, variant, global batch)
 PLAN_CELLS = (("qwen3-0.6b", "train_4k", "baseline", 1),
               ("qwen3-0.6b", "decode_32k", "w8", 8),
-              ("falcon-mamba-7b", "prefill_32k", "baseline", 1))
+              ("falcon-mamba-7b", "prefill_32k", "baseline", 1),
+              ("falcon-mamba-7b", "decode_32k", "w4", 8))
 # the measured peak (torch.cuda.max_memory_allocated over the allocation
 # before the arguments) against the predicted argument + temporary bytes:
 # within 2% + 256 MiB either way. The caching allocator rounds each block
@@ -4681,7 +5028,8 @@ class KernelAudit:
     `flash_attention_bwd_tolerance`, `ssm_scan_tolerance`,
     `ssm_scan_bwd_tolerance` and `quant_matmul_tolerance`. It also checks
     that each audited K5 launch took the body `takes_wgmma` (or
-    `takes_wgmma_bwd`) names, and each K2 launch on bf16 the mma body. The
+    `takes_wgmma_bwd`) names, and each K2 launch on bf16 the mma body and
+    on a packed payload the int4 body. The
     wrappers' launch functions are swapped for the run and put back after
     it; the plain versions launch nothing, so the run's counts stand."""
 
@@ -4808,19 +5156,24 @@ class KernelAudit:
             return got
 
         def k2(x, w_q, scales):
-            key = ("K2", tuple(x.shape), tuple(w_q.shape), x.dtype)
+            key = ("K2", tuple(x.shape), tuple(w_q.shape), x.dtype,
+                   w_q.dtype)
             if not new(key, x):
                 return qmm(x, w_q, scales)
-            before = LAUNCHES["quant_matmul_mma"]
+            before = (LAUNCHES["quant_matmul_mma"],
+                      LAUNCHES["quant_matmul_int4"])
             y = qmm(x, w_q, scales)
-            took = LAUNCHES["quant_matmul_mma"] - before
-            body = "mma" if took else "CUDA-core"
-            check(took == int(x.dtype == torch.bfloat16), f"{self.tag}: K2 "
-                  f"{key} took the {body} body")
+            took = LAUNCHES["quant_matmul_mma"] - before[0]
+            int4 = LAUNCHES["quant_matmul_int4"] - before[1]
+            body = ("int4 " if int4 else "") + (
+                "mma" if took else "CUDA-core")
+            check(took == int(x.dtype == torch.bfloat16)
+                  and int4 == int(w_q.dtype == torch.uint8),
+                  f"{self.tag}: K2 {key} took the {body} body")
             with torch.no_grad():
                 ref = QM.quant_matmul_ref(x, w_q, scales)
                 self._record(key, "quant_matmul", key[1:3]
-                             + (str(x.dtype)[6:],), body,
+                             + (str(x.dtype)[6:], str(w_q.dtype)[6:]), body,
                              {"y": (y, ref, QM.quant_matmul_tolerance(
                                  x, w_q, scales, ref))})
             return y
@@ -5459,6 +5812,21 @@ def main() -> None:
     qmm_entry.update(qmm_mamba)
     gc.collect()
     torch.cuda.empty_cache()        # the falcon-mamba-7b tensors are gone
+    w4 = w4_serving(card, dev)
+    qmm_entry["launches_by_path"].update(w4["k2"])
+    qmm_entry["launches_int4_body"] = sum(w4["k2"].values())
+    qmm_entry["max_abs_err"] = max(qmm_entry["max_abs_err"],
+                                   w4["max_abs_err"])
+    qmm_entry["int4_body"] = {
+        "body": "packed 4-bit payload, two weights a byte, unpacked in "
+                "registers: bf16 x on mma.sync, float32 x on the CUDA "
+                "cores",
+        "largest_share_of_bound": w4["largest_share_of_bound"],
+        "qwen3_layer": w4["qwen3_layer"],
+        "falcon_mamba_step": w4["falcon_mamba_step"],
+        "w4_decode": {a: w4[a] for a in W4_DECODE}}
+    gc.collect()
+    torch.cuda.empty_cache()
     k2_device, (cmm_entry, bsmm_entry) = compressed_products(card, dev)
     qmm_entry["device_ms_by_graph"] = k2_device
     # the qwen3-0.6b layer's times on the device (CUDA graphs, phase 21),
@@ -5551,7 +5919,8 @@ def main() -> None:
     runs["qwen3-0.6b gradients for compression (phase 38)"] = compressed
     by_entry = ((netlist_entry, "netlist_sim", "netlist_sim_smem",
                  "launches_smem_body"),
-                (qmm_entry, "quant_matmul", None, None),
+                (qmm_entry, "quant_matmul", "quant_matmul_int4",
+                 "launches_int4_body"),
                 (fa_entry, "flash_attention", "flash_attention_wgmma",
                  "launches_wgmma_body"),
                 (bwd_fa, "flash_attention_bwd", "flash_attention_bwd_wgmma",

@@ -63,6 +63,33 @@
 //    alignment, never by a failure.
 //  * Launch latency: launched with programmatic stream serialization (see
 //    pdl_enter), as K3 is; only back-to-back K2 launches overlap.
+//
+// Packed 4-bit payloads (quant_matmul_int4_{bf16,f32}): the reference
+// stores w4 as jnp.int4, half a byte a weight, and so does the port: w is
+// uint8 (K, ceil(N/2)), byte j of a row holding column 2j in its low nibble
+// and 2j + 1 in its high nibble, two's complement (kernels/quant_matmul/
+// ref.py has the layout). The same skeleton with kPacked set; what differs:
+//  * A staged row of 16 MT bytes holds 32 MT columns, so a strip is 32, 64
+//    or 128 columns wide and reads the same bytes a k row as the int8 body
+//    at half the width; the strip's bytes start at n0 / 2 of each row.
+//  * bf16 x: the ldmatrix.x4.trans of the int8 body still lands in the A
+//    layout, now with 4 columns a b16: lane (g, t) holds, for k rows 2t and
+//    2t + 1, the nibbles of columns 4g .. 4g + 3 of the 32-column chunk.
+//    Two m16 tiles come out of one register pair: tile 2j stands for
+//    columns 4g (row g) and 4g + 1 (row g + 8), tile 2j + 1 for 4g + 2 and
+//    4g + 3. Each tile's bf16 pair is one shift, one lop3 ((r >> s) &
+//    0x000F000F ^ 0x43084308: the nibble in offset binary under bf16's
+//    exponent of 128, i.e. 136 + q) and one bf16x2 fma (- 136), exact on
+//    [-8, 7]: 11 instructions a register of 8 weights, 0.043 a weight
+//    (the int8 body's conversion is 0.086). No second copy of the weights
+//    in another layout.
+//  * float32 x: the CUDA cores, a thread a column of the 32 and a warp
+//    every fourth k row of the piece; one byte load, a shift, a sign
+//    extension and a conversion a weight, MB FMAs.
+//  * Ragged edges: a row whose bytes (ceil(N/2)) are no multiple of 16 is
+//    staged by single-byte loads; bytes past the row are zeros, and
+//    columns past N (an odd N's last high nibble) are computed but never
+//    written.
 #include "skinny_mma.cuh"
 
 namespace {
@@ -87,21 +114,42 @@ __host__ __device__ constexpr int slot_bytes() {
          8 * NT * x_pitch<T>() * static_cast<int>(sizeof(T));
 }
 
-template <typename T, int NT, int MT>
+// columns of a strip of MT 16-byte chunks a k row: 16 a chunk for int8,
+// 32 for packed 4-bit payloads
+__host__ __device__ constexpr int strip_cols(int MT, bool packed) {
+  return (packed ? 32 : 16) * MT;
+}
+
+template <typename T, int NT, int MT, bool kPacked>
 constexpr size_t smem_bytes(int split) {
   constexpr int slot = slot_bytes<T, NT, MT>();
   return static_cast<size_t>(ring_for(slot)) * slot +
-         static_cast<size_t>(kWarps + split) * 8 * NT * 16 * MT *
-             sizeof(float);
+         static_cast<size_t>(kWarps + split) * 8 * NT *
+             strip_cols(MT, kPacked) * sizeof(float);
 }
 
-template <typename T, int NT, int MT>
+// Eight 4-bit values of r, nibble i at bits 4i, as the bf16 pair of nibbles
+// s / 4 and s / 4 + 4 (the lower one in the lower half), exactly: the nibble
+// in offset binary (q + 8) under bf16's exponent of 128 is 136 + q, and one
+// fma subtracts 136.
+template <int S>
+__device__ __forceinline__ uint32_t i4x2_to_bf16x2(uint32_t r) {
+  const uint32_t biased = ((r >> S) & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t out;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(out)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));  // 1.0, -136
+  return out;
+}
+
+template <typename T, int NT, int MT, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
            const float* __restrict__ scales, T* __restrict__ y, int M, int K,
            int N, int chunk_steps, int flags) {
   constexpr int MB = 8 * NT;
-  constexpr int BN = 16 * MT;                 // columns of the strip
+  constexpr int BN = strip_cols(MT, kPacked);   // columns of the strip
+  constexpr int RB = 16 * MT;                   // staged bytes a k row
   constexpr int WP = w_pitch(MT);
   constexpr int XP = x_pitch<T>();
   constexpr int kWBytes = kPieceRows * WP;
@@ -109,7 +157,7 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   constexpr int kRing = ring_for(kSlot), kAhead = kRing - 1;
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // x a copy
   constexpr bool kMma = sizeof(T) == 2;
-  static_assert(kMma || MT == 1, "the CUDA-core body takes 16 columns");
+  static_assert(kMma || MT == 1, "the CUDA-core body takes one chunk");
   extern __shared__ __align__(16) uint8_t smem[];
   float* red = reinterpret_cast<float*>(smem + kRing * kSlot);
   float* gathered = red + kWarps * MB * BN;
@@ -119,6 +167,9 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = (static_cast<int>(blockIdx.x) / split) * BN;
+  // the payload's bytes a row and the strip's first byte
+  const int NB = kPacked ? (N + 1) / 2 : N;
+  const int b0 = kPacked ? n0 / 2 : n0;
   const int m0 = blockIdx.y * MB;
   const int k_lo = min(K, rank * chunk_steps * kStep);
   const int k_hi = min(K, k_lo + chunk_steps * kStep);
@@ -135,16 +186,16 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
       const int kb = k_lo + p * kPieceRows;
       if (wvec) {   // MT 16-byte copies a row
         for (int i = tid; i < kPieceRows * MT; i += kThreads) {
-          const int r = i / MT, h = i % MT, k = kb + r, n = n0 + 16 * h;
-          const bool in = k < k_hi && n < N;
+          const int r = i / MT, h = i % MT, k = kb + r, b = b0 + 16 * h;
+          const bool in = k < k_hi && b < NB;
           cp_async16(ws + r * WP + 16 * h,
-                     in ? w + static_cast<int64_t>(k) * N + n : w, in);
+                     in ? w + static_cast<int64_t>(k) * NB + b : w, in);
         }
       } else {
-        for (int i = tid; i < kPieceRows * BN; i += kThreads) {
-          const int r = i / BN, c = i % BN, k = kb + r, n = n0 + c;
-          ws[r * WP + c] = (k < k_hi && n < N)
-                               ? w[static_cast<int64_t>(k) * N + n]
+        for (int i = tid; i < kPieceRows * RB; i += kThreads) {
+          const int r = i / RB, c = i % RB, k = kb + r, b = b0 + c;
+          ws[r * WP + c] = (k < k_hi && b < NB)
+                               ? w[static_cast<int64_t>(k) * NB + b]
                                : int8_t{0};
         }
       }
@@ -168,9 +219,11 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     cp_async_commit();   // an empty group past the last piece
   };
 
-  // bf16: acc[j * NT + nt][e], the C fragment of m-tile j and n-tile nt;
-  // float32: acc[0][m] for this thread's column over its rows
-  constexpr int kAccRows = kMma ? MT * NT : 1;
+  // bf16: acc[j * NT + nt][e], the C fragment of m-tile j and n-tile nt
+  // (packed: 2 MT m-tiles); float32: acc[0][m] for this thread's column
+  // over its rows
+  constexpr int kTiles = kPacked ? 2 * MT : MT;
+  constexpr int kAccRows = kMma ? kTiles * NT : 1;
   constexpr int kAccCols = kMma ? 4 : MB;
   float acc[kAccRows][kAccCols];
 #pragma unroll
@@ -209,14 +262,47 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
           for (int s = 0; s < 2; ++s) {
             if (s >= steps) break;
-            uint32_t a[4];
-            i8x4_to_bf16x2(q[2 * s], a[0], a[1]);
-            i8x4_to_bf16x2(q[2 * s + 1], a[2], a[3]);
+            if constexpr (kPacked) {
+              // tile 2j: columns 4g (row g), 4g + 1 (row g + 8); tile
+              // 2j + 1: columns 4g + 2, 4g + 3
+              const uint32_t lo[4] = {i4x2_to_bf16x2<0>(q[2 * s]),
+                                      i4x2_to_bf16x2<4>(q[2 * s]),
+                                      i4x2_to_bf16x2<0>(q[2 * s + 1]),
+                                      i4x2_to_bf16x2<4>(q[2 * s + 1])};
+              const uint32_t hi[4] = {i4x2_to_bf16x2<8>(q[2 * s]),
+                                      i4x2_to_bf16x2<12>(q[2 * s]),
+                                      i4x2_to_bf16x2<8>(q[2 * s + 1]),
+                                      i4x2_to_bf16x2<12>(q[2 * s + 1])};
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-              mma_bf16(acc[j * NT + nt], a, b[s][nt][0], b[s][nt][1]);
+              for (int nt = 0; nt < NT; ++nt) {
+                mma_bf16(acc[2 * j * NT + nt], lo, b[s][nt][0], b[s][nt][1]);
+                mma_bf16(acc[(2 * j + 1) * NT + nt], hi, b[s][nt][0],
+                         b[s][nt][1]);
+              }
+            } else {
+              uint32_t a[4];
+              i8x4_to_bf16x2(q[2 * s], a[0], a[1]);
+              i8x4_to_bf16x2(q[2 * s + 1], a[2], a[3]);
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+                mma_bf16(acc[j * NT + nt], a, b[s][nt][0], b[s][nt][1]);
+            }
           }
         }
+      }
+    } else if constexpr (kPacked) {
+      // a thread a column of the 32, a warp every fourth row of the piece
+      const int c = lane, shift = 4 * (c & 1);
+      const uint8_t* wb = reinterpret_cast<const uint8_t*>(ws) + (c >> 1);
+#pragma unroll 4
+      for (int i = 0; i < kPieceRows / kWarps; ++i) {
+        const int r = warp + kWarps * i;
+        if (kb + r >= k_hi) break;
+        const int nib = (wb[r * WP] >> shift) & 0xF;
+        const float wv = static_cast<float>((nib ^ 8) - 8);
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+          acc[0][m] = fmaf(to_f32(xs[m * XP + r]), wv, acc[0][m]);
       }
     } else {
       const int c = tid % 16, L = tid / 16;
@@ -234,7 +320,18 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
 
   // each warp's partial sums into red[warp][m][c]
   float* mine = red + warp * MB * BN;
-  if constexpr (kMma) {
+  if constexpr (kMma && kPacked) {
+    // C row g of m-tile 2j + h stands for column 32 j + 4 g + 2 h, row
+    // g + 8 for the column after it
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mine[(8 * nt + 2 * t + (e & 1)) * BN + 32 * (j >> 1) + 4 * g +
+               2 * (j & 1) + (e >> 1)] = acc[j * NT + nt][e];
+  } else if constexpr (kMma) {
     // C row g of m-tile j stands for column 16 j + 2 g, row g + 8 for
     // column 16 j + 2 g + 1
 #pragma unroll
@@ -245,6 +342,9 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
         for (int e = 0; e < 4; ++e)
           mine[(8 * nt + 2 * t + (e & 1)) * BN + 16 * j + 2 * g + (e >> 1)] =
               acc[j * NT + nt][e];
+  } else if constexpr (kPacked) {
+#pragma unroll
+    for (int m = 0; m < MB; ++m) mine[m * BN + lane] = acc[0][m];
   } else {
 #pragma unroll
     for (int m = 0; m < MB; ++m) {
@@ -259,13 +359,13 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   });
 }
 
-// grid of (strips x split, m_tiles) blocks for strips of 16 MT columns
+// grid of (strips x split, m_tiles) blocks for strips of BN columns
 struct Grid {
   int strips, m_tiles, split, chunk;
 };
-inline Grid grid_for(int M, int K, int N, int MB, int MT) {
+inline Grid grid_for(int M, int K, int N, int MB, int BN) {
   Grid gr;
-  gr.strips = (N + 16 * MT - 1) / (16 * MT);
+  gr.strips = (N + BN - 1) / BN;
   gr.m_tiles = (M + MB - 1) / MB;
   const int steps = (K + kStep - 1) / kStep;
   gr.split = split_for(gr.strips, gr.m_tiles, steps);
@@ -273,52 +373,58 @@ inline Grid grid_for(int M, int K, int N, int MB, int MT) {
   return gr;
 }
 
-template <typename T, int NT, int MT>
+template <typename T, int NT, int MT, bool kPacked>
 int launch_mt(const void* x, const void* w, const void* scales, void* y,
               int M, int K, int N, int flags, const Grid& gr, void* stream) {
   static bool allowed = false;
-  const int rc = allow_smem(qmm_kernel<T, NT, MT>,
-                            smem_bytes<T, NT, MT>(kMaxSplit), allowed);
+  const int rc = allow_smem(qmm_kernel<T, NT, MT, kPacked>,
+                            smem_bytes<T, NT, MT, kPacked>(kMaxSplit),
+                            allowed);
   if (rc != 0) return rc;
-  return launch_clustered(qmm_kernel<T, NT, MT>, gr.strips, gr.split,
-                          gr.m_tiles, smem_bytes<T, NT, MT>(gr.split), stream,
+  return launch_clustered(qmm_kernel<T, NT, MT, kPacked>, gr.strips,
+                          gr.split, gr.m_tiles,
+                          smem_bytes<T, NT, MT, kPacked>(gr.split), stream,
                           static_cast<const T*>(x),
                           static_cast<const int8_t*>(w),
                           static_cast<const float*>(scales),
                           static_cast<T*>(y), M, K, N, gr.chunk, flags);
 }
 
-// Strip width: for bf16 x at M <= 16 the widest of 64, 32 and 16 columns
-// that still fills a wave of kWave blocks; 16 otherwise.
-template <typename T, int NT>
+// Strip width: for bf16 x at M <= 16 the widest of 4 and 2 16-byte chunks a
+// k row (64 or 32 int8 columns, 128 or 64 packed ones) that still fills a
+// wave of kWave blocks; one chunk otherwise.
+template <typename T, int NT, bool kPacked>
 int launch_nt(const void* x, const void* w, const void* scales, void* y,
               int M, int K, int N, int flags, void* stream) {
   if constexpr (sizeof(T) == 2 && NT <= 2) {
     for (int MT = 4; MT >= 2; MT /= 2) {
-      const Grid gr = grid_for(M, K, N, 8 * NT, MT);
+      const Grid gr = grid_for(M, K, N, 8 * NT, strip_cols(MT, kPacked));
       if (gr.strips * gr.m_tiles * gr.split < kWave) continue;
-      return MT == 4
-                 ? launch_mt<T, NT, 4>(x, w, scales, y, M, K, N, flags, gr,
-                                       stream)
-                 : launch_mt<T, NT, 2>(x, w, scales, y, M, K, N, flags, gr,
-                                       stream);
+      return MT == 4 ? launch_mt<T, NT, 4, kPacked>(x, w, scales, y, M, K,
+                                                    N, flags, gr, stream)
+                     : launch_mt<T, NT, 2, kPacked>(x, w, scales, y, M, K,
+                                                    N, flags, gr, stream);
     }
   }
-  return launch_mt<T, NT, 1>(x, w, scales, y, M, K, N, flags,
-                             grid_for(M, K, N, 8 * NT, 1), stream);
+  return launch_mt<T, NT, 1, kPacked>(
+      x, w, scales, y, M, K, N, flags,
+      grid_for(M, K, N, 8 * NT, strip_cols(1, kPacked)), stream);
 }
 
-template <typename T>
+template <typename T, bool kPacked>
 int launch(const void* x, const void* w, const void* scales, void* y, int M,
            int K, int N, int flags, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   switch (n_tiles_for(M)) {
     case 1:
-      return launch_nt<T, 1>(x, w, scales, y, M, K, N, flags, stream);
+      return launch_nt<T, 1, kPacked>(x, w, scales, y, M, K, N, flags,
+                                      stream);
     case 2:
-      return launch_nt<T, 2>(x, w, scales, y, M, K, N, flags, stream);
+      return launch_nt<T, 2, kPacked>(x, w, scales, y, M, K, N, flags,
+                                      stream);
     default:
-      return launch_nt<T, 8>(x, w, scales, y, M, K, N, flags, stream);
+      return launch_nt<T, 8, kPacked>(x, w, scales, y, M, K, N, flags,
+                                      stream);
   }
 }
 
@@ -333,11 +439,29 @@ int launch(const void* x, const void* w, const void* scales, void* y, int M,
 extern "C" int quant_matmul_f32(const void* x, const void* w,
                                 const void* scales, void* y, int M, int K,
                                 int N, int flags, void* stream) {
-  return launch<float>(x, w, scales, y, M, K, N, flags, stream);
+  return launch<float, false>(x, w, scales, y, M, K, N, flags, stream);
 }
 
 extern "C" int quant_matmul_bf16(const void* x, const void* w,
                                  const void* scales, void* y, int M, int K,
                                  int N, int flags, void* stream) {
-  return launch<__nv_bfloat16>(x, w, scales, y, M, K, N, flags, stream);
+  return launch<__nv_bfloat16, false>(x, w, scales, y, M, K, N, flags,
+                                      stream);
+}
+
+// The packed 4-bit bodies: w uint8 (K, ceil(N/2)), two columns a byte; N is
+// the number of output columns. flags bit 0: ceil(N/2) % 16 == 0 and w
+// 16-byte aligned; bit 1 as above.
+extern "C" int quant_matmul_int4_f32(const void* x, const void* w,
+                                     const void* scales, void* y, int M,
+                                     int K, int N, int flags, void* stream) {
+  return launch<float, true>(x, w, scales, y, M, K, N, flags, stream);
+}
+
+extern "C" int quant_matmul_int4_bf16(const void* x, const void* w,
+                                      const void* scales, void* y, int M,
+                                      int K, int N, int flags,
+                                      void* stream) {
+  return launch<__nv_bfloat16, true>(x, w, scales, y, M, K, N, flags,
+                                     stream);
 }

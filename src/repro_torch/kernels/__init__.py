@@ -6,6 +6,8 @@ nowhere else, so a run can show that its path went through the kernel.
 K5 that took its wgmma body (bf16 at head_dim 64, 128, 192 or 256);
 ``LAUNCHES["quant_matmul_mma"]`` and ``LAUNCHES["block_sparse_matmul_mma"]``
 those of K2 and K4 that took their tensor-core (``mma.sync``) body (bf16 x);
+``LAUNCHES["quant_matmul_int4"]`` those of K2 on a packed 4-bit payload
+(its int4 bodies, either x type);
 ``LAUNCHES["netlist_sim_smem"]`` those of K1 that took its shared-memory
 body (every population whose table fits in 227 KB at one sample a block).
 ``LAUNCHES["flash_attention_bwd"]`` and ``LAUNCHES["ssm_scan_bwd"]`` count
@@ -29,6 +31,7 @@ LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
                              "clustered_matmul": 0,
                              "block_sparse_matmul": 0,
                              "quant_matmul_mma": 0,
+                             "quant_matmul_int4": 0,
                              "block_sparse_matmul_mma": 0,
                              "flash_attention_bwd": 0,
                              "flash_attention_bwd_wgmma": 0,

@@ -6,13 +6,15 @@ kernel is ``(d, H, hd)``, ``dense_in3`` takes ``(H, hd, d)``), so weights
 carry between the two packages unchanged. Initializers draw from an explicit
 ``torch.Generator`` on the generator's device.
 
-A dense kernel may also be a quantized leaf ``{"q": int8, "scale": f32}``
+A dense kernel may also be a quantized leaf ``{"q": ..., "scale": f32}``
 (`repro_torch.serve.quantized`): `dense_apply` and `dense_in3_apply` then
-run the product through kernel K2 (`kernels.quant_matmul`) on the int8
-weight and its per-output-column scales. Any other parameter may be a
-quantized leaf too (a stacked norm scale or bias crosses the quantizer's
-size threshold once a segment has enough repeats): it is read through
-`real`, dequantized to the model's dtype as the JAX package's
+run the product through kernel K2 (`kernels.quant_matmul`) on the payload
+and its per-output-column scales. The payload is int8 (8-bit storage, or
+an older tree's 4-bit grid) or uint8 holding two 4-bit weights a byte
+(`pack_int4`); the width N of the last axis is always ``scale``'s. Any
+other parameter may be a quantized leaf too (a stacked norm scale or bias
+crosses the quantizer's size threshold once a segment has enough
+repeats): it is read through `real`, dequantized to the model's dtype as the JAX package's
 ``dequantize_params`` does, which is why these functions take ``dtype``.
 """
 from __future__ import annotations
@@ -24,6 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.quant_matmul import quant_matmul
+# the one layout of packed 4-bit payloads, beside K2's plain version
+from repro_torch.kernels.quant_matmul.ref import (  # noqa: F401
+    is_packed, pack_int4, packed_width, unpack_int4, weights)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
@@ -41,8 +46,10 @@ def is_qleaf(x) -> bool:
 
 
 def dequantize(leaf, dtype) -> torch.Tensor:
-    """``(q.float() * scale).to(dtype)``, as `repro.serve.quantized`."""
-    return (leaf["q"].float() * leaf["scale"]).to(dtype)
+    """``(q.float() * scale).to(dtype)``, as `repro.serve.quantized`; a
+    packed q is unpacked first."""
+    return (weights(leaf["q"], leaf["scale"]).float()
+            * leaf["scale"]).to(dtype)
 
 
 def real(leaf, dtype):
@@ -118,10 +125,13 @@ def dense_in3_init(generator, h: int, hd: int, d_out: int, dtype, *,
 
 def _quant_product(x: torch.Tensor, leaf, k_dim: int, n_dim: int,
                    scales: torch.Tensor) -> torch.Tensor:
-    """x (..., K) @ dequant(q viewed (K, N), per-column scales) via K2."""
+    """x (..., K) @ dequant(q viewed (K, N), per-column scales) via K2; a
+    packed q is viewed (K, ceil(N / 2))."""
     lead = x.shape[:-1]
+    q = leaf["q"]
     y = quant_matmul(x.reshape(-1, k_dim).contiguous(),
-                     leaf["q"].reshape(k_dim, n_dim), scales)
+                     q.reshape(k_dim, packed_width(n_dim) if is_packed(q)
+                               else n_dim), scales)
     return y.reshape(*lead, n_dim)
 
 
@@ -131,9 +141,12 @@ def dense_apply(p, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
     if is_qleaf(k):
         q = k["q"]
         if q.dim() == 2:
-            y = _quant_product(x, k, q.shape[0], q.shape[1], k["scale"])
+            y = _quant_product(x, k, q.shape[0], k["scale"].shape[0],
+                               k["scale"])
         elif q.dim() == 3:  # (d, H, hd): the per-hd scale serves every head
-            d, H, hd = q.shape
+            # (packed along hd, which is even, so (d, H * hd / 2) is a view)
+            d, H = q.shape[:2]
+            hd = k["scale"].shape[0]
             y = _quant_product(x, k, d, H * hd, k["scale"].repeat(H))
             y = y.reshape(*x.shape[:-1], H, hd)
         else:
@@ -157,7 +170,7 @@ def dense_in3_apply(p, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
     H, hd = x.shape[-2:]
     xf = x.reshape(*x.shape[:-2], H * hd)
     if is_qleaf(k):
-        d = k["q"].shape[-1]
+        d = k["scale"].shape[0]
         y = _quant_product(xf, k, H * hd, d, k["scale"])
     else:
         y = torch.matmul(xf, k.reshape(H * hd, k.shape[-1]))
@@ -219,7 +232,8 @@ def embedding_apply(p, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     """A quantized table dequantizes only the gathered rows, to ``dtype``."""
     t = p["table"]
     if is_qleaf(t):
-        return (t["q"][tokens].float() * t["scale"]).to(torch_dtype(dtype))
+        return dequantize({"q": t["q"][tokens], "scale": t["scale"]},
+                          torch_dtype(dtype))
     return t[tokens]
 
 

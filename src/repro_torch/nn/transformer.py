@@ -464,8 +464,8 @@ def _to_tensor(a, device) -> torch.Tensor:
     if name in _BITS_VIEW:
         raw, tdt = _BITS_VIEW[name]
         return torch.from_numpy(a.view(raw)).view(tdt).to(device)
-    if name == "int4":      # the 4-bit grid, stored in int8 (see quantized)
-        a = a.astype(np.int8)
+    if name == "int4":      # packed two values a byte (`layers.pack_int4`)
+        return L.pack_int4(torch.from_numpy(a.astype(np.int8))).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -493,7 +493,9 @@ def params_from_numpy(tree, cfg: ArchConfig, device: DeviceLike = None):
 
 def params_to_numpy(tree):
     """Any tree of tensors (parameters, decode caches) -> numpy arrays;
-    bfloat16 and float8 leaves become float32."""
+    bfloat16 and float8 leaves become float32. A packed 4-bit payload
+    comes back as its uint8 bytes (`layers.unpack_int4` reads its
+    values)."""
     def leaf(_, t):
         if isinstance(t, torch.Tensor):
             if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):

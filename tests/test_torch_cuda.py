@@ -1847,3 +1847,100 @@ def test_count_step_on_the_card_equals_the_meta_count(card, arch, kind):
     assert real.counter.kernels
     assert RA.memory_dict(real)["temp_bytes"] == \
         RA.memory_dict(meta)["temp_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# K2's packed-int4 bodies: two 4-bit weights a byte
+# ---------------------------------------------------------------------------
+
+# QMM_SHAPES and ragged widths: N odd (its last high nibble 0), ceil(N/2)
+# no multiple of 16 (single-byte staging), a K not a multiple of a step
+QMM_INT4_SHAPES = QMM_SHAPES + [(8, 1024, 1001), (8, 1000, 34),
+                                (16, 333, 4097), (3, 77, 65)]
+
+
+def _int4_inputs(card, M, K, N, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    q = torch.randint(-7, 8, (K, N), generator=g, device=card,
+                      dtype=torch.int8)
+    s = (torch.rand((N,), generator=g, device=card) + 0.1) * 0.01
+    return x, q, QM.pack_int4(q), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 33])
+@pytest.mark.parametrize("shape", QMM_INT4_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quant_matmul_int4_body_matches_plain(card, M, shape, dtype):
+    """The packed body at M = 1, 8 and 33 (one and eight n-tiles a block)
+    against the plain version on the same packed payload, within
+    `quant_matmul_tolerance`; the int4 body taken (and the mma one for
+    bf16), two calls equal to the bit, and the int8 body on the unpacked
+    values within the same bound."""
+    _, K, N = shape
+    x, q, packed, s = _int4_inputs(card, M, K, N, dtype, M + 5 * K + N)
+    assert packed.shape == (K, (N + 1) // 2) and packed.dtype == torch.uint8
+    reset_launches()
+    got = QM.quant_matmul(x, packed, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_matmul"] == LAUNCHES["quant_matmul_int4"] == 1
+    assert LAUNCHES["quant_matmul_mma"] == int(dtype == "bfloat16")
+    assert got.dtype == x.dtype and got.shape == (M, N)
+    ref = QM.quant_matmul_ref(x, packed, s)
+    tol = QM.quant_matmul_tolerance(x, packed, s, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    assert torch.equal(got, QM.quant_matmul(x, packed, s))
+    via_int8 = QM.quant_matmul(x, q, s)
+    assert bool(((via_int8.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quant_matmul_int4_unaligned_payload(card, dtype):
+    """A packed payload view off a 16-byte boundary is staged by single
+    loads and agrees with the plain version."""
+    g = torch.Generator(device=card).manual_seed(17)
+    M, K, N = 8, 1024, 2048
+    flat = torch.randint(0, 256, (K * N // 2 + 1,), generator=g,
+                         device=card, dtype=torch.uint8)
+    w = flat[1:].view(K, N // 2)
+    assert w.data_ptr() % 16 != 0
+    x = torch.randn((M, K), generator=g, device=card).to(DTYPES[dtype])
+    s = (torch.rand((N,), generator=g, device=card) + 0.1) * 0.01
+    got = QM.quant_matmul(x, w, s)
+    ref = QM.quant_matmul_ref(x, w, s)
+    tol = QM.quant_matmul_tolerance(x, w, s, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
+def test_w4_decode_goes_through_the_int4_body(card, arch, monkeypatch):
+    """The w4 decode of the reduced models: every K2 launch through the
+    packed body, the logits equal to K2's plain version's within float32
+    reordering (1e-4), as the w8 tests hold them."""
+    cfg = ARCHS[arch].reduced(**(QUANT_CFG if arch == "qwen3-0.6b"
+                                 else MAMBA_CFG))
+    params = T.init(torch.Generator(device=card).manual_seed(0), cfg,
+                    device=card)
+    qp = QS.quantize_params(params, bits=4)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 6), device=card)
+    logits = {}
+    for variant in ("kernel", "plain"):
+        if variant == "plain":
+            monkeypatch.setattr("repro_torch.nn.layers.quant_matmul",
+                                QM.quant_matmul_ref)
+        state = T.init_decode_state(cfg, 8, 16, torch.float32, device=card)
+        reset_launches()
+        out = []
+        for t in range(tokens.shape[1]):
+            lg, state = T.decode_step(qp, state, tokens[:, t:t + 1], cfg)
+            out.append(lg)
+        torch.cuda.synchronize()
+        logits[variant] = torch.cat(out, 1)
+        if variant == "kernel":
+            assert LAUNCHES["quant_matmul"] > 0
+            assert LAUNCHES["quant_matmul_int4"] == LAUNCHES["quant_matmul"]
+    torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
+                               atol=1e-4)

@@ -147,6 +147,17 @@ QUANTIZED = {"['embed']['table']", "['lm_head']['kernel']",
         "['D']")}
 
 
+def _payload_values(q, shape, bits):
+    """A payload's integer values: int8 at 8 bits; at 4 bits uint8 packed
+    two to a byte along the last axis (ceil(N/2) bytes), unpacked."""
+    if bits == 8:
+        assert q.dtype == np.int8
+        return q
+    assert q.dtype == np.uint8
+    assert q.shape == tuple(shape[:-1]) + ((shape[-1] + 1) // 2,)
+    return TL.unpack_int4(torch.from_numpy(q), shape[-1]).numpy()
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantize_params_bit_exact(deep, bits):
     _, _, rparams, tparams = deep
@@ -159,9 +170,9 @@ def test_quantize_params_bit_exact(deep, bits):
     for k, w in want.items():
         w = np.asarray(w)
         if k.endswith("['q']"):
-            assert got[k].dtype == np.int8
-            np.testing.assert_array_equal(got[k], w.astype(np.int8))
-            assert np.abs(got[k]).max() <= 2 ** (bits - 1) - 1
+            vals = _payload_values(got[k], w.shape, bits)
+            np.testing.assert_array_equal(vals, w.astype(np.int8))
+            assert np.abs(vals).max() <= 2 ** (bits - 1) - 1
         else:
             assert got[k].dtype == w.dtype, k
             np.testing.assert_array_equal(got[k], w)

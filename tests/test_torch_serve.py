@@ -55,6 +55,17 @@ def _with_paths(tree):
             jax.tree_util.tree_leaves_with_path(tree)}
 
 
+def _payload_values(q, shape, bits):
+    """A payload's integer values: int8 at 8 bits; at 4 bits uint8 packed
+    two to a byte along the last axis (ceil(N/2) bytes), unpacked."""
+    if bits == 8:
+        assert q.dtype == np.int8
+        return q
+    assert q.dtype == np.uint8
+    assert q.shape == tuple(shape[:-1]) + ((shape[-1] + 1) // 2,)
+    return TL.unpack_int4(torch.from_numpy(q), shape[-1]).numpy()
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantize_params_bit_exact(bits):
     _, _, rparams, tparams = carried(**QUANT_CFG)
@@ -67,9 +78,9 @@ def test_quantize_params_bit_exact(bits):
         w = np.asarray(w)
         if k.endswith("['q']"):
             n_q += 1
-            assert got[k].dtype == np.int8
-            np.testing.assert_array_equal(got[k], w.astype(np.int8))
-            assert np.abs(got[k]).max() <= 2 ** (bits - 1) - 1
+            vals = _payload_values(got[k], w.shape, bits)
+            np.testing.assert_array_equal(vals, w.astype(np.int8))
+            assert np.abs(vals).max() <= 2 ** (bits - 1) - 1
         else:
             assert got[k].dtype == w.dtype, k
             np.testing.assert_array_equal(got[k], w)

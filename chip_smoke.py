@@ -144,8 +144,11 @@ Phases, each fatal on failure, each with its seconds printed:
 26. the backward kernels: K5's (flash_attention_bwd) against its plain
    version on the card at qwen3-0.6b's training shape (B 4, T 1024, 16/8
    heads of 128, bf16), head_dim 192 at 96/8 heads, head_dim 256 with a
-   window and a softcap (gemma2's), and a small float32 case also against
-   autograd of the plain forward; the forward's lse against its plain
+   window and a softcap (gemma2's) and 16 heads of 256 on one KV head
+   (the last three through the two-warpgroup wgmma body, each with its
+   device time against its bound), and two small float32 cases (head_dim
+   64 and 256, the CUDA-core body) also against autograd of the plain
+   forward; the forward's lse against its plain
    version; the gradients through autograd equal the kernel's; K6's
    (ssm_scan_bwd) at falcon-mamba-7b's width (B 2, T 1024, d 8192, N 16)
    against its plain version, a second call equal to the bit; their times
@@ -233,7 +236,9 @@ Phases, each fatal on failure, each with its seconds printed:
    the RG-LRU scan's share of a recurrentgemma-9b step, and K5's backward
    at each family's attention shapes, held element by element against
    its plain version, its device time from a CUDA graph against its
-   bound and SDPA's backward; then whisper-base through
+   bound and SDPA's backward (every backward launch of the six families
+   through the wgmma body, at head_dim 192 and 256 its two-warpgroup
+   kernels); then whisper-base through
    ``launch.train`` (zero frames) preempted after 2 steps and resumed,
    its losses bit-equal to an uninterrupted run's.
    Phases 28-30 run in ``hybrid_serving``, 31-33 in ``mla_cross_serving``,
@@ -486,16 +491,21 @@ REPLACES = {
 }
 # phase 26's backward cases (B, T, H, KV, hd, window, softcap, dtype):
 # qwen3-0.6b's training shape and head_dim 64 with GQA 4, a window, a
-# softcap and a ragged T (both through the wgmma body), head_dim 192 at
+# softcap and a ragged T (the one-warpgroup wgmma body); head_dim 192 at
 # nemotron-4-340b's 96/8 heads, head_dim 256 with a window and gemma2's
-# softcap, a small float32 case (those three through the CUDA-core body)
+# softcap, and 16 heads of 256 on one KV head with a window and a ragged
+# T (the head split) (the two-warpgroup wgmma body); two small float32
+# cases, at head_dim 64 and 256 (the CUDA-core body)
 BWD_CASES = {
     "qwen3_train": (4, 1024, 16, 8, 128, 0, 0.0, "bfloat16"),
     "hd64_g4_window_softcap_ragged": (2, 1000, 16, 4, 64, 128, 30.0,
                                       "bfloat16"),
     "hd192_96_8": (1, 512, 96, 8, 192, 0, 0.0, "bfloat16"),
     "hd256_window_softcap": (1, 1024, 8, 4, 256, 256, 50.0, "bfloat16"),
+    "hd256_g16_kv1_window_ragged": (1, 2000, 16, 1, 256, 1024, 0.0,
+                                    "bfloat16"),
     "f32_small_ragged": (2, 77, 4, 2, 64, 0, 30.0, "float32"),
+    "f32_hd256_small": (1, 130, 4, 2, 256, 0, 0.0, "float32"),
 }
 # phase 27: qwen3-0.6b's training batch and length, its parameters; and
 # falcon-mamba-7b's batch, length and the layers kept of its 64
@@ -2791,6 +2801,7 @@ def lm_training(card: str, dev):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.kernels.flash_attention import ops as FAO
     from repro_torch.kernels.flash_attention.ops import bwd_cost as fa_bwd_cost
     from repro_torch.kernels.ssm_scan.ops import bwd_cost as ssm_bwd_cost
     from repro_torch.launch import train as LT
@@ -2812,6 +2823,7 @@ def lm_training(card: str, dev):
 
     # -- 26. the backward kernels against their plain versions ------------
     fa_err, fa_share, ssm_err, ssm_share = 0.0, 0.0, 0.0, 0.0
+    wide_ms = {}
     with Phase(26, "flash_attention and ssm_scan backward vs plain"):
         for name, (B, Tq, H, KV, hd, window, cap, dname) in \
                 BWD_CASES.items():
@@ -2829,8 +2841,11 @@ def lm_training(card: str, dev):
                                                  softcap=cap))
             check(lse_ok, f"flash_attention's lse disagrees on {name}")
             wgmma = FA.takes_wgmma_bwd(q, k, v, o, do)
-            check(wgmma == (dt == torch.bfloat16 and hd in (64, 128)),
+            check(wgmma == (dt == torch.bfloat16
+                            and hd in FAO.WGMMA_BWD_HEAD_DIMS),
                   f"flash_attention_bwd {name}: takes_wgmma_bwd {wgmma}")
+            split = FA.bwd_head_split(Tq, B, H, KV, sms) \
+                if wgmma and hd > 128 else 1
             got = FA.flash_attention_bwd(q, k, v, o, do, lse, **kw)
             torch.cuda.synchronize()
             check(LAUNCHES["flash_attention_bwd"] == 1
@@ -2878,10 +2893,23 @@ def lm_training(card: str, dev):
                           "from autograd of the plain forward")
                 extra = (f"; against autograd of the plain forward, largest "
                          f"share of the bound {max(shares):.3f}")
+            if wgmma and hd > 128:
+                # the two-warpgroup body's device time against its bound
+                ms = _graph_ms(lambda: FA.flash_attention_bwd(
+                    q, k, v, o, do, lse, **kw), [()], reps=5)
+                flops, nbytes = fa_bwd_cost(B, Tq, Tq, H, KV, hd, 2,
+                                            causal=True, window=window)
+                bound = max(nbytes / HBM_BYTES_PER_S,
+                            flops / BF16_TENSOR_FLOPS) * 1e3
+                wide_ms[name] = dict(ms=ms, bound_ms=bound, split=split)
+                extra += (f"; {ms:.4f} ms device (CUDA graph), bound "
+                          f"{bound:.5f} ms, {ms / bound:.2f}x")
+            body = ("CUDA-core" if not wgmma else "wgmma" if hd <= 128
+                    else f"two-warpgroup wgmma (heads split over {split} "
+                         f"blocks)" if split > 1 else "two-warpgroup wgmma")
             print(f"[26] flash_attention_bwd {name} B={B} T={Tq} H={H} "
                   f"KV={KV} hd={hd} window={window} softcap={cap} "
-                  f"{str(dt)[6:]}, "
-                  f"{'wgmma' if wgmma else 'CUDA-core'} body: lse max abs "
+                  f"{str(dt)[6:]}, {body} body: lse max abs "
                   f"err {lse_err:.3e}; max abs err " + ", ".join(line)
                   + "; a second call equal to the bit" + extra)
             del q, k, v, o, do, lse, got, qq, kk, vv, out
@@ -3330,12 +3358,16 @@ def lm_training(card: str, dev):
     fa_entry = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-        "body": "wgmma (bf16, head_dim 64 and 128): D = rowsum(do o); dk, dv "
-                "a 64-key tile over the group's heads and query tiles fed "
-                "by TMA, S^T = K Q^T and dP^T = V dO^T, dV += P^T dO and dK "
-                "+= dS^T Q; dq a 64-query tile over KV tiles; P recomputed "
-                "from lse in the log2 domain; CUDA cores, float32, for "
-                "everything else",
+        "body": "wgmma (bf16, head_dim 64 and 128 one warpgroup a block, 192 "
+                "and 256 two, dV and S^T -> P^T on one, dK and dP^T on the "
+                "other, P^T through shared memory): D = rowsum(do o); dk, "
+                "dv a 64-key tile over the group's heads (split over blocks "
+                "where the key tiles do not fill the SMs) and query tiles "
+                "fed by TMA, S^T = K Q^T and dP^T = V dO^T, dV += P^T dO "
+                "and dK += dS^T Q; dq a 64-query tile over KV tiles; P "
+                "recomputed from lse in the log2 domain; CUDA cores, "
+                "float32, for everything else",
+        "wide_cases": wide_ms,
         "launches_wgmma_body":
             numbers["launches_qwen3"]["flash_attention_bwd_wgmma"],
         "kernel_ms_by_name": parts, "eager_ms": fa_eager_ms,
@@ -4435,6 +4467,7 @@ def family_training(card: str, dev):
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops as FAO
     from repro_torch.kernels.flash_attention.ops import bwd_cost
     from repro_torch.launch import train as LT
     from repro_torch.nn import attention as A
@@ -4448,6 +4481,7 @@ def family_training(card: str, dev):
                                              tree_leaves, tree_unflatten)
 
     gen = torch.Generator(device=dev).manual_seed(34)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {"k5": {}, "k5_bwd": {}, "k5_bwd_wgmma": {}, "k5_bwd_ms": {},
            "train": {}, "grad_check": {}}
 
@@ -4571,9 +4605,13 @@ def family_training(card: str, dev):
         return n_causal + n_free, n_free
 
     def hd_takes_wgmma_bwd(cfg):
-        """Whether K5's backward takes its wgmma body on this model's
-        attention: head_dim 64 or 128 (MLA's q and k are at 192)."""
-        return cfg.mla is None and cfg.resolved_head_dim in (64, 128)
+        """Whether K5's backward takes its wgmma body on this model's bf16
+        attention: q and k's head_dim (MLA's at nope + rope, 192) one of
+        the body's 64, 128, 192 and 256."""
+        m = cfg.mla
+        hd = m.qk_nope_head_dim + m.qk_rope_head_dim if m else \
+            cfg.resolved_head_dim
+        return hd in FAO.WGMMA_BWD_HEAD_DIMS
 
     def gradient_check(name, cfg, params, batch):
         """One gradient through the kernels (launches counted, K5's calls
@@ -4826,6 +4864,8 @@ def family_training(card: str, dev):
                "body": body, "ms": ms, "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": lib,
+               "split": FA.bwd_head_split(S, B, H, KV, sms)
+               if body == "wgmma" and hd > 128 else 1,
                "max_abs_err": max(e for _, e, _ in errs),
                "max_share": max(sh for _, _, sh in errs)}
         print(f"[34] {card}: flash_attention_bwd at {label} ({res['shape']}),"
@@ -4834,9 +4874,11 @@ def family_training(card: str, dev):
                           for g, e, sh in errs)
               + f"; {ms:.4f} ms device (CUDA graph), bound "
               f"{res['bound_ms']:.5f} ms ({res['bound_by']}), "
-              f"{ms / res['bound_ms']:.1f}x; SDPA's backward "
-              + (f"{lib:.4f} ms" if lib is not None else
-                 "none (softcap)" if cap else "none (refused)"))
+              f"{ms / res['bound_ms']:.2f}x; SDPA's backward "
+              + (f"{lib:.4f} ms, K5 {ms / lib:.2f}x of it" if lib is not None
+                 else "none (softcap)" if cap else "none (refused)")
+              + (f"; heads split over {res['split']} blocks"
+                 if res["split"] > 1 else ""))
         out["k5_bwd_ms"][label] = res
         del q, k, v, o, do, lse
 
@@ -5510,6 +5552,7 @@ def gradient_compression(card: str, dev):
 
 
 def main() -> None:
+    t_main = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
              "repository")
@@ -5947,6 +5990,8 @@ def main() -> None:
             entry.setdefault("audited_calls_by_phase", {})[str(phase)] = {
                 "calls": n, "max_abs_err": err,
                 "largest_share_of_bound": share}
+    print(f"[end] all phases: {time.perf_counter() - t_main:.1f} s from the "
+          f"script's start, the kernels' builds included")
     print(json.dumps({"kernels": [netlist_entry, qmm_entry, cmm_entry,
                                   bsmm_entry, fa_entry, ssm_entry]
                       + bwd_entries}))

@@ -21,9 +21,11 @@ On CUDA, when grad mode is on and an input requires grad,
 `flash_attention` goes through `FlashAttentionFn`: its forward launches K5
 with the log-sum-exp output (B, H, T), and its backward is the hand-written
 kernel ``csrc/flash_attention_bwd.cu`` (`flash_attention_bwd`, counted in
-``LAUNCHES["flash_attention_bwd"]``; bf16 at head_dim 64 and 128 that TMA
-can read, `takes_wgmma_bwd`, takes its wgmma body, counted also in
-``LAUNCHES["flash_attention_bwd_wgmma"]``), so the output always carries a
+``LAUNCHES["flash_attention_bwd"]``; bf16 at head_dim 64, 128, 192 or 256
+that TMA can read, `takes_wgmma_bwd`, takes its wgmma body, counted also in
+``LAUNCHES["flash_attention_bwd_wgmma"]``: one warpgroup a block at 64 and
+128, two at 192 and 256, where `bwd_head_split` says how many blocks share
+a key tile's query heads), so the output always carries a
 ``grad_fn`` there. Otherwise K5 launches without lse, as the serve and
 prefill paths do. On the CPU the plain version's own autograd gives the
 gradient. Meta tensors, while a watcher counts the launches (a
@@ -50,7 +52,7 @@ from repro_torch.kernels.flash_attention.ref import (
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
-WGMMA_BWD_HEAD_DIMS = (64, 128)
+WGMMA_BWD_HEAD_DIMS = (64, 128, 192, 256)
 BWD_ROWS = 64           # rows of a tile of the backward's wgmma body
 _FNS: Dict[str, object] = {}
 
@@ -63,8 +65,9 @@ def _kernel(name: str):
         fn = getattr(build.load(lib), f"flash_attention_{name}")
         fn.argtypes = [ctypes.c_void_p] * (10 if bwd else 5) + \
             [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_void_p]
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float] + \
+            ([ctypes.c_int, ctypes.c_void_p] if bwd else []) + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
@@ -101,11 +104,43 @@ def takes_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 def takes_wgmma_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     o: torch.Tensor, do: torch.Tensor) -> bool:
     """Whether the backward's wgmma body serves these tensors: bf16,
-    head_dim 64 or 128 (192 and 256 would need more accumulator registers
-    than a warpgroup has), and `takes_wgmma`'s TMA terms for each of q, k,
-    v, o and do."""
+    head_dim 64, 128 (one warpgroup a block), 192 or 256 (two warpgroups
+    a block, which split dK and dV's accumulators between them), and
+    `takes_wgmma`'s TMA terms for each of q, k, v, o and do. Everything
+    else (float32, head_dim 16 and 32, other strides) takes the CUDA-core
+    body."""
     return (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_BWD_HEAD_DIMS
             and _tma_readable(q, k, v, o, do))
+
+
+def bwd_head_split(S: int, B: int, H: int, KV: int, sms: int) -> int:
+    """How many blocks of the two-warpgroup dk/dv kernel (head_dim 192 and
+    256) share one (KV tile, b, KV head): 1 where the n_kt B KV blocks fill
+    ``sms`` SMs; else enough to fill them, at most the group's G = H / KV
+    query heads. Block j of n takes heads [j G // n, (j + 1) G // n) of the
+    group and writes float32 partials, which the kernel sums in j's
+    order."""
+    base = -(-S // BWD_ROWS) * B * KV
+    if base >= sms:
+        return 1
+    return max(1, min(H // KV, -(-sms // base)))
+
+
+def bwd_smem_bytes(hd: int) -> Tuple[int, int]:
+    """Shared memory a block of the backward's wgmma body asks for at
+    ``hd`` (``csrc/flash_attention_bwd.cu``), (dk/dv kernel, dq kernel):
+    the tiles that stay and kStages = 2 x the streamed ones, each hd / 64
+    boxes of 64 rows x 128 bytes, the dk/dv kernel's 2 x 64 lse and D
+    values a stage, 3 mbarriers, 1024 bytes of alignment slack; at 192
+    and 256 the two warpgroups' exchange besides (P and the softcap's
+    factor, 16 KB each)."""
+    box, stages, nb = BWD_ROWS * 128, 2, hd // 64
+    tiles = nb * (2 + 2 * stages) * box + 64 + 1024
+    rows = stages * 2 * BWD_ROWS * 4
+    if hd in (64, 128):
+        return tiles + rows, tiles + rows
+    xchg = 2 * 32 * 128 * 4
+    return tiles + rows + xchg, tiles + xchg
 
 
 def _tma_readable(*tensors: torch.Tensor) -> bool:
@@ -285,13 +320,22 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                                       for s in a.stride()[:3]))
     name = "bwd_bf16_wgmma" if wgmma else "bwd_" + _SUFFIX[q.dtype]
     fn = _kernel(name)
+    split, part = 1, None
+    if wgmma and hd in (192, 256):
+        split = bwd_head_split(S, B, H, KV, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        if split > 1:     # the split's float32 partial dv and dk
+            part = torch.empty((2, split, B, S, KV, hd), dtype=torch.float32,
+                               device=q.device)
 
     def launch():
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 B, T, S, H, KV, hd, strides, int(causal), int(window),
-                float(softcap), torch.cuda.current_stream().cuda_stream)
+                float(softcap), split,
+                None if part is None else part.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                                f"CUDA error {rc}")
@@ -388,4 +432,4 @@ __all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bound",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_lse_plain", "flash_attention_plain",
            "flash_attention_ref", "flash_attention_with_lse", "takes_wgmma",
-           "takes_wgmma_bwd"]
+           "takes_wgmma_bwd", "bwd_head_split", "bwd_smem_bytes"]

@@ -184,9 +184,9 @@ def flash_attention_bwd_tolerance(q, k, v, o, do, lse, refs, *,
     side, 1.01 * 2^-7 |ref|.
 
     Inputs that take the backward's wgmma body (`takes_wgmma_bwd`: bf16 at
-    head_dim 64 or 128 whose strides TMA can read) take further terms for
-    its roundings (one side only: the plain version, like the CUDA-core
-    body, keeps P and dS in float32), with 1% slack each for the
+    head_dim 64, 128, 192 or 256 whose strides TMA can read) take further
+    terms for its roundings (one side only: the plain version, like the
+    CUDA-core body, keeps P and dS in float32), with 1% slack each for the
     second-order products of these roundings with the errors above:
 
     * P in the log2 domain: the kernel takes P = exp2f(y) with y =

@@ -1292,12 +1292,71 @@ def test_flash_attention_bwd_wgmma_body_matches_plain(card, case):
     _check_flash_bwd(q, k, v, do, kw, True)
 
 
+# name: (B, T, S, H, KV, hd, causal, window, softcap, v's own head_dim or
+# None, views), bf16, all through the backward's two-warpgroup wgmma body:
+# head_dim 192 and 256, causal and not, a window, a softcap, GQA groups of
+# 1, 2 and 16, one KV head for 16 (the head split over blocks), T not a
+# multiple of the 64-row tiles, S beside T, MLA's v zero-padded from 128,
+# and strided views TMA still reads
+WGMMA2_BWD_CASES = {
+    "hd192_g1_mla_padded_v": (1, 333, 333, 16, 16, 192, True, 0, 0.0, 128,
+                              False),
+    "hd192_g2_noncausal_cross": (2, 100, 257, 8, 4, 192, False, 0, 0.0,
+                                 None, False),
+    "hd192_g16_kv1_softcap_split": (1, 200, 200, 16, 1, 192, True, 0, 30.0,
+                                    None, False),
+    "hd256_g2_softcap_t1000": (1, 1000, 1000, 8, 4, 256, True, 0, 50.0,
+                               None, False),
+    "hd256_g2_window_softcap": (1, 700, 700, 8, 4, 256, True, 256, 50.0,
+                                None, False),
+    "hd256_g16_kv1_window_split": (1, 1000, 1000, 16, 1, 256, True, 512,
+                                   0.0, None, False),
+    "hd256_g1_noncausal_views": (2, 130, 130, 4, 4, 256, False, 0, 0.0,
+                                 None, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA2_BWD_CASES))
+def test_flash_attention_bwd_two_warpgroup_body_matches_plain(card, case):
+    """K5's backward at head_dim 192 and 256 through the two-warpgroup
+    wgmma body, within `flash_attention_bwd_tolerance` of the plain
+    version, a rerun equal to the bit, each launch counted in both
+    counters; the one-KV-head cases split their 16 heads over blocks
+    (`bwd_head_split` > 1)."""
+    B, Tq, S, H, KV, hd, causal, window, cap, vd, views = \
+        WGMMA2_BWD_CASES[case]
+    g = torch.Generator(device=card).manual_seed(Tq + S + H + hd)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=card).to(
+            torch.bfloat16)
+
+    if views:
+        q = randn(B, Tq, H + 2, hd)[:, :, 1:H + 1]
+        kv = randn(B, S, 2 * KV, hd)
+        k, v = kv[:, :, :KV], kv[:, :, KV:]
+    else:
+        q, k, v = randn(B, Tq, H, hd), randn(B, S, KV, hd), \
+            randn(B, S, KV, hd)
+    do = randn(B, Tq, H, hd)
+    if vd is not None:       # as `attend` pads MLA's v: zero columns of o
+        v[..., vd:] = 0
+        do[..., vd:] = 0
+    kw = dict(causal=causal, window=window, softcap=cap)
+    assert FA.takes_wgmma_bwd(q, k, v, q, do)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    if KV == 1:
+        assert FA.bwd_head_split(S, B, H, KV, sms) > 1
+    _check_flash_bwd(q, k, v, do, kw, True)
+
+
 @pytest.mark.cuda
 def test_flash_attention_bwd_bodies_by_type_head_dim_and_alignment(card):
-    """The backward takes its wgmma body for bf16 at head_dim 64 and 128
-    with TMA-readable strides, and its CUDA-core body for float32, head_dim
-    32, 192 and 256, and a view whose token stride is not a multiple of 16
-    bytes; every one within the bound."""
+    """The backward takes its wgmma body for bf16 at head_dim 64, 128, 192
+    and 256 with TMA-readable strides, and its CUDA-core body for float32
+    (at 256 too), head_dim 32, and a view whose head stride is not a
+    multiple of 16 bytes; every one within the bound."""
     g = torch.Generator(device=card).manual_seed(9)
 
     def qkv(hd, dt, pad=0):
@@ -1310,9 +1369,11 @@ def test_flash_attention_bwd_bodies_by_type_head_dim_and_alignment(card):
                                (128, torch.bfloat16, 0, True),
                                (128, torch.float32, 0, False),
                                (32, torch.bfloat16, 0, False),
-                               (192, torch.bfloat16, 0, False),
-                               (256, torch.bfloat16, 0, False),
-                               (64, torch.bfloat16, 4, False)):
+                               (192, torch.bfloat16, 0, True),
+                               (256, torch.bfloat16, 0, True),
+                               (256, torch.float32, 0, False),
+                               (64, torch.bfloat16, 4, False),
+                               (256, torch.bfloat16, 4, False)):
         q, k, v, do = qkv(hd, dt, pad)
         assert FA.takes_wgmma_bwd(q, k, v, q, do) == wgmma
         _check_flash_bwd(q, k, v, do, dict(causal=True), wgmma)

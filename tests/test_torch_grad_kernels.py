@@ -168,7 +168,8 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _flash_bwd_wgmma_order(q, k, v, o, do, lse, *, window, softcap):
+def _flash_bwd_wgmma_order(q, k, v, o, do, lse, *, window, softcap,
+                           split=1):
     """The arithmetic of the backward's wgmma body (``csrc/
     flash_attention_bwd.cu``) in plain PyTorch, causal: S = q k^T and
     dP = do v^T of bf16 inputs summed in float32; P = exp2f(fma(s,
@@ -177,7 +178,9 @@ def _flash_bwd_wgmma_order(q, k, v, o, do, lse, *, window, softcap):
     rounds them; D = rowsum(do o) and dS = P (dP - D) (1 - tanh^2) in
     float32; P rounded to bf16 before dv = P^T do, dS before dk = dS^T q
     and dq = dS k; dk and dq scaled by d^-1/2 after their sums; outputs
-    in bf16."""
+    in bf16. With ``split`` > 1 (head_dim 192 and 256, `bwd_head_split`)
+    dk and dv sum each split's heads [j G // n, (j + 1) G // n) into a
+    float32 partial, then the partials in j's order."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -210,7 +213,13 @@ def _flash_bwd_wgmma_order(q, k, v, o, do, lse, *, window, softcap):
     pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
 
     def per_kv(a):
-        return a.reshape(B, KV, G, S, hd).sum(2).permute(0, 2, 1, 3)
+        a = a.reshape(B, KV, G, S, hd)
+        parts = [a[:, :, j * G // split:(j + 1) * G // split].sum(2)
+                 for j in range(split)]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total.permute(0, 2, 1, 3)
 
     dv = per_kv(pb.transpose(-1, -2) @ dof)
     dk = per_kv(dsb.transpose(-1, -2) @ qf) * scale
@@ -218,23 +227,42 @@ def _flash_bwd_wgmma_order(q, k, v, o, do, lse, *, window, softcap):
     return tuple(a.to(torch.bfloat16) for a in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# name: (B, T, H, KV, hd, window, softcap) at the two-warpgroup body's
+# head_dims: causal, a window, a softcap, 16 query heads on one KV head
+# (the head split) and T not a multiple of the 64-row tiles
+WIDE_CASES = {
+    "hd192_gqa2_ragged": (1, 70, 4, 2, 192, 0, 0.0),
+    "hd192_softcap_window_g16_kv1": (1, 50, 16, 1, 192, 16, 30.0),
+    "hd256_window_ragged": (1, 77, 4, 4, 256, 20, 0.0),
+    "hd256_softcap_gqa2": (1, 64, 4, 2, 256, 0, 50.0),
+    "hd256_g16_kv1_window_ragged": (1, 90, 16, 1, 256, 32, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(WIDE_CASES))
 def test_flash_attention_bwd_tolerance_covers_the_wgmma_bodys_roundings(
         case):
     """An emulation of the wgmma body's arithmetic (bf16 P and dS, exp2 in
     the log2 domain) against the float64 plain version stays inside
     `flash_attention_bwd_tolerance` for inputs that take that body, whose
     bf16 terms are what it needs, and the bound stays tight. The cases run
-    at the body's head_dims (16 -> 64, 32 -> 128)."""
-    B, T, H, KV, hd, window, cap = CASES[case]
-    hd *= 4
+    at the body's head_dims (16 -> 64, 32 -> 128; the wide cases at 192
+    and 256, with the head split `bwd_head_split` gives the H100)."""
+    if case in CASES:
+        B, T, H, KV, hd, window, cap = CASES[case]
+        hd *= 4
+    else:
+        B, T, H, KV, hd, window, cap = WIDE_CASES[case]
     q, k, v, do = (_t(a, torch.float32).to(torch.bfloat16)
                    for a in _qkv_do(B, T, H, KV, hd, seed=5 + T + hd))
     kw = dict(causal=True, window=window, softcap=cap)
     o, lse = TFA.flash_attention_with_lse(q, k, v, **kw)
     assert TFA.takes_wgmma_bwd(q, k, v, o, do)
+    split = TFA.bwd_head_split(T, B, H, KV, 132) if hd > 128 else 1
+    # few key tiles: every wide case with a group of heads splits them
+    assert (split > 1) == (hd > 128 and H > KV)
     got = _flash_bwd_wgmma_order(q, k, v, o, do, lse, window=window,
-                                 softcap=cap)
+                                 softcap=cap, split=split)
     exact = TFA.flash_attention_bwd_plain(
         *(a.double() for a in (q, k, v, o, do)), lse.double(), **kw)
     tols = TFA.flash_attention_bwd_tolerance(q, k, v, o, do, lse, got, **kw)
@@ -318,9 +346,9 @@ def test_flash_attention_keeps_a_gradient_on_the_cpu():
 
 def test_takes_wgmma_bwd_by_type_head_dim_and_strides():
     """The backward's body follows from the tensors alone: bf16 at head_dim
-    64 and 128 whose (b, t, head) strides TMA can read takes the wgmma
-    body; float32, head_dim 32, 192 and 256, and a view whose head stride is
-    not a multiple of 8 elements take the CUDA-core body."""
+    64, 128, 192 and 256 whose (b, t, head) strides TMA can read takes the
+    wgmma body; float32 (192 and 256 too), head_dim 32, and a view whose
+    head stride is not a multiple of 8 elements take the CUDA-core body."""
     def five(hd, dt, pad=0):
         full = torch.zeros((2, 10, 6, hd + pad), dtype=dt)
         q, k, v = (full[:, :, 2 * i:2 * i + 2, :hd] for i in range(3))
@@ -330,10 +358,76 @@ def test_takes_wgmma_bwd_by_type_head_dim_and_strides():
                               (128, torch.bfloat16, 0, True),
                               (128, torch.float32, 0, False),
                               (32, torch.bfloat16, 0, False),
-                              (192, torch.bfloat16, 0, False),
-                              (256, torch.bfloat16, 0, False),
-                              (64, torch.bfloat16, 4, False)):
+                              (192, torch.bfloat16, 0, True),
+                              (256, torch.bfloat16, 0, True),
+                              (192, torch.float32, 0, False),
+                              (256, torch.float32, 0, False),
+                              (64, torch.bfloat16, 4, False),
+                              (256, torch.bfloat16, 4, False)):
         assert TFA.takes_wgmma_bwd(*five(hd, dt, pad)) is want
+
+
+# (S, B, H, KV): the training shapes of gemma2-2b, recurrentgemma-9b and
+# deepseek-v2, and small ones with one or two KV heads
+SPLIT_SHAPES = [(8192, 1, 8, 4), (4096, 1, 16, 1), (1024, 1, 128, 128),
+                (2048, 1, 16, 1), (700, 1, 16, 1), (90, 1, 16, 1),
+                (130, 2, 12, 2), (64, 1, 8, 1)]
+
+
+@pytest.mark.parametrize("S,B,H,KV", SPLIT_SHAPES)
+def test_bwd_head_split_fills_the_card_and_covers_every_head_once(S, B, H,
+                                                                  KV):
+    """The head split of the two-warpgroup dk/dv kernel (`bwd_head_split`,
+    mirrored by the kernel's block walk): at least 132 blocks (the H100's
+    SMs) or every head a block of its own, no more splits than that needs;
+    the kernel's blocks (KV tile first, then (b, KV head), then split)
+    cover every (b, head, KV tile) exactly once; and partials summed in
+    split order equal the unsplit sum over the group's heads to the bit in
+    float32 (integer-valued terms, exact in any order, so only a term
+    missed or taken twice could differ)."""
+    sms, G = 132, H // KV
+    n = TFA.bwd_head_split(S, B, H, KV, sms)
+    n_kt = -(-S // 64)
+    base = n_kt * B * KV
+    assert 1 <= n <= G
+    assert base * n >= sms or n == G
+    assert n == 1 or base * (n - 1) < sms
+    if (S, B, H, KV) == (4096, 1, 16, 1):
+        assert n == 3          # recurrentgemma-9b: 192 blocks, not 64
+    seen = np.zeros((B, H, n_kt), np.int64)
+    r = np.random.default_rng(S + H)
+    terms = r.integers(-1000, 1000, size=(B, H, n_kt, 8)).astype(np.float32)
+    parts = np.zeros((n, B, KV, n_kt, 8), np.float32)
+    for blk in range(base * n):
+        kt, rest = divmod(blk, B * KV * n)
+        bkv, sp = divmod(rest, n)
+        b, kvh = divmod(bkv, KV)
+        for g in range(sp * G // n, (sp + 1) * G // n):
+            seen[b, kvh * G + g, kt] += 1
+            parts[sp, b, kvh, kt] += terms[b, kvh * G + g, kt]
+    assert (seen == 1).all()
+    got = parts[0].copy()
+    for sp in range(1, n):
+        got += parts[sp]
+    want = np.zeros_like(got)
+    for g in range(G):       # the unsplit walk: the group's heads in order
+        want += terms.reshape(B, KV, G, n_kt, 8)[:, :, g]
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_bwd_smem_bytes_fit_a_block():
+    """The shared memory a block of the backward's wgmma body asks for
+    (`bwd_smem_bytes`, the sizes of ``csrc/flash_attention_bwd.cu``): the
+    two-warpgroup kernels at 192 and 256 within a block's 227 KB (one
+    block an SM), the one-warpgroup ones at 64 and 128 within half of it
+    (two blocks an SM)."""
+    limit = 227 * 1024
+    for hd in (192, 256):
+        assert all(b <= limit for b in TFA.bwd_smem_bytes(hd))
+        assert max(TFA.bwd_smem_bytes(hd)) > limit // 2
+    for hd in (64, 128):
+        assert all(2 * b <= limit for b in TFA.bwd_smem_bytes(hd))
+    assert TFA.bwd_smem_bytes(256) == (231488, 230464)
 
 
 def test_flash_attention_bwd_checks_its_inputs():

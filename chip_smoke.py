@@ -211,13 +211,19 @@ Phases, each fatal on failure, each with its seconds printed:
    requests, the dense decode teacher-forced for 32 steps (K5 6 a step for
    the cross attention at T = 1, each launch held element by element, the
    logits against the same steps on K5's plain version), the dense engine
-   and the w8 decode (K2 61 a step, K5 6 a step);
+   and the w8 decode (K2 61 a step, K5 6 a step; the 12 cross K and V
+   projections at M = 8 x 1500 through K2's large-M body, the other 49 at
+   M = 8 through its decode body), and the share of the w8 step the cross
+   projections take, as in 33;
 33. llama-3.2-vision-11b at full width and depth (40 layers, 8 cross, the
    gates at 0.5): the prefill over 4 x 1601 seeded patches (K5 48: 40
    causal, 8 cross, the cross launches held as in 32), the dense decode as
    in 32 (K5 8 a step), the dense engine, the w8 decode (K2 313 a step, K5
-   8), and the share of the w8 step that the cross K and V projections at
-   M = 8 x 1601 take (made again at every step, as the JAX package does);
+   8; the 16 cross K and V projections at M = 8 x 1601 through K2's
+   large-M body, every other launch through its decode body), and the
+   share of the w8 step that the cross projections take (made again at
+   every step, as the JAX package does; their launches checked to take
+   the large-M body);
 34. training the hybrid, MoE, MLA, whisper and vision families at full
    width: first what phases 1-33 leave allocated (the CUDA tensors Python
    still reaches and their holders, then cuBLAS's workspaces released);
@@ -297,6 +303,23 @@ Phases, each fatal on failure, each with its seconds printed:
    body, 256 on the mma path (dt_proj's x is float32); teacher-forced
    within phase 15's bound; ms a step and the busy share.
    Phases 39-41 run in ``w4_serving``, after phase 17.
+42. K2's large-M body (``wgmma``, bf16 x; ``wide_products``, after phase
+   41): both bodies through their C entry points at M = 16 to 1024 at
+   qwen3-0.6b's gate/up (K 1024, N 3072) and the vision cross
+   projection's (K 4096, N 1024), int8 and packed int4, device times from
+   CUDA graphs over weight sets past the L2, and the smallest M of the
+   sweep from which the large-M body is no slower at both shapes beside
+   the wrapper's threshold; then the vision and whisper cross K/V shapes
+   (M 12808, K 4096, N 1024; M 12000, K = N = 512), int8 and int4:
+   through the wrapper, one launch of the large-M body, within
+   ``quant_matmul_tolerance`` of the plain version and equal to the bit
+   on a rerun; an x view off a 16-byte boundary through the decode body;
+   device times beside the other row count a block, the decode body,
+   cuBLAS on the dequantized weight, the plain version and the bound; and
+   at two shapes of 16384 rows, where rounds of blocks hardly matter, a
+   block's time a row of x at 160 rows against 128 (``ops.ROW_COST``).
+   The M = 8 decode phases (9, 15, 28-31, 39-41) check that no launch
+   took it.
 
 Each phase prints its seconds and the device's peak allocated memory.
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -804,9 +827,11 @@ def lm_serving(card: str, dev):
               f"({k2_launches / (P + G):.0f} quant_matmul a step)")
         check(k2_launches == 7 * cfg.num_layers * (P + G),
               f"quant_matmul launched {k2_launches} times in {P + G} steps")
-        check(launches["quant_matmul_mma"] == k2_launches,
+        check(launches["quant_matmul_mma"] == k2_launches
+              and launches["quant_matmul_wgmma"] == 0,
               f"{launches['quant_matmul_mma']} of {k2_launches} quant_matmul "
-              f"launches took the tensor-core body")
+              f"launches took the decode body's tensor-core path, "
+              f"{launches['quant_matmul_wgmma']} the large-M body")
         gen_s = t1 - t_gen
         print(f"[9] {card}: decode {(t1 - t0) / (P + G) * 1e3:.3f} ms a "
               f"step; greedy part {Bd * G / gen_s:.1f} tokens/s")
@@ -975,10 +1000,12 @@ def lm_serving(card: str, dev):
     return [
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
-         "body": "bf16 x: mma.sync.m16n8k16 (tensor cores) on int8 "
-                 "dequantized in registers; float32 x: CUDA cores; split-K "
-                 "over a thread-block cluster, staged by cp.async; packed "
-                 "4-bit payloads: the int4 bodies (int4_body)",
+         "body": "decode body: bf16 x on mma.sync.m16n8k16 (tensor "
+                 "cores) on int8 dequantized in registers, float32 x on "
+                 "the CUDA cores, split-K over a thread-block cluster, "
+                 "staged by cp.async; packed 4-bit payloads: the int4 "
+                 "bodies (int4_body); bf16 x from wgmma_min_m rows: the "
+                 "large-M body (wgmma_body)",
          "replaces": "src/repro/kernels/quant_matmul/kernel.py:40",
          "launches": k2_launches, "max_abs_err": qmm_err,
          "tolerance": "quant_matmul_tolerance (2 K eps32 sum|x w| "
@@ -1234,9 +1261,12 @@ def mamba_serving(card: str, dev):
               f"not {per_step} a step")
         check(launches["ssm_scan"] == 0, "decode launched the scan kernel")
         # every product but dt_proj (float32 x) takes the tensor-core body
-        check(launches["quant_matmul_mma"] == (per_step - layers) * (P + G),
+        check(launches["quant_matmul_mma"] == (per_step - layers) * (P + G)
+              and launches["quant_matmul_wgmma"] == 0,
               f"{launches['quant_matmul_mma']} quant_matmul launches took "
-              f"the tensor-core body, not {(per_step - layers) * (P + G)}")
+              f"the decode body's tensor-core path, not "
+              f"{(per_step - layers) * (P + G)} "
+              f"({launches['quant_matmul_wgmma']} the large-M body)")
         gen_s = t1 - t_gen
         print(f"[15] {card}: decode {(t1 - t0) / (P + G) * 1e3:.3f} ms a "
               f"step; greedy part {Bd * G / gen_s:.1f} tokens/s")
@@ -1537,7 +1567,8 @@ def w4_serving(card: str, dev):
             torch.cuda.synchronize()
             check(LAUNCHES["quant_matmul"] == LAUNCHES["quant_matmul_int4"]
                   == 1 and LAUNCHES["quant_matmul_mma"]
-                  == int(dname == "bf16"),
+                  == int(dname == "bf16")
+                  and LAUNCHES["quant_matmul_wgmma"] == 0,
                   f"quant_matmul int4 {name} {(M, K, N)} {dname} took the "
                   f"wrong body: {dict(LAUNCHES)}")
             ref = QM.quant_matmul_ref(x, w4, sc)
@@ -1695,9 +1726,11 @@ def w4_serving(card: str, dev):
             check(launches["quant_matmul_int4"] == k2,
                   f"{launches['quant_matmul_int4']} of {k2} quant_matmul "
                   f"launches took the int4 body")
-            check(launches["quant_matmul_mma"] == mma_step * (P + G),
+            check(launches["quant_matmul_mma"] == mma_step * (P + G)
+                  and launches["quant_matmul_wgmma"] == 0,
                   f"{launches['quant_matmul_mma']} quant_matmul launches "
-                  f"took the mma path, not {mma_step * (P + G)}")
+                  f"took the mma path, not {mma_step * (P + G)} "
+                  f"({launches['quant_matmul_wgmma']} the large-M body)")
             step_ms = (t1 - t0) / (P + G) * 1e3
             print(f"[{n}] {card}: w4 decode {step_ms:.3f} ms a step; greedy "
                   f"part {Bd * G / (t1 - t_gen):.1f} tokens/s")
@@ -1759,6 +1792,204 @@ def w4_serving(card: str, dev):
             del qparams, state, fed, prompt, nxt
             gc.collect()
             torch.cuda.empty_cache()
+    return out
+
+
+# phase 42: K2's two bodies swept over M at qwen3-0.6b's gate/up (K, N)
+# and the vision cross projection's, and the large-M body at the w8
+# steps' cross K/V shapes (M = 8 x the context's length)
+WIDE_SWEEP_M = (16, 32, 64, 128, 256, 512, 1024)
+WIDE_SWEEP_KN = {"qwen3-0.6b gate/up": (1024, 3072),
+                 "vision cross K/V": (4096, 1024)}
+WIDE_SHAPES = {"llama-3.2-vision cross K/V": (12808, 4096, 1024),
+               "whisper-base cross K/V": (12000, 512, 512)}
+# where the large-M body's rounds of blocks hardly matter (31-32 and 62-63
+# rounds at either row count): its time a row with blocks of 160 rows of
+# x against 128, the ratio `ops.ROW_COST` states
+WIDE_ROWS_SHAPES = ((16384, 4096, 4096), (16384, 2048, 8192))
+
+
+def wide_products(card: str, dev):
+    """Phase 42: K2's large-M body (``wgmma``) beside its decode body.
+    The sweep times both through their C entry points (device time from
+    CUDA graphs over weight sets past the L2) and finds, for each payload
+    kind, the smallest M of the sweep from which the large-M body is no
+    slower at both shapes; then at the cross K/V shapes, int8 and packed
+    int4, the wrapper's call is held against the plain version within
+    `quant_matmul_tolerance`, counted once in
+    ``LAUNCHES["quant_matmul_wgmma"]``, equal to the bit on a rerun, and
+    timed beside the decode body, cuBLAS on the dequantized weight, the
+    plain version and the bound; an unaligned view of x takes the decode
+    body. Returns the numbers for K2's entry."""
+    import math
+
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels.quant_matmul import ops as QMO
+    from repro_torch.kernels.quant_matmul.ref import weights
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    kinds = {"int8": False, "int4": True}
+
+    def operands(M, K, N, packed, copies):
+        sets = []
+        for _ in range(copies):
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            q = torch.randint(-8 if packed else -127, 8 if packed else 128,
+                              (K, N), generator=gen, device=dev,
+                              dtype=torch.int8)
+            s = (torch.rand((N,), generator=gen, device=dev) + 0.1) * 0.01
+            sets.append((x, QM.pack_int4(q) if packed else q, s))
+        return sets
+
+    def entry_point(name, x, w, s, *flags):
+        M, K = x.shape
+        N = s.shape[0]
+        y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+        rc = QMO._kernel(name)(x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                               y.data_ptr(), M, K, N, *flags,
+                               torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"quant_matmul_{name} {(M, K, N)}: CUDA error {rc}")
+        return y
+
+    def decode_body(x, w, s):
+        """the decode body's C function (the wrapper takes the large-M
+        body at these shapes)"""
+        return entry_point(("int4_" if w.dtype == torch.uint8 else "")
+                           + "bf16", x, w, s, QMO._flags(x, w))
+
+    def wide_body(x, w, s, rows=None):
+        return entry_point("wide_" + ("int4_" if w.dtype == torch.uint8
+                                      else "") + "bf16", x, w, s,
+                           rows or QMO.wgmma_rows(x.shape[0], s.shape[0]))
+
+    out = {"sweep": {}, "threshold": {}, "rows": {}, "shapes": {},
+           "launches": 0,
+           "max_abs_err": 0.0, "largest_share_of_bound": 0.0}
+    with Phase(42, "quant_matmul's large-M body"):
+        for kind, packed in kinds.items():
+            faster = {M: True for M in WIDE_SWEEP_M}
+            for label, (K, N) in WIDE_SWEEP_KN.items():
+                copies = max(2, math.ceil(120e6 / (K * N)))
+                for M in WIDE_SWEEP_M:
+                    sets = operands(M, K, N, packed, copies)
+                    reps = 2 * copies
+                    dec = _graph_ms(decode_body, sets, reps)
+                    wid = _graph_ms(wide_body, sets, reps)
+                    faster[M] = faster[M] and wid <= dec
+                    out["sweep"][f"{kind} {label} M={M}"] = {
+                        "decode_ms": dec, "wgmma_ms": wid}
+                    print(f"[42] {card}: sweep {kind} {label} M={M} K={K} "
+                          f"N={N}: decode body {dec:.4f} ms, large-M body "
+                          f"{wid:.4f} ms on the device")
+                    del sets
+            # the smallest M from which the large-M body is no slower at
+            # both shapes, at that M and every larger one of the sweep
+            first = None
+            for M in reversed(WIDE_SWEEP_M):
+                if not faster[M]:
+                    break
+                first = M
+            out["threshold"][kind] = first
+            print(f"[42] {card}: {kind}: the large-M body is no slower at "
+                  f"both shapes from M = {first} of the sweep on; the "
+                  f"wrapper takes it from M = "
+                  f"{QMO.wgmma_min_m(packed)}")
+        for M, K, N in WIDE_ROWS_SHAPES:
+            sets = operands(M, K, N, False, 2)
+            per_row = {}
+            for rows in QMO.WGMMA_ROWS:
+                ms = _graph_ms(lambda a, b, c: wide_body(a, b, c, rows),
+                               sets, 6)
+                rounds = math.ceil(math.ceil(N / QMO.WGMMA_COLS)
+                                   * math.ceil(M / rows) / 132)
+                per_row[rows] = ms / rounds / rows
+                out["rows"][f"M={M} K={K} N={N} rows={rows}"] = ms
+            ratio = per_row[160] / per_row[128]
+            out["rows"][f"M={M} K={K} N={N} ratio"] = ratio
+            print(f"[42] {card}: M={M} K={K} N={N} int8: a block's time a "
+                  f"row of x with 160 rows {ratio:.3f} of that with 128 "
+                  f"(ms {out['rows'][f'M={M} K={K} N={N} rows=160']:.4f} "
+                  f"and {out['rows'][f'M={M} K={K} N={N} rows=128']:.4f}); "
+                  f"ROW_COST states {QMO.ROW_COST[160]}")
+            del sets
+        for label, (M, K, N) in WIDE_SHAPES.items():
+            for kind, packed in kinds.items():
+                copies = max(2, math.ceil(100e6 / (M * K * 2)))
+                sets = operands(M, K, N, packed, copies)
+                x, w, s = sets[0]
+                reset_launches()
+                got = QM.quant_matmul(x, w, s)
+                torch.cuda.synchronize()
+                check(LAUNCHES["quant_matmul"] == LAUNCHES[
+                    "quant_matmul_wgmma"] == 1 and LAUNCHES[
+                    "quant_matmul_int4"] == int(packed),
+                      f"{label} {kind}: the large-M body was not taken: "
+                      f"{dict(LAUNCHES)}")
+                again = QM.quant_matmul(x, w, s)
+                torch.cuda.synchronize()
+                out["launches"] += 2
+                ref = QM.quant_matmul_ref(x, w, s)
+                err, share, ok = _within(got, ref, QM.quant_matmul_tolerance(
+                    x, w, s, ref))
+                check(ok and torch.equal(got, again),
+                      f"{label} {kind}: the large-M body differs from the "
+                      f"plain version beyond the bound ({share:.3f} of it) "
+                      f"or from itself on a rerun")
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["largest_share_of_bound"] = max(
+                    out["largest_share_of_bound"], share)
+                # an x view off a 16-byte boundary: TMA cannot read it
+                flat = torch.empty(M * K + 8, dtype=x.dtype, device=dev)
+                xu = flat[1:1 + M * K].view(M, K)
+                xu.copy_(x)
+                reset_launches()
+                got_u = QM.quant_matmul(xu, w, s)
+                torch.cuda.synchronize()
+                check(LAUNCHES["quant_matmul_mma"] == 1
+                      and LAUNCHES["quant_matmul_wgmma"] == 0,
+                      f"{label} {kind}: an unaligned x did not take the "
+                      f"decode body: {dict(LAUNCHES)}")
+                check(_within(got_u, ref, QM.quant_matmul_tolerance(
+                    x, w, s, ref))[2], f"{label} {kind}: the decode body "
+                      f"on an unaligned x differs from the plain version")
+                del flat, xu, got_u, again
+                reps = 2 * copies
+                lib_sets = [(a, (weights(b, c).float() * c).to(
+                    torch.bfloat16)) for a, b, c in sets]
+                bound, by = qmm_bound_ms(M, K, N, 2, packed)
+                rows = QMO.wgmma_rows(M, N)
+                other = [r for r in QMO.WGMMA_ROWS if r != rows][0]
+                res = {"M": M, "K": K, "N": N, "payload": kind,
+                       "rows": rows,
+                       "ms": _graph_ms(QM.quant_matmul, sets, reps),
+                       f"rows_{other}_ms": _graph_ms(
+                           lambda a, b, c: wide_body(a, b, c, other), sets,
+                           reps),
+                       "decode_body_ms": _graph_ms(decode_body, sets,
+                                                   max(2, reps // 2)),
+                       "library_ms": _graph_ms(torch.matmul, lib_sets, reps),
+                       "plain_ms": _graph_ms(QM.quant_matmul_ref, sets[:1],
+                                             2),
+                       "bound_ms": bound, "bound_by": by,
+                       "max_abs_err": err, "share_of_bound_err": share}
+                del lib_sets, sets, got, ref
+                out["shapes"][f"{label} {kind}"] = res
+                print(f"[42] {card}: {label} {kind} M={M} K={K} N={N}: "
+                      f"large-M body {res['ms']:.4f} ms on the device "
+                      f"({rows} rows a block; {other} rows "
+                      f"{res[f'rows_{other}_ms']:.4f}), decode body "
+                      f"{res['decode_body_ms']:.4f}, cuBLAS on the "
+                      f"dequantized weight {res['library_ms']:.4f}, "
+                      f"plain {res['plain_ms']:.4f}, bound {bound:.5f} ms "
+                      f"({by}): {res['ms'] / bound:.2f}x the bound, "
+                      f"{res['ms'] / res['library_ms']:.2f}x cuBLAS; max abs "
+                      f"err {err:.3e} ({share:.3f} of the tolerance), equal "
+                      f"to the bit on a rerun")
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1827,6 +2058,7 @@ def compressed_products(card: str, dev):
     from repro_torch.kernels import clustered_matmul as CM
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels.block_sparse_matmul.ref import live_weight
+    from repro_torch.kernels.quant_matmul import ops as QMO
     from repro_torch.nn import transformer as T
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -2115,7 +2347,9 @@ def compressed_products(card: str, dev):
                                       device=dev, dtype=torch.int8),
                      torch.rand((N,), generator=gen, device=dev) * 0.01)
                     for _ in range(copies)]
-            return timed(f"quant_matmul M={M} K={K} N={N} bf16",
+            body = QMO.body_for(M, K, N, torch.bfloat16, False, True)
+            return timed(f"quant_matmul M={M} K={K} N={N} bf16 ({body} "
+                         f"body)",
                          QM.quant_matmul, QM.quant_matmul_ref, torch.matmul,
                          sets, [(a, (w.float() * sc).to(torch.bfloat16))
                                 for a, w, sc in sets],
@@ -3643,7 +3877,10 @@ def serving_steps(card: str, dev, gen, out):
         K5's: one a cross layer a step, over ``enc_out``), the same tokens
         teacher-forced through K2's plain version (with the kernel run's
         routing replayed, for an MoE model), and the device's busy share
-        over 4 steps. Returns the step's wall and device ms."""
+        over 4 steps. K2's launches at M = 8 take the decode body's mma
+        path; the cross K and V projections over ``enc_out`` (two a cross
+        layer a step, M = 8 x its length) the large-M body. Returns the
+        step's wall and device ms."""
         serve = QS.make_quant_serve_step(cfg)
         Bd, P, G = SERVING_DECODE
         prompt = torch.randint(0, cfg.vocab_size, (Bd, P), generator=gen,
@@ -3674,9 +3911,13 @@ def serving_steps(card: str, dev, gen, out):
               f"{Bd / step_ms * 1e3:.1f} tokens/s")
         check(k2 == per_step * (P + G), f"quant_matmul launched {k2} times "
               f"in {P + G} steps, not {per_step} a step")
-        missed = k2 - launches["quant_matmul_mma"]
-        check(missed == 0, f"{missed} quant_matmul launches missed the "
-              f"tensor-core body")
+        wide = 2 * n_mixers(cfg, "cross") * (P + G)
+        check(launches["quant_matmul_wgmma"] == wide,
+              f"{launches['quant_matmul_wgmma']} quant_matmul launches took "
+              f"the large-M body, not the {wide} cross K and V projections")
+        missed = k2 - wide - launches["quant_matmul_mma"]
+        check(missed == 0, f"{missed} quant_matmul launches at M = {Bd} "
+              f"missed the decode body's tensor-core path")
         k5 = n_mixers(cfg, "cross") * (P + G)
         check(launches["flash_attention"] == k5, f"decode launched K5 "
               f"{launches['flash_attention']} times, not {k5}")
@@ -3724,6 +3965,8 @@ def serving_steps(card: str, dev, gen, out):
               f"device busy {busy_s:.4f} s in {n_k} kernels, busy share "
               f"{busy_s / wall_s:.3f}")
         out["k2"][f"{name} w8 decode, {P + G} steps (phase {n})"] = k2
+        out["k2_wgmma"][f"{name} w8 decode, {P + G} steps (phase {n})"] = \
+            wide
         if k5:
             out["k5"][f"{name} w8 decode, cross attention at T = 1, "
                       f"{P + G} steps (phase {n})"] = k5
@@ -3803,7 +4046,7 @@ def hybrid_serving(card: str, dev):
     from repro_torch.train.train_state import make_prefill_step
 
     gen = torch.Generator(device=dev).manual_seed(28)
-    out = {"k5": {}, "k2": {}}
+    out = {"k5": {}, "k2": {}, "k2_wgmma": {}}
     steps = serving_steps(card, dev, gen, out)
     draw, prefill, w8_decode, engine, routing, free = (
         steps.draw, steps.prefill, steps.w8_decode, steps.engine,
@@ -4050,7 +4293,6 @@ def mla_cross_serving(card: str, dev):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import ops as FAO
-    from repro_torch.kernels.quant_matmul import ops as QMO
     from repro_torch.nn import attention as A
     from repro_torch.nn import layers as L
     from repro_torch.nn import transformer as T
@@ -4058,7 +4300,7 @@ def mla_cross_serving(card: str, dev):
     from repro_torch.train.train_state import make_prefill_step
 
     gen = torch.Generator(device=dev).manual_seed(31)
-    out = {"k5": {}, "k2": {}}
+    out = {"k5": {}, "k2": {}, "k2_wgmma": {}, "k2_cross": {}}
     steps = serving_steps(card, dev, gen, out)
     draw, context, prefill, w8_decode, engine, routing, free = (
         steps.draw, steps.context, steps.prefill, steps.w8_decode,
@@ -4222,21 +4464,30 @@ def mla_cross_serving(card: str, dev):
                   f"{P + G} steps (phase {n})"] = k5
         del kern, plain
 
-    def cross_projection(n, cfg, qparams, patches, step):
+    def cross_projection(n, name, cfg, qparams, context, step):
         """The w8 step's cross K and V projections, which the decode makes
         again at every step (as the JAX package does): one cross layer's
-        two K2 products at M = batch x patches, device time from a CUDA
-        graph, cuBLAS on the dequantized weights beside it, and the share
-        of the w8 step (wall and device ms a step) their 2 x 8 launches
-        take."""
-        p = T._take(qparams["segments"][0][3]["mixer"], 0)
-        x = patches.to(L.torch_dtype(cfg.dtype))
+        two K2 products at M = batch x context length, both through the
+        large-M body, device time from a CUDA graph, cuBLAS on the
+        dequantized weights beside it, and the share of the w8 step (wall
+        and device ms a step) the step's launches of them take."""
+        segment = cfg.segments[0]
+        at = next(i for i, spec in enumerate(segment.pattern)
+                  if spec.mixer == "cross")
+        p = T._take(qparams["segments"][0][at]["mixer"], 0)
+        x = context.to(L.torch_dtype(cfg.dtype))
         dt = cfg.dtype
 
         def k2():
             L.dense_apply(p["c_wk"], x, dtype=dt)
             L.dense_apply(p["c_wv"], x, dtype=dt)
 
+        reset_launches()
+        k2()
+        torch.cuda.synchronize()
+        check(LAUNCHES["quant_matmul"] == LAUNCHES["quant_matmul_wgmma"] == 2,
+              f"{name}'s cross K and V projections did not both take the "
+              f"large-M body: {dict(LAUNCHES)}")
         w = [L.dequantize(p[c]["kernel"], torch.bfloat16).reshape(
             cfg.d_model, -1) for c in ("c_wk", "c_wv")]
         xf = x.reshape(-1, cfg.d_model)
@@ -4249,23 +4500,23 @@ def mla_cross_serving(card: str, dev):
                                                              reps=10)
         n_cross = n_mixers(cfg, "cross")
         M, K, N = xf.shape[0], cfg.d_model, w[0].shape[1]
-        bound = max(2 * M * K * N * 2 / BF16_TENSOR_FLOPS,
-                    2 * QMO.cost(M, K, N, 2)[1] / HBM_BYTES_PER_S) * 1e3
+        bound = 2 * qmm_bound_ms(M, K, N, 2)[0]
         res = {"shape": f"M {M}, K {K}, N {N}, bf16 x, two products a "
                         f"cross layer, {n_cross} cross layers",
+               "body": "wgmma (large-M)",
                "ms_a_layer": ms, "library_ms_a_layer": lib_ms,
                "bound_ms_a_layer": bound,
                "share_of_wall_step": n_cross * ms / step[0],
                "share_of_device_step": n_cross * ms / step[1]}
-        print(f"[{n}] {card}: the cross K and V projections of the w8 step "
-              f"({res['shape']}): K2 {ms:.4f} ms a layer on the device, "
-              f"cuBLAS on the dequantized weights {lib_ms:.4f}, bound "
-              f"{bound:.5f}; {n_cross} layers take "
-              f"{n_cross * ms:.3f} ms, {res['share_of_wall_step']:.3f} of "
-              f"the w8 step's {step[0]:.3f} ms wall and "
-              f"{res['share_of_device_step']:.3f} of its {step[1]:.3f} ms "
-              f"device time")
-        out["k2_cross"] = res
+        print(f"[{n}] {card}: the cross K and V projections of {name}'s w8 "
+              f"step ({res['shape']}): K2's large-M body {ms:.4f} ms a layer "
+              f"on the device, cuBLAS on the dequantized weights "
+              f"{lib_ms:.4f}, bound {bound:.5f} ({ms / bound:.2f}x); "
+              f"{n_cross} layers take {n_cross * ms:.3f} ms, "
+              f"{res['share_of_wall_step']:.3f} of the w8 step's "
+              f"{step[0]:.3f} ms wall and {res['share_of_device_step']:.3f} "
+              f"of its {step[1]:.3f} ms device time")
+        out["k2_cross"][name] = res
 
     # -- 31. deepseek-v2: MLA, its dense layer and 3 of its MoE layers ------
     with Phase(31, "deepseek-v2 prefill, MLA decode, engine, w8 decode"):
@@ -4344,8 +4595,9 @@ def mla_cross_serving(card: str, dev):
         qparams = QS.quantize_params(params, bits=8)
         # a layer: 4 self-attention, 4 cross-attention and 2 MLP
         # products; the LM head
-        w8_decode(32, "whisper-base", cfg, qparams,
-                  10 * cfg.num_layers + 1, bounds["w8"], enc_out=enc8)
+        step = w8_decode(32, "whisper-base", cfg, qparams,
+                         10 * cfg.num_layers + 1, bounds["w8"], enc_out=enc8)
+        cross_projection(32, "whisper-base", cfg, qparams, enc8, step)
         del params, qparams, enc8
         free()
 
@@ -4367,7 +4619,7 @@ def mla_cross_serving(card: str, dev):
         step = w8_decode(33, "llama-3.2-vision", cfg, qparams,
                          7 * cfg.num_layers + 4 * n_mixers(cfg, "cross")
                          + 1, bounds["w8"], enc_out=patches)
-        cross_projection(33, cfg, qparams, patches, step)
+        cross_projection(33, "llama-3.2-vision", cfg, qparams, patches, step)
         del qparams, patches
         free()
     return out
@@ -5070,8 +5322,8 @@ class KernelAudit:
     `flash_attention_bwd_tolerance`, `ssm_scan_tolerance`,
     `ssm_scan_bwd_tolerance` and `quant_matmul_tolerance`. It also checks
     that each audited K5 launch took the body `takes_wgmma` (or
-    `takes_wgmma_bwd`) names, and each K2 launch on bf16 the mma body and
-    on a packed payload the int4 body. The
+    `takes_wgmma_bwd`) names, each K2 launch the body `body_for` names
+    (and on a packed payload the int4 body). The
     wrappers' launch functions are swapped for the run and put back after
     it; the plain versions launch nothing, so the run's counts stand."""
 
@@ -5104,6 +5356,7 @@ class KernelAudit:
         from repro_torch.kernels import quant_matmul as QM
         from repro_torch.kernels import ssm_scan as SS
         from repro_torch.kernels.flash_attention import ops as FAO
+        from repro_torch.kernels.quant_matmul import ops as QMO
         from repro_torch.kernels.ssm_scan import ops as SSO
         from repro_torch.nn import layers as L
         self.saved = [(FAO, "_launch_forward", FAO._launch_forward),
@@ -5202,16 +5455,21 @@ class KernelAudit:
                    w_q.dtype)
             if not new(key, x):
                 return qmm(x, w_q, scales)
-            before = (LAUNCHES["quant_matmul_mma"],
-                      LAUNCHES["quant_matmul_int4"])
+            want = QMO.body_for(
+                x.shape[0], x.shape[1], scales.shape[0], x.dtype,
+                w_q.dtype == torch.uint8,
+                x.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0)
+            counts = ("quant_matmul_mma", "quant_matmul_wgmma",
+                      "quant_matmul_int4")
+            before = [LAUNCHES[c] for c in counts]
             y = qmm(x, w_q, scales)
-            took = LAUNCHES["quant_matmul_mma"] - before[0]
-            int4 = LAUNCHES["quant_matmul_int4"] - before[1]
+            mma, wgmma, int4 = (LAUNCHES[c] - b
+                                for c, b in zip(counts, before))
             body = ("int4 " if int4 else "") + (
-                "mma" if took else "CUDA-core")
-            check(took == int(x.dtype == torch.bfloat16)
+                "wgmma" if wgmma else "mma" if mma else "CUDA-core")
+            check(mma == int(want == "mma") and wgmma == int(want == "wgmma")
                   and int4 == int(w_q.dtype == torch.uint8),
-                  f"{self.tag}: K2 {key} took the {body} body")
+                  f"{self.tag}: K2 {key} took the {body} body, not {want}")
             with torch.no_grad():
                 ref = QM.quant_matmul_ref(x, w_q, scales)
                 self._record(key, "quant_matmul", key[1:3]
@@ -5870,6 +6128,31 @@ def main() -> None:
         "w4_decode": {a: w4[a] for a in W4_DECODE}}
     gc.collect()
     torch.cuda.empty_cache()
+    wide = wide_products(card, dev)
+    vision = wide["shapes"]["llama-3.2-vision cross K/V int8"]
+    qmm_entry["wgmma_body"] = {
+        "body": "large-M body for bf16 x: wgmma m64n128k16 or m64n160k16 "
+                "with W^T from registers (int8 or packed int4 dequantized "
+                "there) and x by TMA, 128 output columns by 128 or 160 "
+                "rows a block over the whole of K, a producer warpgroup "
+                "and a 6-stage ring",
+        "entry_points": "quant_matmul_wide_bf16, quant_matmul_wide_int4_bf16",
+        "shapes": "llama-3.2-vision's cross K/V projection, M 12808, K 4096, "
+                  "N 1024, int8, one product",
+        "ms": vision["ms"], "plain_ms": vision["plain_ms"],
+        "bound_ms": vision["bound_ms"], "bound_by": vision["bound_by"],
+        "library_ms": vision["library_ms"],
+        "library": "torch.matmul on the dequantized bf16 weight",
+        "decode_body_ms": vision["decode_body_ms"],
+        "max_abs_err": wide["max_abs_err"],
+        "largest_share_of_bound": wide["largest_share_of_bound"],
+        "by_shape": wide["shapes"], "sweep": wide["sweep"],
+        "threshold_measured": wide["threshold"],
+        "calls_held_in_phase_42": wide["launches"]}
+    qmm_entry["max_abs_err"] = max(qmm_entry["max_abs_err"],
+                                   wide["max_abs_err"])
+    gc.collect()
+    torch.cuda.empty_cache()
     k2_device, (cmm_entry, bsmm_entry) = compressed_products(card, dev)
     qmm_entry["device_ms_by_graph"] = k2_device
     # the qwen3-0.6b layer's times on the device (CUDA graphs, phase 21),
@@ -5927,6 +6210,15 @@ def main() -> None:
         fa_entry["launches_by_path"].update(part["k5"])
         fa_entry["launches_wgmma_body"] += sum(part["k5"].values())
         qmm_entry["launches_by_path"].update(part["k2"])
+    # the w8 steps' cross K and V projections through the large-M body
+    qmm_entry["wgmma_body"]["launches_by_path"] = {
+        k: v for part in (hybrid, mla_cross)
+        for k, v in part["k2_wgmma"].items() if v}
+    qmm_entry["wgmma_body"]["launches"] = \
+        qmm_entry["launches_wgmma_body"] = sum(
+            qmm_entry["wgmma_body"]["launches_by_path"].values())
+    check(qmm_entry["launches_wgmma_body"] > 0,
+          "no launch of K2's large-M body on the w8 decode paths")
     gc.collect()
     torch.cuda.empty_cache()
     families = family_training(card, dev)
@@ -5948,7 +6240,7 @@ def main() -> None:
         + [r["max_share"] for r in families["k5_bwd_ms"].values()])
     print(f"[34] {card}: training " + ", ".join(
         f"{k}: {v}" for k, v in families["train"].items()))
-    qmm_entry["vision_cross_projection"] = mla_cross["k2_cross"]
+    qmm_entry["cross_projections"] = mla_cross["k2_cross"]
     gc.collect()
     torch.cuda.empty_cache()        # the family states are gone
     # phases 35-38: the planning path (dry-run, its cells on the card, the

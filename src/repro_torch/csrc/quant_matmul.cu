@@ -6,11 +6,16 @@
 // or 4-bit grid) with one float32 scale per output column, products
 // accumulated in float32, y written in x's type (float32 or bf16).
 //
-// Where it runs: the quantized decode step. qwen3-0.6b: 7 products a layer
-// (q, k, v, o, gate, up, down), K and N of 1024 to 3072; q, k and v run back
-// to back, and so do gate and up. falcon-mamba-7b: in_proj, x_proj, dt_proj
-// (float32 x), out_proj a layer and the LM head (4096 x 65024). M is the
-// decode batch, 8.
+// Two bodies: the decode body (M up to a few hundred rows, float32 x, and
+// shapes TMA cannot read) and the large-M body (bf16 x), at the end of the
+// file. The wrapper names the body from the shape, type and alignment
+// (kernels/quant_matmul/ops.py, body_for).
+//
+// Where the decode body runs: the quantized decode step. qwen3-0.6b: 7
+// products a layer (q, k, v, o, gate, up, down), K and N of 1024 to 3072;
+// q, k and v run back to back, and so do gate and up. falcon-mamba-7b:
+// in_proj, x_proj, dt_proj (float32 x), out_proj a layer and the LM head
+// (4096 x 65024). M is the decode batch, 8.
 //
 // What bounds it on this card: bytes. At M = 8 each weight byte feeds 8
 // multiply-adds, far below the ~295 operations a byte at which the tensor
@@ -90,7 +95,61 @@
 //    staged by single-byte loads; bytes past the row are zeros, and
 //    columns past N (an odd N's last high nibble) are computed but never
 //    written.
+//
+// The large-M body (quant_matmul_wide_{bf16,int4_bf16}, namespace wide).
+//  * Where it runs: the w8 decode step's cross K and V projections, made
+//    again at every step over the whole context: llama-3.2-vision's at
+//    M = 8 x 1601 = 12808, K 4096, N 1024 and whisper-base's at
+//    M = 8 x 1500 = 12000, K = N = 512, two products a cross layer; and
+//    any bf16 product of wgmma_min_m rows or more (the wrapper's
+//    threshold, measured against the decode body on the card).
+//  * What bounds it: operations. At M = 12808 each weight byte feeds 12808
+//    multiply-adds and each x byte 512: 2 M K N at the bf16 tensor-core
+//    rate is 0.109 ms a vision product, its bytes 0.040 ms. Only wgmma
+//    reaches that rate. The decode body there re-read x (105 MB, twice the
+//    L2) once per 16-column strip, 64 times a product, on mma.sync.
+//  * Operands swapped as in the decode body: y^T = W^T x^T. W^T is wgmma's
+//    A, from registers: the ldmatrix.x4.trans of a staged (k, n) payload
+//    row above is, per warp, the m16 A layout, and wgmma's m64nNk16 A
+//    layout is that per warp (wgmma.cuh), so each warp converts its own 16
+//    output columns (int8: one 16-byte chunk, i8x4_to_bf16x2; packed: the
+//    lo or hi m16 tile of a 32-column chunk, one shift, lop3 and fma a
+//    pair) and no bf16 copy of W passes through shared memory. x is B:
+//    128 rows x 64 k, K-major, as TMA lays it out with the 128-byte
+//    swizzle, read by the descriptor a k16 step 32 bytes further.
+//  * Tile: a block computes 128 output columns (two consumer warpgroups
+//    of one m64 tile each) by 128 or 160 rows of x (wgmma m64n128k16 or
+//    m64n160k16, a float32 accumulator of 64 or 80 registers), over the
+//    whole of K: no split-K, so the sum order is fixed and the bits
+//    repeat. The wrapper's wgmma_rows picks the row count: the rounds of
+//    blocks on 132 SMs times a block's time, a 160-row block spreading
+//    its conversion over more rows (ops.ROW_COST). (Blocks of 256
+//    columns, two m64 tiles a warpgroup, read x from L2 half as often but
+//    measured slower at the cross shapes and most others.) The
+//    accumulator's rows are output columns: s_n multiplies a row once
+//    after the k-sum, as in the decode body, and quant_matmul_tolerance
+//    covers it unchanged.
+//  * Ring: 6 stages of 64 k, each the x tile (16 or 20 KB) and the
+//    payload tile (64 k rows of the block's 128 columns: 8 KB int8 with
+//    the 128-byte swizzle, 4 KB packed with the 64-byte one, so that the
+//    8 rows of an ldmatrix fall on 8 bank groups), filled by TMA from one
+//    thread of a producer warpgroup, whose registers the consumers take
+//    (setmaxnreg); a full barrier (the transaction bytes) and an empty one
+//    (one arrival a consumer warp) a stage. At most 173,152 bytes (int8,
+//    160 rows) of 232,448 (static_assert).
+//  * Overlap: a consumer warpgroup converts a stage's A fragments into
+//    one of two register buffers while the products of the stage before
+//    run (wgmma.wait_group 1), and releases a stage when its products are
+//    done. No spill (ptxas -v).
+//  * Order of blocks: the n-tiles of one m-tile are neighbours in the
+//    block index, so an x tile comes from device memory about once and
+//    from L2 for the others; the payload (4 MB int8 at vision's shape)
+//    stays in L2.
+//  * Ragged edges: TMA reads zeros past M, K and the payload's row; the
+//    epilogue writes rows below M and columns below N, bf16 pairs where N
+//    is even (4-byte aligned), single values where it is odd.
 #include "skinny_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -131,15 +190,19 @@ constexpr size_t smem_bytes(int split) {
 // Eight 4-bit values of r, nibble i at bits 4i, as the bf16 pair of nibbles
 // s / 4 and s / 4 + 4 (the lower one in the lower half), exactly: the nibble
 // in offset binary (q + 8) under bf16's exponent of 128 is 136 + q, and one
-// fma subtracts 136.
-template <int S>
-__device__ __forceinline__ uint32_t i4x2_to_bf16x2(uint32_t r) {
-  const uint32_t biased = ((r >> S) & 0x000F000Fu) ^ 0x43084308u;
+// fma subtracts 136. The large-M body's warps pass s in a register (they
+// take the lo or the hi nibbles of one register by their parity).
+__device__ __forceinline__ uint32_t i4x2_to_bf16x2_at(uint32_t r, int s) {
+  const uint32_t biased = ((r >> s) & 0x000F000Fu) ^ 0x43084308u;
   uint32_t out;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
       : "=r"(out)
       : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));  // 1.0, -136
   return out;
+}
+template <int S>
+__device__ __forceinline__ uint32_t i4x2_to_bf16x2(uint32_t r) {
+  return i4x2_to_bf16x2_at(r, S);
 }
 
 template <typename T, int NT, int MT, bool kPacked>
@@ -428,6 +491,252 @@ int launch(const void* x, const void* w, const void* scales, void* y, int M,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The large-M body (bf16 x, int8 or packed 4-bit payloads)
+// ---------------------------------------------------------------------------
+namespace wide {
+
+constexpr int kConsumers = 256;               // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;    // and a producer warpgroup
+// registers a thread after setmaxnreg, 40 x 128 + 232 x 256 of the SM's
+// 65536: the producer gives up what the consumers may take (a producer
+// warp beside consumers capped at 168 registers measured slower)
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kCols = 128;                    // output columns a block
+constexpr int kBK = 64;                       // k a stage: 128 bytes of x
+constexpr int kStages = 6;
+constexpr int kMaxSmem = 232448;              // a block's shared memory
+
+// A stage: the x tile (BM rows, wgmma's N, of 128 bytes) and the payload
+// tile (64 k rows of the block's 128 columns, 128 bytes a row int8 with
+// the 128-byte swizzle, 64 packed with the 64-byte one).
+template <bool kPacked, int BM>
+struct Ring {
+  static constexpr int kXBytes = BM * 128;
+  static constexpr int kRowBytes = kPacked ? kCols / 2 : kCols;
+  static constexpr int kStage = kXBytes + kBK * kRowBytes;
+  // the stages, their full and empty barriers, 1024 bytes to align the
+  // base
+  static constexpr int kSmem = kStages * kStage + 16 * kStages + 1024;
+  static_assert(kStage % 1024 == 0, "every tile 1024-byte aligned");
+  static_assert(kSmem <= kMaxSmem, "the ring must fit a block");
+};
+
+// the 16-byte chunk c of payload row r as the TMA swizzle laid it out in
+// rows of ``kRow`` bytes (128: chunk ^ row % 8; 64: chunk ^ (row / 2) % 4)
+template <int kRow>
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return r * kRow + ((kRow == 128 ? c ^ (r & 7) : c ^ ((r >> 1) & 3)) << 4);
+}
+
+template <bool kPacked, int BM>
+__global__ void __launch_bounds__(kThreads, 1)
+qmm_wide_kernel(const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tw,
+                const float* __restrict__ scales,
+                __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                int n_tiles) {
+  using Rg = Ring<kPacked, BM>;
+  constexpr int kXBytes = Rg::kXBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + kStages * Rg::kStage;   // + 8 s
+  const uint32_t empty = full + 8 * kStages;           // + 8 s
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the n-tiles of one m-tile are neighbours: its x tile comes from device
+  // memory about once and from L2 for the others
+  const int nt = static_cast<int>(blockIdx.x) % n_tiles;
+  const int m0 = static_cast<int>(blockIdx.x) / n_tiles * BM;
+  const int n0 = nt * kCols;
+  const int steps = (K + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(full + 8 * s, 1);
+      wg::mbar_init(empty + 8 * s, kConsumers / 32);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {   // the producer warpgroup: TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == kConsumers / 32 && lane == 0) {
+      const int b0 = n0 / (kPacked ? 2 : 1);
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) wg::mbar_wait(empty + 8 * s, (it / kStages - 1) & 1);
+        const uint32_t bar = full + 8 * s, st = base + s * Rg::kStage;
+        wg::mbar_expect_tx(bar, Rg::kStage);
+        wg::tma_load_2d(st, &tx, bar, it * kBK, m0);
+        wg::tma_load_2d(st + kXBytes, &tw, bar, b0, it * kBK);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  // consumers: warpgroup h of 2 (output columns 64 h to 64 h + 63), warp w
+  // of 4 in it. This warp's 16-byte chunk of a payload row, and the output
+  // column its A row g stands for (row g + 8: the column after it). int8:
+  // 16 columns a chunk, row g column 2g; packed: 32 columns a chunk shared
+  // by warps 2i and 2i + 1, which take its lo (4g, 4g + 1) and hi (4g + 2,
+  // 4g + 3) m16 tiles
+  const int h = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+  const int chunk = kPacked ? 32 * h + 16 * (w >> 1) : 64 * h + 16 * w;
+  const int column = kPacked ? 64 * h + 32 * (w >> 1) + 4 * g + 2 * (w & 1)
+                             : 64 * h + 16 * w + 2 * g;
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+
+  // W^T's A fragments of a stage's 4 k16 steps: one ldmatrix.x4.trans a
+  // tile and 32 k rows, as the decode body reads them; two buffers, so a
+  // stage converts while the products of the one before run
+  using Frags = uint32_t[4][4];
+  uint32_t a[2][4][4];
+  auto convert = [&](Frags& f, uint32_t st) {
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      uint32_t q[4];
+      ldsm_x4_trans(q, st + kXBytes + swizzled<Rg::kRowBytes>(
+                                          32 * kp + lane, chunk / 16));
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        uint32_t(&e)[4] = f[2 * kp + s2];
+        if constexpr (kPacked) {
+          const int sh = 8 * (w & 1);
+          e[0] = i4x2_to_bf16x2_at(q[2 * s2], sh);
+          e[1] = i4x2_to_bf16x2_at(q[2 * s2], sh + 4);
+          e[2] = i4x2_to_bf16x2_at(q[2 * s2 + 1], sh);
+          e[3] = i4x2_to_bf16x2_at(q[2 * s2 + 1], sh + 4);
+        } else {
+          i8x4_to_bf16x2(q[2 * s2], e[0], e[1]);
+          i8x4_to_bf16x2(q[2 * s2 + 1], e[2], e[3]);
+        }
+      }
+    }
+  };
+  auto issue = [&](Frags& f, uint32_t st) {
+    wg::fence_regs(acc);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_rs_k<BM>(acc, f[kk], wg::desc_sw128(st + 32 * kk));
+    wg::commit();
+  };
+  // keeps a buffer's registers live until the products reading them are
+  // done (the compiler cannot see the asynchronous read)
+  auto hold = [&](Frags& f) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(f[kk][e]));
+  };
+  auto stage = [&](int it) { return base + (it % kStages) * Rg::kStage; };
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(empty + 8 * (it % kStages));
+  };
+
+  wg::mbar_wait(full, 0);
+  convert(a[0], stage(0));
+  issue(a[0], stage(0));
+  for (int it = 1; it < steps; ++it) {
+    wg::mbar_wait(full + 8 * (it % kStages), (it / kStages) & 1);
+    if (it & 1) {
+      convert(a[1], stage(it));
+      issue(a[1], stage(it));
+      wg::wait_one();
+      hold(a[0]);
+    } else {
+      convert(a[0], stage(it));
+      issue(a[0], stage(it));
+      wg::wait_one();
+      hold(a[1]);
+    }
+    release(it - 1);   // its products are done
+  }
+  wg::wait_all();
+  hold(a[0]);
+  hold(a[1]);
+  wg::fence_regs(acc);
+  release(steps - 1);
+
+  // y[m][n] = s_n acc: accumulator row g (g + 8) is output column c0
+  // (c0 + 1), column 8 i + 2 t + e row m0 + 8 i + 2 t + e of x
+  const int c0 = n0 + column;
+  if (c0 >= N) return;
+  const bool pairs = (N & 1) == 0;
+  const float s0 = scales[c0];
+  const float s1 = c0 + 1 < N ? scales[c0 + 1] : 0.f;
+#pragma unroll
+  for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * i + 2 * t + e;
+      if (m >= M) continue;
+      __nv_bfloat16* out = y + static_cast<int64_t>(m) * N + c0;
+      const float v0 = acc[4 * i + e] * s0;
+      const float v1 = acc[4 * i + 2 + e] * s1;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(out) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        out[0] = __float2bfloat16(v0);
+        if (c0 + 1 < N) out[1] = __float2bfloat16(v1);
+      }
+    }
+}
+
+template <bool kPacked, int BM>
+int launch_rows(const void* x, const void* w, const void* scales, void* y,
+                int M, int K, int N, void* stream) {
+  using Rg = Ring<kPacked, BM>;
+  static bool allowed = false;
+  const int rc = allow_smem(qmm_wide_kernel<kPacked, BM>, Rg::kSmem,
+                            allowed);
+  if (rc != 0) return rc;
+  const int NB = kPacked ? (N + 1) / 2 : N;
+  CUtensorMap tx, tw;
+  if (!wg::encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M,
+                     static_cast<int64_t>(K) * 2, kBK, BM,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !wg::encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, NB, K, NB,
+                     Rg::kRowBytes, kBK,
+                     kPacked ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (N + kCols - 1) / kCols;
+  const int m_tiles = (M + BM - 1) / BM;
+  qmm_wide_kernel<kPacked, BM><<<n_tiles * m_tiles, kThreads, Rg::kSmem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      tx, tw, static_cast<const float*>(scales),
+      static_cast<__nv_bfloat16*>(y), M, K, N, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPacked>
+int launch(const void* x, const void* w, const void* scales, void* y, int M,
+           int K, int N, int rows, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (K <= 0 || K % 8 != 0 ||
+      (kPacked ? (N + 1) / 2 : N) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (rows) {
+    case 128:
+      return launch_rows<kPacked, 128>(x, w, scales, y, M, K, N, stream);
+    case 160:
+      return launch_rows<kPacked, 160>(x, w, scales, y, M, K, N, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace wide
+
 }  // namespace
 
 // x (M, K), w (K, N) int8, scales (N,) float32, y (M, N): all contiguous on
@@ -464,4 +773,23 @@ extern "C" int quant_matmul_int4_bf16(const void* x, const void* w,
                                       void* stream) {
   return launch<__nv_bfloat16, true>(x, w, scales, y, M, K, N, flags,
                                      stream);
+}
+
+// The large-M body: x (M, K) bf16, w (K, N) int8 or (packed) uint8 (K,
+// ceil(N/2)), scales (N,) float32, y (M, N) bf16, all contiguous on the
+// current device; K a positive multiple of 8, the payload's row bytes a
+// multiple of 16, x and w 16-byte aligned (TMA reads both). Returns the
+// CUDA error of the launch, cudaErrorInvalidValue for a shape or
+// alignment TMA cannot read or a tensor map that does not encode.
+extern "C" int quant_matmul_wide_bf16(const void* x, const void* w,
+                                      const void* scales, void* y, int M,
+                                      int K, int N, int rows, void* stream) {
+  return wide::launch<false>(x, w, scales, y, M, K, N, rows, stream);
+}
+
+extern "C" int quant_matmul_wide_int4_bf16(const void* x, const void* w,
+                                           const void* scales, void* y,
+                                           int M, int K, int N, int rows,
+                                           void* stream) {
+  return wide::launch<true>(x, w, scales, y, M, K, N, rows, stream);
 }

@@ -5,7 +5,10 @@ nowhere else, so a run can show that its path went through the kernel.
 ``LAUNCHES["flash_attention_wgmma"]`` counts, in addition, the launches of
 K5 that took its wgmma body (bf16 at head_dim 64, 128, 192 or 256);
 ``LAUNCHES["quant_matmul_mma"]`` and ``LAUNCHES["block_sparse_matmul_mma"]``
-those of K2 and K4 that took their tensor-core (``mma.sync``) body (bf16 x);
+those of K2 and K4 that took their tensor-core (``mma.sync``) decode body
+(bf16 x); ``LAUNCHES["quant_matmul_wgmma"]`` those of K2 that took its
+large-M body (``wgmma``, bf16 x from ``quant_matmul.ops.wgmma_min_m``
+rows);
 ``LAUNCHES["quant_matmul_int4"]`` those of K2 on a packed 4-bit payload
 (its int4 bodies, either x type);
 ``LAUNCHES["netlist_sim_smem"]`` those of K1 that took its shared-memory
@@ -32,6 +35,7 @@ LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
                              "block_sparse_matmul": 0,
                              "quant_matmul_mma": 0,
                              "quant_matmul_int4": 0,
+                             "quant_matmul_wgmma": 0,
                              "block_sparse_matmul_mma": 0,
                              "flash_attention_bwd": 0,
                              "flash_attention_bwd_wgmma": 0,

@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels: K1 (netlist_sim) against
 its plain PyTorch version and the numpy oracle, bit for bit; K2
-(quant_matmul), K3 (clustered_matmul), K4 (block_sparse_matmul), K5
+(quant_matmul: its decode body and, from `wgmma_min_m` rows of bf16 x,
+its large-M body), K3 (clustered_matmul), K4 (block_sparse_matmul), K5
 (flash_attention) and K6 (ssm_scan) against their plain versions within the
 bounds stated beside them (`quant_matmul_tolerance`,
 `clustered_matmul_tolerance`, `block_sparse_matmul_tolerance`,
@@ -2005,3 +2006,67 @@ def test_w4_decode_goes_through_the_int4_body(card, arch, monkeypatch):
             assert LAUNCHES["quant_matmul_int4"] == LAUNCHES["quant_matmul"]
     torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K2's large-M body (wgmma): bf16 x from wgmma_min_m rows
+# ---------------------------------------------------------------------------
+
+def _wide_shapes(packed):
+    """(M, K, N) the large-M body takes: the vision and whisper cross K/V
+    projections, the threshold and M = 1000 at qwen3-0.6b's gate/up
+    (1024, 3072), a ragged N (int8 1040; packed 1023, odd, 512 bytes a
+    row) and a ragged M (777)."""
+    first = QMO.wgmma_min_m(packed)
+    return [(12808, 4096, 1024), (12000, 512, 512), (first, 1024, 3072),
+            (1000, 1024, 3072), (first, 512, 1023 if packed else 1040),
+            (777, 1024, 1024)]
+
+
+WIDE_CASES = [(packed, i) for packed in (False, True) for i in range(6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed,case", WIDE_CASES,
+                         ids=[f"{'packed' if p else 'int8'}-{i}"
+                              for p, i in WIDE_CASES])
+def test_quant_matmul_wgmma_body_matches_plain(card, packed, case):
+    """The large-M body against the plain version within the unchanged
+    `quant_matmul_tolerance`, one launch counted in
+    ``LAUNCHES["quant_matmul_wgmma"]`` a call, equal to the bit on a rerun;
+    an x view off a 16-byte boundary takes the decode body, and so does
+    one row fewer than the threshold."""
+    M, K, N = _wide_shapes(packed)[case]
+    g = torch.Generator(device=card).manual_seed(M + 7 * K + N)
+    x = torch.randn((M, K), generator=g, device=card).to(torch.bfloat16)
+    q = torch.randint(-8 if packed else -127, 8 if packed else 128, (K, N),
+                      generator=g, device=card, dtype=torch.int8)
+    w = QM.pack_int4(q) if packed else q
+    s = (torch.rand((N,), generator=g, device=card) + 0.1) * 0.01
+    assert QMO.body_for(M, K, N, x.dtype, packed, True) == "wgmma"
+    reset_launches()
+    got = QM.quant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_matmul"] == LAUNCHES["quant_matmul_wgmma"] == 1
+    assert LAUNCHES["quant_matmul_mma"] == 0
+    assert LAUNCHES["quant_matmul_int4"] == int(packed)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    ref = QM.quant_matmul_ref(x, w, s)
+    tol = QM.quant_matmul_tolerance(x, w, s, ref)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    assert torch.equal(got, QM.quant_matmul(x, w, s))
+    assert LAUNCHES["quant_matmul_wgmma"] == 2
+    flat = torch.empty(M * K + 8, dtype=x.dtype, device=card)
+    xu = flat[1:1 + M * K].view(M, K)
+    xu.copy_(x)
+    reset_launches()
+    got_u = QM.quant_matmul(xu, w, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_matmul_mma"] == 1
+    assert LAUNCHES["quant_matmul_wgmma"] == 0
+    assert bool(((got_u.float() - ref.float()).abs() <= tol).all())
+    if M == QMO.wgmma_min_m(packed):
+        reset_launches()
+        QM.quant_matmul(x[1:], w, s)
+        assert LAUNCHES["quant_matmul_wgmma"] == 0
+        assert LAUNCHES["quant_matmul_mma"] == 1

@@ -378,6 +378,32 @@ def test_quant_matmul_tolerance_covers_the_factored_scale(K, N, split,
         assert bool((diff <= tol).all()), float((diff / tol).max())
 
 
+@pytest.mark.parametrize("K", [4096, 512])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_tolerance_covers_the_large_m_order(K, bits):
+    """K2's large-M body (wgmma) sums x q over the whole of K in one
+    float32 accumulator, k16 step after k16 step, and multiplies by s
+    after: `_factored` with one chunk. `quant_matmul_tolerance` holds for
+    bf16 x of 256 rows at the cross projections' K (vision 4096, whisper
+    512), on int8 and on 4-bit values (the packed body's, unpacked)."""
+    r = np.random.default_rng(K + bits)
+    N = 192
+    x = torch.from_numpy(r.normal(size=(256, K)).astype(np.float32)).to(
+        torch.bfloat16)
+    lim = 2 ** (bits - 1)
+    q = torch.from_numpy(r.integers(-lim + (bits == 8), lim,
+                                    (K, N)).astype(np.int8))
+    s = torch.from_numpy(((r.random(N) + 0.1) * 0.01).astype(np.float32))
+    ref = TQM.quant_matmul_ref(x, q, s)
+    tol = TQM.quant_matmul_tolerance(x, q, s, ref)
+    got = _factored(x, q, s, 1)
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+    if bits == 4:   # the packed payload reads as the same values
+        packed = TQM.pack_int4(q)
+        assert torch.equal(TQM.quant_matmul_tolerance(x, packed, s, ref), tol)
+
+
 def test_flash_attention_takes_every_served_head_dim():
     """Fault F3 (repaired): every architecture whose layers the port serves
     with attention has its head_dim among the kernel's (nemotron-4-340b's

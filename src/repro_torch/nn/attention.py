@@ -41,6 +41,10 @@ PyTorch counterpart of `repro.nn.attention`.
 * Cross attention projects the encoder's output (or the patches) again at
   every call, as the JAX package does; its inputs are cast to the model's
   dtype first.
+* While `obs.trace.recording`, the attention core of a self-attention
+  layer (after the projections, before ``wo``: the cache write and the
+  attention itself) is the span ``lm.attn.attend``, MLA's
+  ``lm.mla.attend``.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.nn import layers as L
+from repro_torch.obs import trace as TR
 
 NEG_INF = -2.0e38
 
@@ -237,35 +242,36 @@ def attn_apply(p, x, cfg: ArchConfig, *, mixer: str, cache=None,
         k = L.apply_rope(k, positions, cfg.rope_theta)
     window = cfg.window_size if mixer == "local" else 0
 
-    new_cache = None
-    if cache is not None:
-        S_buf = cache["k"].shape[1]
-        if mixer == "local" and S_buf == cfg.window_size:
-            # the ring buffer: one token a step, written at slot
-            # kv_len mod window and read with each slot's absolute position
-            if T != 1:
-                raise ValueError(f"a ring-buffer cache takes one token a "
-                                 f"step, not {T} (the JAX package's ring "
-                                 f"path mislabels the key positions of "
-                                 f"several: fault C6)")
-            start, valid = kv_len % S_buf, None
-            j = torch.arange(S_buf, dtype=torch.int64, device=x.device)
-            k_pos = kv_len - torch.remainder(kv_len - j, S_buf)
-        elif kv_len + T > S_buf:
-            raise ValueError(f"cache of {S_buf} slots cannot take "
-                             f"{kv_len} + {T} positions")
+    with TR.span("lm.attn.attend"):
+        new_cache = None
+        if cache is not None:
+            S_buf = cache["k"].shape[1]
+            if mixer == "local" and S_buf == cfg.window_size:
+                # the ring buffer: one token a step, written at slot
+                # kv_len mod window and read with each slot's absolute position
+                if T != 1:
+                    raise ValueError(f"a ring-buffer cache takes one token a "
+                                     f"step, not {T} (the JAX package's ring "
+                                     f"path mislabels the key positions of "
+                                     f"several: fault C6)")
+                start, valid = kv_len % S_buf, None
+                j = torch.arange(S_buf, dtype=torch.int64, device=x.device)
+                k_pos = kv_len - torch.remainder(kv_len - j, S_buf)
+            elif kv_len + T > S_buf:
+                raise ValueError(f"cache of {S_buf} slots cannot take "
+                                 f"{kv_len} + {T} positions")
+            else:
+                start, valid, k_pos = kv_len, kv_len + T, None
+            cache["k"][:, start:start + T] = k.to(cache["k"].dtype)
+            cache["v"][:, start:start + T] = v.to(cache["v"].dtype)
+            new_cache = cache
+            o = attend(q, cache["k"], cache["v"], causal=True, window=window,
+                       softcap=cfg.attn_softcap, q_offset=kv_len,
+                       kv_len=valid, k_positions=k_pos,
+                       lowp=cfg.attn_lowp_probs)
         else:
-            start, valid, k_pos = kv_len, kv_len + T, None
-        cache["k"][:, start:start + T] = k.to(cache["k"].dtype)
-        cache["v"][:, start:start + T] = v.to(cache["v"].dtype)
-        new_cache = cache
-        o = attend(q, cache["k"], cache["v"], causal=True, window=window,
-                   softcap=cfg.attn_softcap, q_offset=kv_len,
-                   kv_len=valid, k_positions=k_pos,
-                   lowp=cfg.attn_lowp_probs)
-    else:
-        o = attend(q, k, v, causal=True, window=window,
-                   softcap=cfg.attn_softcap, lowp=cfg.attn_lowp_probs)
+            o = attend(q, k, v, causal=True, window=window,
+                       softcap=cfg.attn_softcap, lowp=cfg.attn_lowp_probs)
     out = L.dense_in3_apply(p["wo"], o, dtype=dt)
     if mixer == "cross":
         out = out + cross_attend(p, x, cfg, enc_out=enc_out,
@@ -375,38 +381,44 @@ def mla_apply(p, x, cfg: ArchConfig, *, cache=None,
     w_uv = L.real(p["w_uv"]["kernel"], dt)
 
     if cache is None:
-        # btc,chk->bthk as one (B T, c) x (c, H k) product: an aten.mm,
-        # which the "dots" remat policy keeps as the reference's keeps this
-        # batchless einsum (torch.einsum would make it a bmm of batch 1)
-        k_nope = (c_kv @ w_uk.reshape(w_uk.shape[0], -1)).reshape(
-            B, T, H, -1)
-        v = (c_kv @ w_uv.reshape(w_uv.shape[0], -1)).reshape(B, T, H, -1)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, qr)],
-                      dim=-1)
-        qf = torch.cat([q_nope, q_rope], dim=-1)
-        o = attend(qf, k, v, causal=True, lowp=cfg.attn_lowp_probs)
+        with TR.span("lm.mla.attend"):
+            # btc,chk->bthk as one (B T, c) x (c, H k) product: an aten.mm,
+            # which the "dots" remat policy keeps as the reference's keeps
+            # this batchless einsum (torch.einsum would make it a bmm of
+            # batch 1)
+            k_nope = (c_kv @ w_uk.reshape(w_uk.shape[0], -1)).reshape(
+                B, T, H, -1)
+            v = (c_kv @ w_uv.reshape(w_uv.shape[0], -1)).reshape(
+                B, T, H, -1)
+            k = torch.cat([k_nope,
+                           k_rope[:, :, None, :].expand(B, T, H, qr)],
+                          dim=-1)
+            qf = torch.cat([q_nope, q_rope], dim=-1)
+            o = attend(qf, k, v, causal=True, lowp=cfg.attn_lowp_probs)
         return L.dense_in3_apply(p["wo"], o, dtype=dt), None
 
     S = cache["c_kv"].shape[1]
     if kv_len + T > S:
         raise ValueError(f"cache of {S} slots cannot take {kv_len} + {T} "
                          f"positions")
-    cache["c_kv"][:, kv_len:kv_len + T] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, kv_len:kv_len + T] = k_rope.to(cache["k_rope"].dtype)
-    ckv = cache["c_kv"].float()
-    ckr = cache["k_rope"].float()
-    # absorb w_uk into q: q' (B,T,H,kv_lora)
-    q_abs = torch.einsum("bthk,chk->bthc", q_nope.float(), w_uk.float())
-    s = (torch.einsum("bthc,bsc->bhts", q_abs, ckv)
-         + torch.einsum("bthr,bsr->bhts", q_rope.float(), ckr)) \
-        * (1.0 / math.sqrt(qk + qr))
-    k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
-    q_pos = torch.arange(T, dtype=torch.int32, device=x.device) + kv_len
-    s = s + _mask_bias(q_pos, k_pos, causal=True, window=0,
-                       kv_len=kv_len + T)
-    pr = torch.softmax(s, dim=-1)
-    o_c = torch.einsum("bhts,bsc->bthc", pr, ckv)
-    o = torch.einsum("bthc,chk->bthk", o_c, w_uv.float())
+    with TR.span("lm.mla.attend"):
+        cache["c_kv"][:, kv_len:kv_len + T] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, kv_len:kv_len + T] = k_rope.to(
+            cache["k_rope"].dtype)
+        ckv = cache["c_kv"].float()
+        ckr = cache["k_rope"].float()
+        # absorb w_uk into q: q' (B,T,H,kv_lora)
+        q_abs = torch.einsum("bthk,chk->bthc", q_nope.float(), w_uk.float())
+        s = (torch.einsum("bthc,bsc->bhts", q_abs, ckv)
+             + torch.einsum("bthr,bsr->bhts", q_rope.float(), ckr)) \
+            * (1.0 / math.sqrt(qk + qr))
+        k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+        q_pos = torch.arange(T, dtype=torch.int32, device=x.device) + kv_len
+        s = s + _mask_bias(q_pos, k_pos, causal=True, window=0,
+                           kv_len=kv_len + T)
+        pr = torch.softmax(s, dim=-1)
+        o_c = torch.einsum("bhts,bsc->bthc", pr, ckv)
+        o = torch.einsum("bthc,chk->bthk", o_c, w_uv.float())
     return L.dense_in3_apply(p["wo"], o.to(x.dtype), dtype=dt), cache
 
 

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.obs import trace as TR
 # the one layout of packed 4-bit payloads, beside K2's plain version
 from repro_torch.kernels.quant_matmul.ref import (  # noqa: F401
     is_packed, pack_int4, packed_width, unpack_int4, weights)
@@ -55,13 +56,15 @@ def dequantize(leaf, dtype) -> torch.Tensor:
 def real(leaf, dtype):
     """A parameter as a tensor: a quantized leaf dequantized to ``dtype``
     (the model's, ``cfg.dtype``, whatever the leaf's type was before
-    quantization), anything else as it is."""
+    quantization) inside the span ``lm.dequant``, anything else as it
+    is."""
     if not is_qleaf(leaf):
         return leaf
     if dtype is None:
         raise ValueError("a quantized parameter is read in the model's "
                          "dtype, and none was given")
-    return dequantize(leaf, torch_dtype(dtype))
+    with TR.span("lm.dequant"):
+        return dequantize(leaf, torch_dtype(dtype))
 
 
 # ---------------------------------------------------------------------------

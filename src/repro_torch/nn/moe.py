@@ -22,6 +22,14 @@ float32 in every model, and the shared expert's products go through
 `layers.mlp_apply` (kernel K2 when quantized). The expert products are
 plain ``torch.bmm``: the JAX package computes them outside any Pallas
 kernel.
+
+While `obs.trace.recording`, the layer opens the spans ``lm.moe.route``,
+``lm.moe.dispatch``, ``lm.moe.experts``, ``lm.moe.combine`` and
+``lm.moe.shared``, and `route_tokens` counts the (token, choice) pairs
+routed (``moe.pairs``, S k), the capacity rows the experts run over
+(``moe.slots``, E C) and the pairs kept (``moe.pairs_kept``, a device
+count read only when the counter is). While the torch profiler records,
+``lm.moe.backward`` times the layer's backward pass.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.nn import layers as L
+from repro_torch.obs import metrics as MT
+from repro_torch.obs import trace as TR
 
 
 def moe_init(generator: torch.Generator, cfg: ArchConfig, dtype, *,
@@ -83,18 +93,24 @@ def route_tokens(p, xf: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
     S = xf.shape[0]
     E, k = m.num_experts, m.top_k
     C = max(1, int(math.ceil(S * k / E * m.capacity_factor)))
-    logits = xf.float() @ L.real(p["router"]["kernel"], cfg.dtype).float()
-    topw, topi, aux = _route(logits, m)
-    dev = xf.device
-    flat_e = topi.reshape(-1)
-    order = torch.sort(flat_e, stable=True).indices
-    se = flat_e[order]
-    st = torch.arange(S, device=dev).repeat_interleave(k)[order]
-    sw = topw.reshape(-1)[order]
-    starts = torch.searchsorted(se, torch.arange(E, device=dev))
-    pos = torch.arange(S * k, device=dev) - starts[se]
-    keep = pos < C
-    slot = torch.where(keep, se * C + pos, E * C)
+    with TR.span("lm.moe.route", S=S, E=E, k=k, C=C):
+        logits = xf.float() @ L.real(p["router"]["kernel"],
+                                     cfg.dtype).float()
+        topw, topi, aux = _route(logits, m)
+        dev = xf.device
+        flat_e = topi.reshape(-1)
+        order = torch.sort(flat_e, stable=True).indices
+        se = flat_e[order]
+        st = torch.arange(S, device=dev).repeat_interleave(k)[order]
+        sw = topw.reshape(-1)[order]
+        starts = torch.searchsorted(se, torch.arange(E, device=dev))
+        pos = torch.arange(S * k, device=dev) - starts[se]
+        keep = pos < C
+        slot = torch.where(keep, se * C + pos, E * C)
+    if TR.recording():
+        MT.counter("moe.pairs").inc(S * k)
+        MT.counter("moe.slots").inc(E * C)
+        MT.counter("moe.pairs_kept").inc(keep.sum())
     return dict(topw=topw, topi=topi, aux=aux, C=C, st=st, sw=sw,
                 slot=slot, keep=keep, order=order)
 
@@ -106,22 +122,26 @@ def _moe_tokens(p, xf: torch.Tensor, cfg: ArchConfig):
     dt = cfg.dtype
     r = route_tokens(p, xf, cfg)
     C, st, slot = r["C"], r["st"], r["slot"]
-    # gather tokens into capacity buffers (the extra row swallows overflow)
-    buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
-    buf[slot] = xf[st]
-    buf = buf[:E * C].reshape(E, C, d)
+    with TR.span("lm.moe.dispatch"):
+        # gather tokens into capacity buffers (the extra row swallows
+        # overflow)
+        buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
+        buf[slot] = xf[st]
+        buf = buf[:E * C].reshape(E, C, d)
 
-    ex = p["experts"]
-    g = F.silu(torch.bmm(buf, L.real(ex["wi_gate"], dt)))
-    u = torch.bmm(buf, L.real(ex["wi_up"], dt))
-    y = torch.bmm(g * u, L.real(ex["wo"], dt)).reshape(E * C, d)
+    with TR.span("lm.moe.experts"):
+        ex = p["experts"]
+        g = F.silu(torch.bmm(buf, L.real(ex["wi_gate"], dt)))
+        u = torch.bmm(buf, L.real(ex["wi_up"], dt))
+        y = torch.bmm(g * u, L.real(ex["wo"], dt)).reshape(E * C, d)
 
-    w = (r["sw"] * r["keep"].to(r["sw"].dtype))[:, None].to(y.dtype)
-    contrib = y[torch.clamp_max(slot, E * C - 1)] * w
-    # back to (token, choice) order, then each token's k choices summed
-    pairs = torch.empty_like(contrib)
-    pairs[r["order"]] = contrib
-    out = pairs.reshape(S, -1, d).sum(dim=1)
+    with TR.span("lm.moe.combine"):
+        w = (r["sw"] * r["keep"].to(r["sw"].dtype))[:, None].to(y.dtype)
+        contrib = y[torch.clamp_max(slot, E * C - 1)] * w
+        # back to (token, choice) order, then each token's k choices summed
+        pairs = torch.empty_like(contrib)
+        pairs[r["order"]] = contrib
+        out = pairs.reshape(S, -1, d).sum(dim=1)
     return out.to(xf.dtype), r["aux"]
 
 
@@ -133,6 +153,8 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig):
     dispatch="global" routes all B*T tokens as one block."""
     m: MoEConfig = cfg.moe
     B, T, d = x.shape
+    bwd = TR.backward_span("lm.moe.backward", x)
+    x = bwd.inputs(x)
     if m.dispatch == "per_sample" and B > 1:
         outs, auxes = zip(*(_moe_tokens(p, x[b], cfg) for b in range(B)))
         out, aux = torch.stack(outs), torch.stack(auxes).mean()
@@ -140,5 +162,7 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig):
         out, aux = _moe_tokens(p, x.reshape(B * T, d), cfg)
         out = out.reshape(B, T, d)
     if "shared" in p:
-        out = out + L.mlp_apply(p["shared"], x, "swiglu", dtype=cfg.dtype)
-    return out, aux
+        with TR.span("lm.moe.shared"):
+            out = out + L.mlp_apply(p["shared"], x, "swiglu",
+                                    dtype=cfg.dtype)
+    return bwd.outputs(out), aux

@@ -43,6 +43,7 @@ from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
 from repro_torch.nn import rglru as R
 from repro_torch.nn import ssm as S
+from repro_torch.obs import trace as TR
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +96,19 @@ def _block_apply(p, x, cfg: ArchConfig, spec: LayerSpec, *, cache=None,
                  kv_len=None, enc_out=None):
     """Returns (x, new_cache, aux); aux is the router's loss of an MoE
     FFN, else None. ``enc_out``: the cross-attention context of a "cross"
-    block."""
+    block. The block is the span ``lm.block``, its backward pass
+    ``lm.block.backward``; under remat the recompute opens ``lm.block``
+    again inside the backward pass."""
+    bwd = TR.backward_span("lm.block.backward", x)
+    with TR.span("lm.block", mixer=spec.mixer, ffn=spec.ffn):
+        x, new_cache, aux = _block_body(p, bwd.inputs(x), cfg, spec,
+                                        cache=cache, kv_len=kv_len,
+                                        enc_out=enc_out)
+    return bwd.outputs(x), new_cache, aux
+
+
+def _block_body(p, x, cfg: ArchConfig, spec: LayerSpec, *, cache, kv_len,
+                enc_out):
     h = _norm(p["norm1"], x, cfg)
     if spec.mixer in ("attn", "local"):
         if cfg.mla is not None:
@@ -319,18 +332,24 @@ def _embed_tokens(p, tokens, cfg: ArchConfig, offset=None):
 
 
 def _lm_head(p, x, cfg: ArchConfig):
-    if cfg.tie_embeddings:
-        table = p["embed"]["table"]
-        if L.is_qleaf(table):
-            # The tied head contracts over the table's quantized axis, which
-            # K2's per-output-column scales cannot express: the table is
-            # dequantized and the product is one torch.matmul, as the JAX
-            # package leaves this product to XLA outside any Pallas kernel.
-            table = L.dequantize(table, x.dtype)
-        logits = torch.matmul(x, table.t())
-    else:
-        logits = L.dense_apply(p["lm_head"], x, dtype=cfg.dtype)
-    return L.softcap(logits.float(), cfg.logit_softcap)
+    """The head's product, cast to float32 and softcapped: the span
+    ``lm.head``, its backward pass ``lm.head.backward``."""
+    bwd = TR.backward_span("lm.head.backward", x)
+    x = bwd.inputs(x)
+    with TR.span("lm.head"):
+        if cfg.tie_embeddings:
+            table = p["embed"]["table"]
+            if L.is_qleaf(table):
+                # The tied head contracts over the table's quantized axis,
+                # which K2's per-output-column scales cannot express: the
+                # table is dequantized and the product is one torch.matmul,
+                # as the JAX package leaves this product to XLA outside any
+                # Pallas kernel.
+                table = L.dequantize(table, x.dtype)
+            logits = torch.matmul(x, table.t())
+        else:
+            logits = L.dense_apply(p["lm_head"], x, dtype=cfg.dtype)
+        return bwd.outputs(L.softcap(logits.float(), cfg.logit_softcap))
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,

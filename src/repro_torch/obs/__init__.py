@@ -1,9 +1,15 @@
-"""Search-runtime observability: ambient tracing, metrics, the executable
-observatory and run reports, all zero-cost when off (the ``REPRO_TRACE``
-idiom, mirroring ``REPRO_VERIFY``).
+"""Observability of the search runtime and of the LM path: ambient tracing,
+metrics, the executable observatory and run reports, all zero-cost when off
+(the ``REPRO_TRACE`` idiom, mirroring ``REPRO_VERIFY``).
 
-* `repro_torch.obs.trace` — nestable host-side spans and structured
-  events, appended as torn-write-safe JSONL;
+* `repro_torch.obs.trace` — nestable spans and structured events,
+  appended as torn-write-safe JSONL; while `torch.profiler` records, each
+  span is also a range in the profiler's trace and is timed on the device
+  (`trace.SPANS`). The model layer (`repro_torch.nn`: blocks, MLA and GQA
+  attention, the MoE's routing, dispatch, experts and combine,
+  dequantization, the LM head) and the optimizer open spans, and the MoE
+  counts its routed, kept and capacity pairs, only while
+  `trace.recording`;
 * `repro_torch.obs.metrics` — the process-wide counter/gauge/histogram
   registry, snapshotted into every search checkpoint and restored
   bit-identically on resume;
@@ -28,8 +34,8 @@ either package's trace.
 from repro_torch.obs import metrics, prof, xprof
 from repro_torch.obs.ring import RingLog
 from repro_torch.obs.trace import (active, capture, event, first_call,
-                                   read_trace, span, start, stop)
+                                   read_trace, recording, span, start, stop)
 
 __all__ = ["RingLog", "active", "capture", "event", "first_call",
-           "metrics", "prof", "read_trace", "span", "start", "stop",
-           "xprof"]
+           "metrics", "prof", "read_trace", "recording", "span", "start",
+           "stop", "xprof"]

@@ -12,7 +12,10 @@ Determinism contract (the checkpoint/resume invariant):
   ejections, migrations). `search.runtime.SearchRuntime` snapshots the
   registry into every checkpoint and ``resume()`` restores it, so a
   preempted+resumed search finishes with counters **bit-identical** to the
-  uninterrupted run's (tested).
+  uninterrupted run's (tested). A counter may also take a 0-dim tensor
+  increment (a count the device computed, such as the MoE's kept
+  routing pairs): it stays on the device, nothing waits for it, and it is
+  folded into the exact int with one ``.item()`` when the value is read.
 * **gauges** and **histograms** may hold wall-clock and byte sizes
   (checkpoint write ms/bytes, flush times) — real measurements that
   legitimately differ between a preempted and an uninterrupted run. They
@@ -28,21 +31,50 @@ Snapshot layout (JSON-able, keys sorted — byte-stable for equal states)::
 """
 from __future__ import annotations
 
+import numbers
 import threading
 from typing import Dict, Optional
 
 _LOCK = threading.Lock()
 
 
+# device increments a counter holds before it sums them on the device
+PENDING_MAX = 1024
+
+
 class Counter:
-    """Monotone integer counter."""
-    __slots__ = ("value",)
+    """Monotone integer counter. ``inc`` takes an int, or a 0-dim integer
+    tensor that is held where it lives and folded into ``value`` on read."""
+    __slots__ = ("_value", "_pending")
 
     def __init__(self):
-        self.value = 0
+        self._value = 0
+        self._pending: list = []
 
-    def inc(self, n: int = 1) -> None:
-        self.value += int(n)
+    def inc(self, n=1) -> None:
+        if isinstance(n, numbers.Integral):
+            self._value += int(n)
+            return
+        self._pending.append(n)
+        if len(self._pending) >= PENDING_MAX:   # summed on the device, no wait
+            self._pending = [_device_sum(self._pending)]
+
+    @property
+    def value(self) -> int:
+        if self._pending:
+            pending, self._pending = self._pending, []
+            self._value += int(_device_sum(pending).item())
+        return self._value
+
+    @value.setter
+    def value(self, v: int) -> None:
+        self._pending = []
+        self._value = int(v)
+
+
+def _device_sum(ts: list):
+    import torch
+    return torch.stack([t.reshape(()) for t in ts]).sum()
 
 
 class Gauge:

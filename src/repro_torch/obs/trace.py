@@ -26,6 +26,19 @@ Span records carry ``ts`` (seconds since the tracer's ``start_unix``,
 monotonic clock), ``dur``, ``depth`` (per-thread nesting), ``attrs``, and
 ``error`` (exception class name) when the body raised — the span is
 emitted either way and the exception propagates untouched.
+
+A span has a second sink: while `torch.profiler` records (the
+``torch.autograd.profiler._is_profiler_enabled`` flag), :func:`span` also
+opens a range of the span's name in the profiler's trace, beside the
+kernels it launches and on the profiler's clock, and :data:`SPANS` times
+it on the device (:class:`SpanClock`). The range is a plain
+``RecordFunction`` and not a ``record_function`` user annotation: Kineto
+copies a user annotation onto the device's timeline as an interval of its
+own, which a reader of device intervals would count as device work.
+:func:`backward_span` times the backward pass of a region. Neither
+sink on, :func:`span` returns a shared no-op after one global load and
+one flag check; :func:`recording` is that test, and the model layer's
+counters (`repro_torch.nn.moe`) gate on it too.
 """
 from __future__ import annotations
 
@@ -35,7 +48,12 @@ import os
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+# a range in the profiler's trace that Kineto does not copy onto the device
+from torch._C._profiler import _RecordFunctionFast as _Range
+from torch.autograd import profiler as _AP
 
 ENV_FLAG = "REPRO_TRACE"
 
@@ -121,9 +139,10 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_t", "name", "attrs", "_start", "_depth")
+    __slots__ = ("_t", "name", "attrs", "_start", "_depth", "_mark")
 
-    def __init__(self, tracer: Tracer, name: str, attrs: Dict[str, Any]):
+    def __init__(self, tracer: Optional[Tracer], name: str,
+                 attrs: Dict[str, Any]):
         self._t = tracer
         self.name = name
         self.attrs = attrs
@@ -134,15 +153,24 @@ class _Span:
         return self
 
     def __enter__(self):
-        st = self._t._depth_stack()
-        self._depth = len(st)
-        st.append(self.name)
-        self._start = self._t.now()
+        t = self._t
+        if t is not None:
+            st = t._depth_stack()
+            self._depth = len(st)
+            st.append(self.name)
+            self._start = t.now()
+        self._mark = SPANS.open(self.name) if _AP._is_profiler_enabled \
+            else None
         return self
 
     def __exit__(self, etype, evalue, tb):
-        dur = self._t.now() - self._start
-        st = self._t._depth_stack()
+        if self._mark is not None:
+            SPANS.close(self._mark)
+        t = self._t
+        if t is None:
+            return False
+        dur = t.now() - self._start
+        st = t._depth_stack()
         if st and st[-1] == self.name:
             st.pop()
         rec = {"kind": "span", "name": self.name,
@@ -152,8 +180,200 @@ class _Span:
             rec["attrs"] = self.attrs
         if etype is not None:
             rec["error"] = etype.__name__
-        self._t._emit(rec)
+        t._emit(rec)
         return False                        # exceptions propagate untouched
+
+
+# ---------------------------------------------------------------------------
+# the profiler's sink: ranges in its trace, device time by span
+# ---------------------------------------------------------------------------
+
+
+_streams = threading.local()
+
+
+def _current_stream():
+    """The thread's current CUDA stream, looked up again only when its
+    handle changes: `torch.cuda.current_stream` costs more than an event's
+    record under the profiler."""
+    raw = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    held = getattr(_streams, "held", None)
+    if held is None or held[0] != raw:
+        held = _streams.held = (raw, torch.cuda.current_stream())
+    return held[1]
+
+
+def _clock():
+    """A mark on the device's timeline: a CUDA event recorded on the
+    current stream once CUDA is in use, else the host clock (CPU work is
+    synchronous)."""
+    if torch.cuda.is_initialized():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(_current_stream())
+        return ev
+    return time.perf_counter_ns()
+
+
+def _elapsed(a, b) -> float:
+    if isinstance(a, int):
+        return (b - a) * 1e-9
+    b.synchronize()
+    return a.elapsed_time(b) * 1e-3
+
+
+class _Mark:
+    """One span's interval on the device, and the time of its children."""
+    __slots__ = ("name", "parent", "range", "t0", "t1", "dur", "kids")
+
+    def __init__(self, name: str, parent: Optional["_Mark"]):
+        self.name, self.parent = name, parent
+        self.range = self.t1 = None
+        self.dur = self.kids = 0.0
+
+
+class SpanClock:
+    """Device time of the spans opened while the torch profiler records.
+
+    Each span is timed between two marks on the device's timeline (CUDA
+    events, nothing synchronised while it runs): from the moment the card
+    reaches the span's first operation to the moment it finishes its last,
+    which is the device time of the span's kernels where the card never
+    waits for the host inside it. Spans nest per thread; a span's self
+    time is its time less its children's. :meth:`totals` waits for the
+    device to pass every closed span's end and folds them into per-name
+    sums."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._closed: List[_Mark] = []
+        self._totals: Dict[str, List[float]] = {}
+
+    def _stack(self) -> List[_Mark]:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def open(self, name: str) -> _Mark:
+        st = self._stack()
+        m = _Mark(name, st[-1] if st else None)
+        m.range = _Range(name)
+        m.range.__enter__()
+        m.t0 = _clock()
+        st.append(m)
+        return m
+
+    def close(self, m: _Mark) -> None:
+        m.t1 = _clock()
+        st = self._stack()
+        if st and st[-1] is m:
+            st.pop()
+        elif m in st:
+            st.remove(m)
+        m.range.__exit__(None, None, None)
+        with self._lock:
+            self._closed.append(m)
+
+    def totals(self) -> Dict[str, Dict[str, float]]:
+        """{name: {"calls", "s", "self_s", "root_s"}} over every span
+        closed since the last :meth:`reset`, device seconds; ``root_s`` is
+        the time of its calls inside no other span."""
+        with self._lock:
+            closed, self._closed = self._closed, []
+            for m in closed:
+                m.dur = _elapsed(m.t0, m.t1)
+            for m in closed:        # a child closes before its parent
+                if m.parent is not None:
+                    m.parent.kids += m.dur
+            for m in closed:
+                acc = self._totals.setdefault(m.name, [0, 0.0, 0.0, 0.0])
+                acc[0] += 1
+                acc[1] += m.dur
+                acc[2] += m.dur - m.kids
+                if m.parent is None:
+                    acc[3] += m.dur
+            return {k: {"calls": int(v[0]), "s": v[1], "self_s": v[2],
+                        "root_s": v[3]}
+                    for k, v in sorted(self._totals.items())}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._closed.clear()
+            self._totals.clear()
+
+
+# the process-wide clock of the profiler's sink
+SPANS = SpanClock()
+
+
+class _BackwardMark(torch.autograd.Function):
+    """Identity whose backward calls ``hook``: a boundary of a region's
+    backward pass."""
+
+    @staticmethod
+    def forward(ctx, x, hook):
+        ctx.hook = hook
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.hook()
+        return g, None
+
+
+class _BackwardSpan:
+    __slots__ = ("name", "_mark")
+
+    def __init__(self, name: str):
+        self.name, self._mark = name, None
+
+    def inputs(self, x):
+        """Mark the region's input: its gradient closes the span."""
+        return _BackwardMark.apply(x, self._close)
+
+    def outputs(self, y):
+        """Mark the region's output: its gradient opens the span."""
+        return _BackwardMark.apply(y, self._open)
+
+    def _open(self):
+        if _AP._is_profiler_enabled:
+            self._mark = SPANS.open(self.name)
+
+    def _close(self):
+        if self._mark is not None:
+            SPANS.close(self._mark)
+            self._mark = None
+
+
+class _NullBackwardSpan:
+    __slots__ = ()
+
+    @staticmethod
+    def inputs(x):
+        return x
+
+    @staticmethod
+    def outputs(y):
+        return y
+
+
+_NULL_BACKWARD = _NullBackwardSpan()
+
+
+def backward_span(name: str, x):
+    """A span over the backward pass of a region whose input is ``x``:
+    ``bw = backward_span(name, x); x = bw.inputs(x); ...; y =
+    bw.outputs(y)``. It opens when the gradient reaches ``y`` and closes
+    when it reaches ``x``, on the autograd engine's thread; work the
+    backward pass runs again inside it (remat's recompute) is its
+    children's, so its self time is the region's backward alone. Only
+    while the torch profiler records and ``x`` takes a gradient, else a
+    no-op that returns its arguments."""
+    if not (_AP._is_profiler_enabled and x.requires_grad
+            and torch.is_grad_enabled()):
+        return _NULL_BACKWARD
+    return _BackwardSpan(name)
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +388,10 @@ def active() -> bool:
     return _tracer is not None
 
 
-def tracing_to() -> Optional[Path]:
-    return _tracer.path if _tracer is not None else None
+def recording() -> bool:
+    """Does a span land anywhere: a JSONL tracer installed, or the torch
+    profiler recording. One global load and one flag check."""
+    return _tracer is not None or _AP._is_profiler_enabled
 
 
 def start(path=None) -> Tracer:
@@ -205,9 +427,11 @@ def default_path() -> Path:
 
 
 def span(name: str, **attrs):
-    """Context manager timing one host-side region. Zero-cost when off."""
+    """Context manager timing one region: host-side into the JSONL tracer,
+    and a range and device time while the torch profiler records.
+    Zero-cost when neither is on."""
     t = _tracer
-    if t is None:
+    if t is None and not _AP._is_profiler_enabled:
         return _NULL_SPAN
     return _Span(t, name, attrs)
 
@@ -298,6 +522,6 @@ def _ambient_init() -> None:
 _ambient_init()
 
 
-__all__ = ["ENV_FLAG", "Tracer", "active", "capture", "default_path",
-           "event", "first_call", "flush", "read_trace", "span", "start",
-           "stop", "tracing_to"]
+__all__ = ["ENV_FLAG", "SPANS", "SpanClock", "Tracer", "active",
+           "backward_span", "capture", "default_path", "event", "first_call",
+           "flush", "read_trace", "recording", "span", "start", "stop"]

@@ -7,8 +7,10 @@ the port has the same thing:
   kernel library (`repro_torch.kernels.build.build_many`). After each
   library it builds, ``build_many`` calls :func:`on_build`, which fans
   ``(seconds, aot)`` out to the sinks of :func:`add_sink` /
-  :func:`count_compiles` (``aot`` is False unless the build ran inside
-  :func:`aot_scope`; nothing in the port builds there). Each build is also
+  :func:`count_compiles`. ``aot`` is always False: the reference's
+  profiler-initiated compiles have no counterpart, since every build of
+  the port is triggered by a dispatch; the sinks and the registry keep the
+  field for the reference's schema. Each build is also
   held, by library name, until a profiled dispatch of a site that runs that
   library takes it (:func:`take_builds`): one library serves every shape
   of its kernel, and chip runs build all of them up front, before any trace
@@ -47,13 +49,8 @@ EVENT_COMPILE = "/repro_torch/kernels/build/nvcc_duration"
 
 _lock = threading.Lock()
 _sinks: List[Callable[[float, bool], None]] = []
-_aot = threading.local()            # .depth > 0 => profiler-initiated
 # library name -> nvcc seconds of builds no profiled dispatch has taken yet
 _pending: Dict[str, List[float]] = {}
-
-
-def _in_aot_scope() -> bool:
-    return getattr(_aot, "depth", 0) > 0
 
 
 def on_build(name: str, seconds: float) -> None:
@@ -61,9 +58,8 @@ def on_build(name: str, seconds: float) -> None:
     with _lock:
         _pending.setdefault(name, []).append(float(seconds))
         sinks = list(_sinks)
-    aot = _in_aot_scope()
     for sink in sinks:
-        sink(float(seconds), aot)
+        sink(float(seconds), False)
 
 
 def take_builds(name: str) -> List[float]:
@@ -85,19 +81,6 @@ def remove_sink(sink: Callable[[float, bool], None]) -> None:
     with _lock:
         if sink in _sinks:
             _sinks.remove(sink)
-
-
-class aot_scope:
-    """``with aot_scope():`` — builds inside are profiler-initiated and
-    reach sinks with ``aot=True``."""
-
-    def __enter__(self):
-        _aot.depth = getattr(_aot, "depth", 0) + 1
-        return self
-
-    def __exit__(self, *exc):
-        _aot.depth -= 1
-        return False
 
 
 class CompileCount:
@@ -194,10 +177,6 @@ def capture_executable(site: str, args: Sequence = (), *,
     return out
 
 
-def backend() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
-__all__ = ["EVENT_COMPILE", "CompileCount", "add_sink", "aot_scope",
-           "backend", "capture_executable", "count_compiles", "on_build",
+__all__ = ["EVENT_COMPILE", "CompileCount", "add_sink",
+           "capture_executable", "count_compiles", "on_build",
            "remove_sink", "signature_hash", "take_builds"]

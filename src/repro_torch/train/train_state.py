@@ -8,7 +8,8 @@ backward kernel. The caller hands the step its state, as the reference's
 dry run donates it to ``jax.jit``: the step writes the new parameters and
 moments into the old state's tensors (`optimizer.adamw_update_`, the bits
 of the functional `optimizer.adamw_update`), so 12 bytes a bf16 parameter
-stay resident through the update instead of about 28.
+stay resident through the update instead of about 28. The update is the
+span ``train.optimizer``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import transformer as T
+from repro_torch.obs import trace as TR
 from repro_torch.train import losses
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState, adamw_init,
                                          adamw_update_, tree_leaves,
@@ -108,7 +110,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         loss, grads = grads_of(state.params, batch)
-        with torch.no_grad():
+        with torch.no_grad(), TR.span("train.optimizer"):
             params, opt, metrics = adamw_update_(opt_cfg, grads, state.opt,
                                                  state.params)
         return TrainState(params, opt), dict(metrics, loss=loss)

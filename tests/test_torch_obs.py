@@ -5,7 +5,9 @@ the instrumentation the ported paths carry under the reference's names.
 * The port's report renders the two committed traces byte-equal to their
   golden reports, and its CLI writes the CSVs.
 * Off path: with tracing off, no tracer is constructed and the executable
-  registry is never touched.
+  registry is never touched, and a deepseek-v2-shaped forward and decode
+  (MLA, MoE, w8 stacks) open no span or profiler range and touch no
+  counter.
 * `run_nsga2` under tracing emits the reference's ``ga.*`` records, equal
   once ``ts`` and ``dur`` are dropped, and the same ``ga.generations``.
 * `evaluate_population` on ``seeds``, with the reference's pretrained
@@ -32,6 +34,7 @@ if not hasattr(jax.experimental, "enable_x64"):
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from repro.configs.printed_mlp import PRINTED_MLPS  # noqa: E402
 from repro.core import batch_eval as RBE  # noqa: E402
@@ -40,6 +43,7 @@ from repro.core import minimize as RMZ  # noqa: E402
 from repro.core.compression_spec import ModelMin as RM  # noqa: E402
 from repro.obs import metrics as RMT  # noqa: E402
 from repro.obs import trace as RTR  # noqa: E402
+from repro_torch.configs import ARCHS as T_ARCHS  # noqa: E402
 from repro_torch.configs.printed_mlp import \
     PRINTED_MLPS as T_PRINTED_MLPS  # noqa: E402
 from repro_torch.core import batch_eval as TBE  # noqa: E402
@@ -47,12 +51,14 @@ from repro_torch.core import ga as TGA  # noqa: E402
 from repro_torch.core import minimize as TMZ  # noqa: E402
 from repro_torch.core.compression_spec import ModelMin as TM  # noqa: E402
 from repro_torch.nn import mlp as TMLP  # noqa: E402
+from repro_torch.nn import transformer as TT  # noqa: E402
 from repro_torch.obs import RingLog  # noqa: E402
 from repro_torch.obs import metrics as MT  # noqa: E402
 from repro_torch.obs import prof as PF  # noqa: E402
 from repro_torch.obs import report  # noqa: E402
 from repro_torch.obs import trace as TR  # noqa: E402
 from repro_torch.obs import xprof  # noqa: E402
+from repro_torch.serve import quantized as TQ  # noqa: E402
 
 DATA = Path(__file__).resolve().parent / "data"
 EPOCHS = 3
@@ -160,6 +166,19 @@ def _seeds_specs(ModelMin):
             for b, s in ((4, 0.0), (3, 0.2), (5, 0.4))]
 
 
+def _mla_moe_forward():
+    """A deepseek-v2-shaped forward (MLA, MoE with shared experts, w8
+    expert stacks) and decode step at tiny widths."""
+    cfg = T_ARCHS["deepseek-v2-236b"].reduced(d_model=128)
+    params = TT.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    q = TQ.quantize_params(params, 8)
+    tok = torch.randint(0, cfg.vocab_size, (2, 8),
+                        generator=torch.Generator().manual_seed(1))
+    TT.forward(params, {"tokens": tok}, cfg, remat=False)
+    state = TT.init_decode_state(cfg, 2, 16, cfg.dtype, device="cpu")
+    TT.decode_step(q, state, tok, cfg)
+
+
 def test_off_path_touches_neither_tracer_nor_registry(monkeypatch):
     constructed, calls = [], []
     init = TR.Tracer.__init__
@@ -180,7 +199,14 @@ def test_off_path_touches_neither_tracer_nor_registry(monkeypatch):
                                 epochs=1, device="cpu")
         TGA.run_nsga2(2, _synthetic, TGA.GAConfig(population=4,
                                                   generations=2, seed=1))
-    assert constructed == [] and calls == []
+        # the LM path: no span, profiler range, device mark or counter
+        lm = []
+        monkeypatch.setattr(TR, "_Span", lambda *a: lm.append(a))
+        monkeypatch.setattr(TR, "_Range", lambda *a: lm.append(a))
+        monkeypatch.setattr(TR.SPANS, "open", lambda *a: lm.append(a))
+        monkeypatch.setattr(MT, "counter", lambda *a: lm.append(a))
+        _mla_moe_forward()
+    assert constructed == [] and calls == [] and lm == []
     assert PF.REGISTRY.executables == {}
     assert PF.REGISTRY.compiles == 0 and PF.REGISTRY.aot_compiles == 0
 

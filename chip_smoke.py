@@ -200,8 +200,11 @@ Phases, each fatal on failure, each with its seconds printed:
    routing replayed; K5 at MLA's shape through ``attend`` and alone, SDPA
    on v at 128 beside it; MLA's absorbed decode against the last position
    of a prefill over the same tokens (layer 0 alone); the dense engine;
-   the w8 decode (K2 33 a step; the bf16 weights freed first, as the step
-   dequantizes the expert stacks);
+   the w8 decode (K2 33 a step and its expert body 9, the three expert
+   products of each MoE layer on the int8 stacks; the bf16 weights freed
+   first); K2's expert body at deepseek-v2's stack shapes (`EXPERT_STACKS`)
+   against its plain version, its device time beside its bound, the plain
+   version's and ``torch.bmm`` on the dequantized bf16 stack;
 32. whisper-base at full width and depth, every ``cross_gate`` set to 0.5
    (0 at init would drop the cross sublayer): the encoder over 4 x 1500
    seeded frames (K5 6 launches, non-causal) against K5's plain version; the
@@ -3692,6 +3695,90 @@ SERVING_PARAMS = {"gemma2-2b": (2614341888, 2614341888),
                   "llama-3.2-vision-11b": (10110734344, 10110734344)}
 
 
+# deepseek-v2's expert stacks, E x (K, N): the gate and up products and the
+# down product; C rows an expert at the decode's batch of 128 (160 experts,
+# top 6, capacity factor 1.25) and at the cache fill's 8 prompts of 512
+# tokens a call
+EXPERT_STACKS = (160, ((5120, 1536), (1536, 5120)), (6, 192))
+
+
+def expert_products(n: int, card: str, dev):
+    """K2's expert body at deepseek-v2's stack shapes (`EXPERT_STACKS`,
+    w8, bf16 x): one launch a product, held against its plain version
+    expert by expert within `quant_matmul_tolerance`; its device time from
+    a CUDA graph beside its bound (`experts_cost` at the HBM and the bf16
+    tensor-core rates), the plain version's (CUDA events),
+    ``torch.bmm`` on the bf16 stack dequantized (the library yardstick)
+    and the dequantization plus that ``bmm`` (the path it replaces).
+    Returns them by shape."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels.quant_matmul.ops import experts_cost
+    from repro_torch.nn import layers as L
+
+    E, stacks, rows = EXPERT_STACKS
+    gen = torch.Generator(device=dev).manual_seed(n)
+    out = {}
+    for K, N in stacks:
+        leaf = {"q": torch.randint(-127, 128, (E, K, N), generator=gen,
+                                   device=dev, dtype=torch.int8),
+                "scale": (torch.rand((N,), generator=gen, device=dev)
+                          + 0.1) * 0.01}
+        q, s = leaf["q"], leaf["scale"]
+        wb = L.dequantize(leaf, torch.bfloat16)
+        for C in rows:
+            x = torch.randn((E, C, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            reset_launches()
+            y = QM.quant_matmul_experts(x, q, s)
+            torch.cuda.synchronize()
+            check(LAUNCHES["quant_matmul_experts"] == 1
+                  and LAUNCHES["quant_matmul_mma"] == 1
+                  and LAUNCHES["quant_matmul"] == 0,
+                  f"K2's expert body at {(E, C, K, N)}: launches "
+                  f"{dict(LAUNCHES)}")
+            ref = QM.quant_matmul_experts_ref(x, q, s)
+            share = 0.0
+            for e in range(E):
+                tol = QM.quant_matmul_tolerance(x[e], q[e], s, ref[e])
+                err = (y[e].float() - ref[e].float()).abs()
+                check(bool((err <= tol).all()), f"K2's expert body at "
+                      f"{(E, C, K, N)}, expert {e}, differs from the plain "
+                      f"version beyond the bound")
+                share = max(share, float((err / tol).max()))
+            ops, nbytes = experts_cost(E, C, K, N, 2)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / BF16_TENSOR_FLOPS * 1e3
+            res = {"shape": f"E {E}, C {C}, K {K}, N {N}, bf16 x, w8",
+                   "ms": _graph_ms(lambda a: QM.quant_matmul_experts(a, q, s),
+                                   [(x,)], reps=20),
+                   "library_ms": _graph_ms(lambda a: torch.bmm(a, wb),
+                                           [(x,)], reps=20),
+                   "replaced_ms": _graph_ms(lambda a: torch.bmm(
+                       a, L.dequantize(leaf, torch.bfloat16)), [(x,)],
+                       reps=5),
+                   "plain_ms": event_ms(
+                       lambda: QM.quant_matmul_experts_ref(x, q, s), reps=2,
+                       warmup=1),
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations",
+                   "worst_share_of_tolerance": share}
+            print(f"[{n}] {card}: K2's expert body ({res['shape']}): "
+                  f"{res['ms']:.4f} ms on the device, bound "
+                  f"{res['bound_ms']:.4f} ({res['bound_by']}; "
+                  f"{res['bound_ms'] / res['ms']:.3f} of it), torch.bmm on "
+                  f"the dequantized bf16 stack {res['library_ms']:.4f}, "
+                  f"dequantization and bmm (the path replaced) "
+                  f"{res['replaced_ms']:.4f}, plain {res['plain_ms']:.4f}; "
+                  f"worst share of the tolerance {share:.3f}")
+            out[f"{K}x{N} C {C}"] = res
+            del x, y, ref
+        del leaf, q, s, wb
+    return out
+
+
 def n_mixers(cfg, mixer: str) -> int:
     """The layers of ``cfg`` whose mixer is ``mixer``."""
     return sum(s.mixer == mixer for seg in cfg.segments
@@ -3872,15 +3959,17 @@ def serving_steps(card: str, dev, gen, out):
         return batch, routes, prefill_s
 
     def w8_decode(n, name, cfg, qparams, per_step, bound, enc_out=None,
-                  replay_routing=False):
+                  replay_routing=False, experts_per_step=0):
         """The w8 serve step at batch 8 with K2's launches counted (and
         K5's: one a cross layer a step, over ``enc_out``), the same tokens
         teacher-forced through K2's plain version (with the kernel run's
         routing replayed, for an MoE model), and the device's busy share
         over 4 steps. K2's launches at M = 8 take the decode body's mma
         path; the cross K and V projections over ``enc_out`` (two a cross
-        layer a step, M = 8 x its length) the large-M body. Returns the
-        step's wall and device ms."""
+        layer a step, M = 8 x its length) the large-M body; the expert
+        products on quantized stacks, ``experts_per_step`` a step, K2's
+        expert body (its bf16 launches counted in ``quant_matmul_mma``
+        too). Returns the step's wall and device ms."""
         serve = QS.make_quant_serve_step(cfg)
         Bd, P, G = SERVING_DECODE
         prompt = torch.randint(0, cfg.vocab_size, (Bd, P), generator=gen,
@@ -3915,7 +4004,12 @@ def serving_steps(card: str, dev, gen, out):
         check(launches["quant_matmul_wgmma"] == wide,
               f"{launches['quant_matmul_wgmma']} quant_matmul launches took "
               f"the large-M body, not the {wide} cross K and V projections")
-        missed = k2 - wide - launches["quant_matmul_mma"]
+        experts = launches["quant_matmul_experts"]
+        check(experts == experts_per_step * (P + G), f"K2's expert body "
+              f"launched {experts} times in {P + G} steps, not "
+              f"{experts_per_step} a step")
+        missed = k2 - wide - (launches["quant_matmul_mma"] - (
+            experts if cfg.dtype == "bfloat16" else 0))
         check(missed == 0, f"{missed} quant_matmul launches at M = {Bd} "
               f"missed the decode body's tensor-core path")
         k5 = n_mixers(cfg, "cross") * (P + G)
@@ -3934,11 +4028,13 @@ def serving_steps(card: str, dev, gen, out):
 
         kern, routes, _ = with_routes(teacher_forced)
         L.quant_matmul = QM.quant_matmul_ref
+        M.quant_matmul_experts = QM.quant_matmul_experts_ref
         try:
             plain, _, flips = with_routes(
                 teacher_forced, routes if replay_routing else None)
         finally:
             L.quant_matmul = QM.quant_matmul
+            M.quant_matmul_experts = QM.quant_matmul_experts
         rels = [_rel(kern[i], plain[i]) for i in range(P + G)]
         same = bool((torch.cat(fed[P:], 1)
                      == kern[P - 1:-1].argmax(-1).t()).all())
@@ -4537,14 +4633,18 @@ def mla_cross_serving(card: str, dev):
         mla_decode_vs_prefill(31, cfg, params, bounds["decode"])
         engine(31, "deepseek-v2", cfg, params, 64)
         qparams = QS.quantize_params(params, bits=8)
-        del params      # the w8 step dequantizes the expert stacks
+        del params      # the w8 step reads the payloads alone
         free()
         # a layer: w_dq, w_uq, w_dkv, w_kr and wo; the dense FFN's or
-        # the shared experts' 3; the LM head
+        # the shared experts' 3; the LM head. A MoE layer's three expert
+        # products: K2's expert body
         w8_decode(31, "deepseek-v2", cfg, qparams,
                   8 * cfg.num_layers + 1, bounds["w8"],
-                  replay_routing=True)
+                  replay_routing=True,
+                  experts_per_step=3 * DEEPSEEK_MOE_LAYERS)
         del qparams
+        free()
+        out["k2_experts"] = expert_products(31, card, dev)
         free()
 
     # -- 32. whisper-base: the encoder and the cross decoder ------------------
@@ -6241,6 +6341,7 @@ def main() -> None:
     print(f"[34] {card}: training " + ", ".join(
         f"{k}: {v}" for k, v in families["train"].items()))
     qmm_entry["cross_projections"] = mla_cross["k2_cross"]
+    qmm_entry["expert_body"] = mla_cross["k2_experts"]
     gc.collect()
     torch.cuda.empty_cache()        # the family states are gone
     # phases 35-38: the planning path (dry-run, its cells on the card, the

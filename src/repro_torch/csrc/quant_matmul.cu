@@ -96,6 +96,40 @@
 //    columns past N (an odd N's last high nibble) are computed but never
 //    written.
 //
+// The expert body (quant_matmul_experts_{,int4_}{bf16,f32}, kernel
+// qmm_experts_kernel): an MoE layer's expert products on its stacks as
+// stored, y[e] = x[e] @ (w[e] * scales[None, :]) for every expert e in one
+// launch, x the (E, C, K) capacity buffers.
+//  * What it replaces: no TPU kernel (the JAX package dequantizes the
+//    stacks before the step and multiplies outside any Pallas kernel), but
+//    nn/moe's dequantize-then-torch.bmm, which passed over each int8 stack
+//    about five times a step (int8 read, float32 written and read twice,
+//    bf16 written) and read the bf16 copy once more.
+//  * What bounds it: bytes. deepseek-v2's decode at batch 128 gives an
+//    expert C = ceil(128 x 6 / 160 x 1.25) = 6 rows, ~6 multiply-adds a
+//    weight byte against the ~295 at which the tensor cores would bound
+//    it; the least time is the stacks over the HBM rate (3.38 ms for the
+//    11.32 GB of deepseek-v2-l4's three MoE layers).
+//  * Design: the decode body (qmm_body), shared and unchanged, on a grid
+//    of (strips x split, E) blocks, blockIdx.y naming the expert's x,
+//    payload and y. Strips are chosen as for the decode body, over strips
+//    x E blocks: deepseek-v2's gate and up (K 5120, N 1536) at C = 6 take
+//    64-column strips, 24 x 160 = 3840 blocks, its down product (K 1536,
+//    N 5120) 80 x 160 = 12800. A split-K cluster only where strips x E
+//    fall short of a wave (experts_grid_for): each block reads its
+//    expert's strip over the whole of K once, and its sums have one order.
+//  * C past one row tile (8, 16 or 64 rows, n_tiles_for; the cache fill
+//    before decoding, 8 prompts of 512 tokens a call, gives C = 192): a
+//    block takes the tiles one after the other, streaming its weight
+//    chunk through the ring again for each, from L2 where it has just
+//    read it (at most K x 64 bytes a block); no other block reads it.
+//    64-row tiles of an int8 payload take 32-column strips where the
+//    dense body keeps 16 (launch_nt): a strip stages all of its expert's
+//    x, so the narrower strip reads x from L2 twice as often.
+//  * The scale after the k-sum, bf16 x on mma.sync, float32 x on the CUDA
+//    cores, the packed 4-bit payloads, the ragged edges and the launch
+//    with programmatic stream serialization: all the decode body's.
+//
 // The large-M body (quant_matmul_wide_{bf16,int4_bf16}, namespace wide).
 //  * Where it runs: the w8 decode step's cross K and V projections, made
 //    again at every step over the whole context: llama-3.2-vision's at
@@ -205,11 +239,17 @@ __device__ __forceinline__ uint32_t i4x2_to_bf16x2(uint32_t r) {
   return i4x2_to_bf16x2_at(r, S);
 }
 
+// The decode body: a block's strip of BN output columns (blockIdx.x over
+// the strips and the ranks of their clusters) for the MB rows of x from
+// row m0, staged, summed and written; its kernel has waited for the grid
+// before (pdl_enter).
 template <typename T, int NT, int MT, bool kPacked>
-__global__ void __launch_bounds__(kThreads)
-qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-           const float* __restrict__ scales, T* __restrict__ y, int M, int K,
-           int N, int chunk_steps, int flags) {
+__device__ __forceinline__ void qmm_body(const T* __restrict__ x,
+                                         const int8_t* __restrict__ w,
+                                         const float* __restrict__ scales,
+                                         T* __restrict__ y, int M, int K,
+                                         int N, int chunk_steps, int flags,
+                                         int m0) {
   constexpr int MB = 8 * NT;
   constexpr int BN = strip_cols(MT, kPacked);   // columns of the strip
   constexpr int RB = 16 * MT;                   // staged bytes a k row
@@ -233,13 +273,10 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   // the payload's bytes a row and the strip's first byte
   const int NB = kPacked ? (N + 1) / 2 : N;
   const int b0 = kPacked ? n0 / 2 : n0;
-  const int m0 = blockIdx.y * MB;
   const int k_lo = min(K, rank * chunk_steps * kStep);
   const int k_hi = min(K, k_lo + chunk_steps * kStep);
   const int n_pieces = (k_hi - k_lo + kPieceRows - 1) / kPieceRows;
   const bool wvec = flags & 1, xvec = flags & 2;
-
-  pdl_enter();
 
   auto issue = [&](int p) {
     if (p < n_pieces) {
@@ -422,6 +459,40 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   });
 }
 
+template <typename T, int NT, int MT, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+           const float* __restrict__ scales, T* __restrict__ y, int M, int K,
+           int N, int chunk_steps, int flags) {
+  pdl_enter();
+  qmm_body<T, NT, MT, kPacked>(x, w, scales, y, M, K, N, chunk_steps, flags,
+                               blockIdx.y * 8 * NT);
+}
+
+// The expert body: blockIdx.y is the expert e, whose x (C, K), payload
+// (K, N or ceil(N/2) bytes a row) and y (C, N) follow expert e - 1's in
+// memory; the scales are one vector for every expert. A block takes every
+// row tile of C in turn, its weight chunk streamed again for each from L2.
+template <typename T, int NT, int MT, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+qmm_experts_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ scales, T* __restrict__ y,
+                   int C, int K, int N, int chunk_steps, int flags) {
+  const int64_t e = blockIdx.y;
+  const int64_t NB = kPacked ? (N + 1) / 2 : N;
+  x += e * C * K;
+  w += e * K * NB;
+  y += e * C * N;
+  pdl_enter();
+  for (int m0 = 0; m0 < C; m0 += 8 * NT) {
+    // rank 0 has read every rank's sums of the tile before out of its
+    // shared memory, and every warp is done with the ring
+    if (m0 > 0) cg::this_cluster().sync();
+    qmm_body<T, NT, MT, kPacked>(x, w, scales, y, C, K, N, chunk_steps,
+                                 flags, m0);
+  }
+}
+
 // grid of (strips x split, m_tiles) blocks for strips of BN columns
 struct Grid {
   int strips, m_tiles, split, chunk;
@@ -436,15 +507,43 @@ inline Grid grid_for(int M, int K, int N, int MB, int BN) {
   return gr;
 }
 
-template <typename T, int NT, int MT, bool kPacked>
+// The expert body's grid: (strips x split, E) blocks, each over all of C.
+// A cluster splits K only where the strips of every expert leave a wave of
+// kWave blocks short; the dense rule's cap of kMaxSteps steps a block
+// (split_for) would only multiply blocks that already fill the SMs.
+inline Grid experts_grid_for(int E, int K, int N, int BN) {
+  Grid gr;
+  gr.strips = (N + BN - 1) / BN;
+  gr.m_tiles = E;
+  const int steps = (K + kStep - 1) / kStep;
+  const int blocks = gr.strips * E;
+  int s = (kWave + blocks - 1) / blocks;
+  if (s > kMaxSplit) s = kMaxSplit;
+  if (s > steps / kMinSteps) s = steps / kMinSteps;
+  gr.split = s < 1 ? 1 : s;
+  gr.chunk = (steps + gr.split - 1) / gr.split;
+  return gr;
+}
+
+template <bool kExperts>
+Grid grid_of(int M, int K, int N, int MB, int BN, int E) {
+  return kExperts ? experts_grid_for(E, K, N, BN)
+                  : grid_for(M, K, N, MB, BN);
+}
+
+// Launches the dense kernel, or with kExperts the expert body over
+// gr.m_tiles experts of M = C rows each.
+template <typename T, int NT, int MT, bool kPacked, bool kExperts>
 int launch_mt(const void* x, const void* w, const void* scales, void* y,
               int M, int K, int N, int flags, const Grid& gr, void* stream) {
   static bool allowed = false;
-  const int rc = allow_smem(qmm_kernel<T, NT, MT, kPacked>,
+  auto kernel = qmm_kernel<T, NT, MT, kPacked>;
+  if constexpr (kExperts) kernel = qmm_experts_kernel<T, NT, MT, kPacked>;
+  const int rc = allow_smem(kernel,
                             smem_bytes<T, NT, MT, kPacked>(kMaxSplit),
                             allowed);
   if (rc != 0) return rc;
-  return launch_clustered(qmm_kernel<T, NT, MT, kPacked>, gr.strips,
+  return launch_clustered(kernel, gr.strips,
                           gr.split, gr.m_tiles,
                           smem_bytes<T, NT, MT, kPacked>(gr.split), stream,
                           static_cast<const T*>(x),
@@ -455,39 +554,49 @@ int launch_mt(const void* x, const void* w, const void* scales, void* y,
 
 // Strip width: for bf16 x at M <= 16 the widest of 4 and 2 16-byte chunks a
 // k row (64 or 32 int8 columns, 128 or 64 packed ones) that still fills a
-// wave of kWave blocks; one chunk otherwise.
-template <typename T, int NT, bool kPacked>
+// wave of kWave blocks; one chunk otherwise, but 2 (32 columns) for the
+// expert body's 64-row tiles of an int8 payload: its blocks stage x once a
+// strip, and 16-column strips read deepseek-v2's x from L2 96 times a
+// product at C = 192 (8.0 against 4.7 ms on the H100). Four chunks of 64
+// rows outgrow a block's shared memory at a cluster of 8.
+template <typename T, int NT, bool kPacked, bool kExperts>
 int launch_nt(const void* x, const void* w, const void* scales, void* y,
-              int M, int K, int N, int flags, void* stream) {
-  if constexpr (sizeof(T) == 2 && NT <= 2) {
-    for (int MT = 4; MT >= 2; MT /= 2) {
-      const Grid gr = grid_for(M, K, N, 8 * NT, strip_cols(MT, kPacked));
+              int M, int K, int N, int flags, int E, void* stream) {
+  constexpr int kWidest = NT <= 2 ? 4 : kExperts && !kPacked ? 2 : 1;
+  if constexpr (sizeof(T) == 2 && kWidest > 1) {
+    for (int MT = kWidest; MT >= 2; MT /= 2) {
+      const Grid gr = grid_of<kExperts>(M, K, N, 8 * NT,
+                                        strip_cols(MT, kPacked), E);
       if (gr.strips * gr.m_tiles * gr.split < kWave) continue;
-      return MT == 4 ? launch_mt<T, NT, 4, kPacked>(x, w, scales, y, M, K,
-                                                    N, flags, gr, stream)
-                     : launch_mt<T, NT, 2, kPacked>(x, w, scales, y, M, K,
-                                                    N, flags, gr, stream);
+      if constexpr (kWidest == 4) {
+        if (MT == 4)
+          return launch_mt<T, NT, 4, kPacked, kExperts>(
+              x, w, scales, y, M, K, N, flags, gr, stream);
+      }
+      return launch_mt<T, NT, 2, kPacked, kExperts>(
+          x, w, scales, y, M, K, N, flags, gr, stream);
     }
   }
-  return launch_mt<T, NT, 1, kPacked>(
+  return launch_mt<T, NT, 1, kPacked, kExperts>(
       x, w, scales, y, M, K, N, flags,
-      grid_for(M, K, N, 8 * NT, strip_cols(1, kPacked)), stream);
+      grid_of<kExperts>(M, K, N, 8 * NT, strip_cols(1, kPacked), E), stream);
 }
 
-template <typename T, bool kPacked>
+// M rows of x, or with kExperts E experts of M = C rows each
+template <typename T, bool kPacked, bool kExperts = false>
 int launch(const void* x, const void* w, const void* scales, void* y, int M,
-           int K, int N, int flags, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
+           int K, int N, int flags, void* stream, int E = 1) {
+  if (M <= 0 || N <= 0 || E <= 0) return 0;
   switch (n_tiles_for(M)) {
     case 1:
-      return launch_nt<T, 1, kPacked>(x, w, scales, y, M, K, N, flags,
-                                      stream);
+      return launch_nt<T, 1, kPacked, kExperts>(x, w, scales, y, M, K, N,
+                                                flags, E, stream);
     case 2:
-      return launch_nt<T, 2, kPacked>(x, w, scales, y, M, K, N, flags,
-                                      stream);
+      return launch_nt<T, 2, kPacked, kExperts>(x, w, scales, y, M, K, N,
+                                                flags, E, stream);
     default:
-      return launch_nt<T, 8, kPacked>(x, w, scales, y, M, K, N, flags,
-                                      stream);
+      return launch_nt<T, 8, kPacked, kExperts>(x, w, scales, y, M, K, N,
+                                                flags, E, stream);
   }
 }
 
@@ -773,6 +882,43 @@ extern "C" int quant_matmul_int4_bf16(const void* x, const void* w,
                                       void* stream) {
   return launch<__nv_bfloat16, true>(x, w, scales, y, M, K, N, flags,
                                      stream);
+}
+
+// The expert body: y[e] = x[e] @ (w[e] * scales[None, :]) for e < E, x
+// (E, C, K), w (E, K, N) int8 or (packed, the int4_ functions) uint8 (E, K,
+// ceil(N/2)), scales (N,) float32 for every expert, y (E, C, N); all
+// contiguous on the current device. flags as for the decode body (bit 0 of
+// a payload row, bit 1 of an x row). Returns the CUDA error of the launch.
+extern "C" int quant_matmul_experts_f32(const void* x, const void* w,
+                                        const void* scales, void* y, int E,
+                                        int C, int K, int N, int flags,
+                                        void* stream) {
+  return launch<float, false, true>(x, w, scales, y, C, K, N, flags, stream,
+                                    E);
+}
+
+extern "C" int quant_matmul_experts_bf16(const void* x, const void* w,
+                                         const void* scales, void* y, int E,
+                                         int C, int K, int N, int flags,
+                                         void* stream) {
+  return launch<__nv_bfloat16, false, true>(x, w, scales, y, C, K, N, flags,
+                                            stream, E);
+}
+
+extern "C" int quant_matmul_experts_int4_f32(const void* x, const void* w,
+                                             const void* scales, void* y,
+                                             int E, int C, int K, int N,
+                                             int flags, void* stream) {
+  return launch<float, true, true>(x, w, scales, y, C, K, N, flags, stream,
+                                   E);
+}
+
+extern "C" int quant_matmul_experts_int4_bf16(const void* x, const void* w,
+                                              const void* scales, void* y,
+                                              int E, int C, int K, int N,
+                                              int flags, void* stream) {
+  return launch<__nv_bfloat16, true, true>(x, w, scales, y, C, K, N, flags,
+                                           stream, E);
 }
 
 // The large-M body: x (M, K) bf16, w (K, N) int8 or (packed) uint8 (K,

@@ -11,6 +11,10 @@ large-M body (``wgmma``, bf16 x from ``quant_matmul.ops.wgmma_min_m``
 rows);
 ``LAUNCHES["quant_matmul_int4"]`` those of K2 on a packed 4-bit payload
 (its int4 bodies, either x type);
+``LAUNCHES["quant_matmul_experts"]`` counts the launches of K2's expert
+body (an MoE layer's expert products in one launch), which are counted in
+``quant_matmul_mma`` (bf16 x) and ``quant_matmul_int4`` too, not in
+``quant_matmul``;
 ``LAUNCHES["netlist_sim_smem"]`` those of K1 that took its shared-memory
 body (every population whose table fits in 227 KB at one sample a block).
 ``LAUNCHES["flash_attention_bwd"]`` and ``LAUNCHES["ssm_scan_bwd"]`` count
@@ -36,6 +40,7 @@ LAUNCHES: Dict[str, int] = {"netlist_sim": 0, "netlist_sim_smem": 0,
                              "quant_matmul_mma": 0,
                              "quant_matmul_int4": 0,
                              "quant_matmul_wgmma": 0,
+                             "quant_matmul_experts": 0,
                              "block_sparse_matmul_mma": 0,
                              "flash_attention_bwd": 0,
                              "flash_attention_bwd_wgmma": 0,

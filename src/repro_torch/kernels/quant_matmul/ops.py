@@ -29,6 +29,17 @@ layout, N being ``scales``'s length) and takes the packed-int4 bodies of
 the same kernel file, which read half a byte a weight and unpack in
 registers (counted also in ``LAUNCHES["quant_matmul_int4"]``, and bf16 x
 in the count of the body it took). Any other type or shape raises.
+
+`quant_matmul_experts` is the expert body of the same kernel file: an MoE
+layer's expert products ``y[e] = x[e] @ (w_q[e] * scales[None, :])`` over
+(E, C, K) capacity buffers and an (E, K, N) stack (or its packed (E, K,
+ceil(N/2)) one) in one launch, the scales one vector for every expert, as
+`serve.quantized` takes a stacked leaf's. Its blocks run the decode body
+over (strips, experts), each over every row tile of C, so it suits C below
+`wgmma_min_m`; it launches for CUDA tensors (counted in
+``LAUNCHES["quant_matmul_experts"]``, and in ``quant_matmul_mma`` and
+``quant_matmul_int4`` as K2's launches are, never in ``quant_matmul``),
+runs `quant_matmul_experts_ref` for CPU tensors and has a meta branch.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ import torch
 from repro_torch.kernels import LAUNCHES, check_device, refuse_grad
 from repro_torch.obs import prof as PF
 from repro_torch.kernels.quant_matmul.ref import (is_packed, packed_width,
+                                                  quant_matmul_experts_ref,
                                                   quant_matmul_ref)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -67,12 +79,14 @@ ROW_COST = {128: 1.0, 160: 0.94}
 
 def _kernel(name: str):
     """The C function ``quant_matmul_<name>``: the decode body's
-    ``{,int4_}{bf16,f32}`` (M, K, N, flags) or the large-M body's
-    ``wide_{,int4_}bf16`` (M, K, N, rows)."""
+    ``{,int4_}{bf16,f32}`` (M, K, N, flags), the large-M body's
+    ``wide_{,int4_}bf16`` (M, K, N, rows) or the expert body's
+    ``experts_{,int4_}{bf16,f32}`` (E, C, K, N, flags)."""
     if name not in _FNS:
         from repro_torch.kernels import build
         fn = getattr(build.load("quant_matmul"), f"quant_matmul_{name}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        ints = 5 if name.startswith("experts_") else 4
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -172,10 +186,21 @@ def _flags(x: torch.Tensor, w_q: torch.Tensor) -> int:
     row's bytes, N or ceil(N/2), a multiple of 16, w_q 16-byte aligned);
     bit 1: x's rows are staged by 16-byte copies (K a multiple of the
     values in 16 bytes, x aligned)."""
-    w16 = w_q.shape[1] % 16 == 0 and w_q.data_ptr() % 16 == 0
-    x16 = (x.shape[1] % (16 // x.element_size()) == 0
+    w16 = w_q.shape[-1] % 16 == 0 and w_q.data_ptr() % 16 == 0
+    x16 = (x.shape[-1] % (16 // x.element_size()) == 0
            and x.data_ptr() % 16 == 0)
     return int(w16) | int(x16) << 1
+
+
+def _contiguous_here(name: str, *ts: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and a CUDA one lies on the
+    current device (the kernel launches there)."""
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}'s kernel takes contiguous tensors")
+    x = ts[0]
+    if x.device.type == "cuda" and \
+            x.device.index != torch.cuda.current_device():
+        raise ValueError(f"x lies on {x.device}, not the current device")
 
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -188,12 +213,7 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
         return quant_matmul_ref(x, w_q, scales)
     check_device("quant_matmul", x)
     refuse_grad("quant_matmul", x, w_q, scales)
-    if not (x.is_contiguous() and w_q.is_contiguous()
-            and scales.is_contiguous()):
-        raise ValueError("quant_matmul's kernel takes contiguous tensors")
-    if x.device.type == "cuda" and \
-            x.device.index != torch.cuda.current_device():
-        raise ValueError(f"x lies on {x.device}, not the current device")
+    _contiguous_here("quant_matmul", x, w_q, scales)
     M, K = x.shape
     N = scales.shape[0]
     if max(M, K, N) >= 2 ** 31 or M > 8 * 65535:
@@ -211,33 +231,98 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     else:
         fn = _kernel(("int4_" if packed else "") + _SUFFIX[x.dtype])
         shape = (M, K, N, _flags(x, w_q))
+    counts = ["quant_matmul"] + (
+        [f"quant_matmul_{body}"] if body != "cuda-core" else []) + (
+        ["quant_matmul_int4"] if packed else [])
+    return _launch("quant_matmul", body, fn, shape, counts, (x, w_q, scales),
+                   y, ops, nbytes,
+                   ("quant_matmul", (M, K), (K, N), str(x.dtype))
+                   + (("int4",) if packed else ()), m=M, k=K, n=N)
 
+
+def _launch(name: str, body: str, fn, shape, counts, args, y: torch.Tensor,
+            ops: int, nbytes: int, key, **attrs) -> torch.Tensor:
+    """One launch of the C function ``fn`` on ``args`` (x, w_q, scales),
+    y and ``shape`` on the current stream: a refused launch raises, each
+    name in ``counts`` gains one in ``LAUNCHES``; while launches are
+    observed, inside `PF.kernel` at the site ``kernels.<name>``. Returns
+    y."""
     def launch():
-        rc = fn(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                y.data_ptr(), *shape,
+        rc = fn(*(t.data_ptr() for t in args), y.data_ptr(), *shape,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"quant_matmul kernel launch failed ({body} "
+            raise RuntimeError(f"{name} kernel launch failed ({body} "
                                f"body): CUDA error {rc}")
-        LAUNCHES["quant_matmul"] += 1
-        if body != "cuda-core":
-            LAUNCHES[f"quant_matmul_{body}"] += 1
-        if packed:
-            LAUNCHES["quant_matmul_int4"] += 1
+        for c in counts:
+            LAUNCHES[c] += 1
 
     if not PF.observed():
         launch()
         return y
-    with PF.kernel("kernels.quant_matmul",
-                     ("quant_matmul", (M, K), (K, N), str(x.dtype))
-                     + (("int4",) if packed else ()),
-                     device=x.device, args=(x, w_q, scales), flops=ops,
-                     bytes_accessed=nbytes, library="quant_matmul",
-                     m=M, k=K, n=N) as call:
+    with PF.kernel(f"kernels.{name}", key, device=y.device, args=args,
+                   flops=ops, bytes_accessed=nbytes, library="quant_matmul",
+                   **attrs) as call:
         launch()
         call.outputs = y
     return y
 
 
-__all__ = ["quant_matmul", "quant_matmul_ref", "body_for", "wgmma_min_m",
+def experts_cost(E: int, C: int, K: int, N: int, x_bytes: int,
+                 packed: bool = False) -> Tuple[int, int]:
+    """(operations, bytes) of E expert products of `cost`'s shape, the
+    scales read once for all of them: 2ECKN; each expert's x, payload and
+    y moved once."""
+    ops, nbytes = cost(C, K, N, x_bytes, packed)
+    return E * ops, E * (nbytes - N * 4) + N * 4
+
+
+def _check_experts(x: torch.Tensor, w_q: torch.Tensor,
+                   scales: torch.Tensor) -> bool:
+    """`_check` for the expert body: x (E, C, K), w_q (E, K, N) or (E, K,
+    ceil(N/2)), E at least 1; True for a packed payload."""
+    if x.dim() != 3 or w_q.dim() != 3 or x.shape[0] != w_q.shape[0] or \
+            x.shape[0] < 1:
+        raise ValueError(f"quant_matmul_experts takes x (E, C, K), w_q (E, "
+                         f"K, N) or (E, K, ceil(N/2)), E >= 1; got "
+                         f"{tuple(x.shape)}, {tuple(w_q.shape)}")
+    return _check(x[0], w_q[0], scales)
+
+
+def quant_matmul_experts(x: torch.Tensor, w_q: torch.Tensor,
+                         scales: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ (w_q[e] * scales[None, :]) for every expert e: x (E,
+    C, K) float32/bf16, w_q (E, K, N) int8 or (E, K, ceil(N/2)) uint8
+    packed 4-bit, scales (N,) float32 for every expert -> (E, C, N) in x's
+    dtype, in one launch of K2's expert body."""
+    packed = _check_experts(x, w_q, scales)
+    if x.device.type == "cpu":
+        return quant_matmul_experts_ref(x, w_q, scales)
+    check_device("quant_matmul_experts", x)
+    refuse_grad("quant_matmul_experts", x, w_q, scales)
+    _contiguous_here("quant_matmul_experts", x, w_q, scales)
+    E, C, K = x.shape
+    N = scales.shape[0]
+    if max(C * K, C * N, K) >= 2 ** 31 or E > 65535:
+        raise ValueError(f"quant_matmul_experts: shape {(E, C, K, N)} too "
+                         f"large")
+    y = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
+    ops, nbytes = experts_cost(E, C, K, N, x.element_size(), packed)
+    if x.device.type == "meta":         # the meta branch: no launch
+        PF.launched("kernels.quant_matmul_experts", ops, nbytes,
+                    "quant_matmul")
+        return y
+    fn = _kernel("experts_" + ("int4_" if packed else "") + _SUFFIX[x.dtype])
+    counts = ["quant_matmul_experts"] + (
+        ["quant_matmul_mma"] if x.dtype == torch.bfloat16 else []) + (
+        ["quant_matmul_int4"] if packed else [])
+    return _launch("quant_matmul_experts", "expert", fn,
+                   (E, C, K, N, _flags(x, w_q)), counts, (x, w_q, scales), y,
+                   ops, nbytes,
+                   ("quant_matmul_experts", (E, C, K), (E, K, N),
+                    str(x.dtype)) + (("int4",) if packed else ()),
+                   e=E, m=C, k=K, n=N)
+
+
+__all__ = ["quant_matmul", "quant_matmul_ref", "quant_matmul_experts",
+           "quant_matmul_experts_ref", "body_for", "wgmma_min_m",
            "tma_readable", "WGMMA_MIN_M"]

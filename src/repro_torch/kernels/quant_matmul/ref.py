@@ -62,12 +62,22 @@ def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
     return (x.float() @ w).to(x.dtype)
 
 
+def quant_matmul_experts_ref(x: torch.Tensor, w_q: torch.Tensor,
+                             scales: torch.Tensor) -> torch.Tensor:
+    """x (E, C, K) float, w_q (E, K, N) int8 or (E, K, ceil(N/2)) uint8
+    packed 4-bit, scales (N,) f32 for every expert -> (E, C, N) in x's
+    dtype: `quant_matmul_ref` for each expert."""
+    return torch.stack([quant_matmul_ref(x[e], w_q[e], scales)
+                        for e in range(x.shape[0])])
+
+
 def quant_matmul_tolerance(x: torch.Tensor, w_q: torch.Tensor,
                            scales: torch.Tensor,
                            ref: torch.Tensor) -> torch.Tensor:
     """Elementwise bound on |kernel - plain version| for the same inputs
     (a packed ``w_q`` is unpacked first: both bodies compute on the same
-    integer values).
+    integer values); batched inputs, the expert body's (E, C, K) x and (E,
+    K, N) payload, give the bound of each expert's product.
 
     The plain version sums x_k fl(q_kn s_n) in float32; the kernel sums
     x_k q_kn (exact in float32 for bf16 x, one rounding for float32 x) and
@@ -83,7 +93,7 @@ def quant_matmul_tolerance(x: torch.Tensor, w_q: torch.Tensor,
     eps = torch.finfo(torch.float32).eps
     w = weights(w_q, scales)
     mag = x.float().abs() @ (w.float() * scales.float()[None, :]).abs()
-    tol = 2 * x.shape[1] * eps * mag
+    tol = 2 * x.shape[-1] * eps * mag
     if x.dtype == torch.bfloat16:
         tol = tol + 1.01 * 2.0 ** -7 * ref.float().abs()
     return tol

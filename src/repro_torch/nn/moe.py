@@ -15,13 +15,18 @@ capacity_factor)``) lands in an overflow row ``E*C`` that is dropped: it
 contributes zero, and the residual stream still carries it.
 
 The top-k is a stable descending sort, so equal probabilities keep the
-lower expert first, as ``lax.top_k`` does. The expert stacks are read
-through `layers.real` (a quantized stack is dequantized to the model's
-dtype, as the JAX package dequantizes it before the step); the router is
-float32 in every model, and the shared expert's products go through
-`layers.mlp_apply` (kernel K2 when quantized). The expert products are
-plain ``torch.bmm``: the JAX package computes them outside any Pallas
-kernel.
+lower expert first, as ``lax.top_k`` does. A bf16 or float32 expert stack
+multiplies by plain ``torch.bmm`` (the JAX package computes the products
+outside any Pallas kernel). A quantized stack (`serve.quantized`) is read
+as stored: while the capacity C is below K2's `wgmma_min_m` for its
+payload, each of the three products is one launch of K2's expert body
+(`kernels.quant_matmul.quant_matmul_experts`), which applies the stack's
+one scale vector after the k-sum and never makes a dequantized copy;
+from that C on, the stack is dequantized to the model's dtype by
+`layers.real` (as the JAX package dequantizes it before the step) and
+multiplied by ``torch.bmm``. The router is float32 in every model, and
+the shared expert's products go through `layers.mlp_apply` (kernel K2
+when quantized).
 
 While `obs.trace.recording`, the layer opens the spans ``lm.moe.route``,
 ``lm.moe.dispatch``, ``lm.moe.experts``, ``lm.moe.combine`` and
@@ -40,6 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.kernels.quant_matmul import quant_matmul_experts
+from repro_torch.kernels.quant_matmul.ops import wgmma_min_m
 from repro_torch.nn import layers as L
 from repro_torch.obs import metrics as MT
 from repro_torch.obs import trace as TR
@@ -115,6 +122,17 @@ def route_tokens(p, xf: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
                 slot=slot, keep=keep, order=order)
 
 
+def _expert_product(buf: torch.Tensor, leaf, dtype) -> torch.Tensor:
+    """buf (E, C, K) @ an expert stack (E, K, N): a quantized stack below
+    its payload's `wgmma_min_m` rows of bf16 or float32 buf (the types K2
+    takes) through K2's expert body, anything else through ``torch.bmm``
+    on `layers.real`'s tensor."""
+    if L.is_qleaf(leaf) and buf.dtype in (torch.float32, torch.bfloat16) \
+            and buf.shape[1] < wgmma_min_m(L.is_packed(leaf["q"])):
+        return quant_matmul_experts(buf, leaf["q"], leaf["scale"])
+    return torch.bmm(buf, L.real(leaf, dtype))
+
+
 def _moe_tokens(p, xf: torch.Tensor, cfg: ArchConfig):
     """Route a flat token block (S, d). Returns ((S, d), aux)."""
     S, d = xf.shape
@@ -131,9 +149,9 @@ def _moe_tokens(p, xf: torch.Tensor, cfg: ArchConfig):
 
     with TR.span("lm.moe.experts"):
         ex = p["experts"]
-        g = F.silu(torch.bmm(buf, L.real(ex["wi_gate"], dt)))
-        u = torch.bmm(buf, L.real(ex["wi_up"], dt))
-        y = torch.bmm(g * u, L.real(ex["wo"], dt)).reshape(E * C, d)
+        g = F.silu(_expert_product(buf, ex["wi_gate"], dt))
+        u = _expert_product(buf, ex["wi_up"], dt)
+        y = _expert_product(g * u, ex["wo"], dt).reshape(E * C, d)
 
     with TR.span("lm.moe.combine"):
         w = (r["sw"] * r["keep"].to(r["sw"].dtype))[:, None].to(y.dtype)

@@ -26,10 +26,14 @@ in float32 tile by tile, packed 4-bit payloads in a body of their own
 dequantizes it. The embedding gathers and dequantizes only the rows it
 needs; the tied LM head
 dequantizes the table (see `transformer._lm_head`). RG-LRU's ``w_a`` and
-``w_i``, the MoE expert stacks, MLA's ``w_uk`` and ``w_uv`` and the learned
-position tables are read that way too and used in the JAX package's dtype
-(`nn.rglru`, `nn.moe`, `nn.attention.mla_apply`, `layers.table_rows`):
-the JAX package computes with them outside any Pallas kernel.
+``w_i``, MLA's ``w_uk`` and ``w_uv`` and the learned position tables are
+read that way too and used in the JAX package's dtype (`nn.rglru`,
+`nn.attention.mla_apply`, `layers.table_rows`): the JAX package computes
+with them outside any Pallas kernel. The MoE expert stacks are read as
+stored: their products go through K2's expert body, one launch a product
+over every expert, while the capacity C is below K2's `wgmma_min_m` (a
+decode step's few rows an expert); a larger C dequantizes them as above
+(`nn.moe`).
 """
 from __future__ import annotations
 

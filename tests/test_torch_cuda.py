@@ -14,7 +14,9 @@ gradient; K5 with a window against the banded path, the ring-buffer
 decode against the windowed forward, a recurrent w8 decode through K2 and
 the MoE layer on the card against the CPU; K5 on MLA's padded v and on
 the encoder's and cross attention's shapes, and the MLA, whisper and
-vision prefills and w8 decodes through K5 and K2. They import no
+vision prefills and w8 decodes through K5 and K2; K2's expert body
+(`quant_matmul_experts`) at deepseek-v2's and phi3.5-moe's stack shapes
+and inside the MoE layer. They import no
 JAX (the machine with the card has none) and skip without a CUDA device;
 on the card run them without the JAX-importing conftest:
 
@@ -1086,8 +1088,14 @@ def _traced_cases(device):
     glob_pop = NS.pack_population(CASES["past_smem"][0]())
     glob_x = torch.as_tensor(rng.integers(0, 16, (1, 100, 16)),
                              device=device)
+    qme = (normal(4, 6, 256, dtype=bf),
+           torch.randint(-127, 128, (4, 256, 384), generator=g,
+                         device=device, dtype=torch.int8),
+           normal(384).abs() + 0.01)
     return {
         "kernels.quant_matmul": lambda: QM.quant_matmul(*qm),
+        "kernels.quant_matmul_experts": lambda: QM.quant_matmul_experts(
+            *qme),
         "kernels.clustered_matmul": lambda: CM.clustered_matmul(*cm),
         "kernels.block_sparse_matmul": lambda: BS.block_sparse_matmul(
             *bs, block_k=128, block_n=128),
@@ -1104,7 +1112,8 @@ def _traced_cases(device):
     }
 
 
-TRACED_SITES = ["kernels.quant_matmul", "kernels.clustered_matmul",
+TRACED_SITES = ["kernels.quant_matmul", "kernels.quant_matmul_experts",
+                "kernels.clustered_matmul",
                 "kernels.block_sparse_matmul", "kernels.flash_attention",
                 "kernels.ssm_scan", "kernels.flash_attention_bwd",
                 "kernels.ssm_scan_bwd", "kernels.netlist_sim.smem",
@@ -1791,6 +1800,9 @@ def test_mla_and_cross_prefill_goes_through_k5(card, monkeypatch, name):
 W8_STEP_LAUNCHES = {"deepseek-v2-236b": 7 + 2 * 8 + 1,
                     "whisper-base": 2 * 10 + 1,
                     "llama-3.2-vision-11b": 10 * 7 + 2 * 4 + 1}
+# launches of K2's expert body a step: deepseek's 2 MoE layers, 3 products
+# each on their w8 stacks (4 experts, 512 x 64 and 64 x 512)
+W8_STEP_EXPERT_LAUNCHES = {"deepseek-v2-236b": 2 * 3}
 
 
 @pytest.mark.cuda
@@ -1812,6 +1824,8 @@ def test_mla_and_cross_w8_decode_goes_through_k2(card, monkeypatch, name):
         if variant == "plain":
             monkeypatch.setattr("repro_torch.nn.layers.quant_matmul",
                                 QM.quant_matmul_ref)
+            monkeypatch.setattr("repro_torch.nn.moe.quant_matmul_experts",
+                                QM.quant_matmul_experts_ref)
         state = T.init_decode_state(cfg, 8, 16, torch.float32, device=card)
         if key:
             state["enc_out"] = ctx
@@ -1825,6 +1839,9 @@ def test_mla_and_cross_w8_decode_goes_through_k2(card, monkeypatch, name):
         expect = W8_STEP_LAUNCHES[name] * tokens.shape[1]
         assert LAUNCHES["quant_matmul"] == (expect if variant == "kernel"
                                             else 0)
+        experts = W8_STEP_EXPERT_LAUNCHES.get(name, 0) * tokens.shape[1]
+        assert LAUNCHES["quant_matmul_experts"] == (
+            experts if variant == "kernel" else 0)
     torch.testing.assert_close(logits["kernel"], logits["plain"], rtol=1e-4,
                                atol=1e-4)
 
@@ -1858,6 +1875,9 @@ def _kernel_cases(dev):
                     t(2, 256, 2, 64, grad=True))),
         "k2": (QM.quant_matmul, (t(16, 512), w,
                                  t(384, dtype=torch.float32).abs())),
+        "k2_experts": (QM.quant_matmul_experts, (
+            t(4, 6, 512), torch.stack([w] * 4),
+            t(384, dtype=torch.float32).abs())),
         "k6": (k6, (t(1, 64, 256, grad=True),
                     t(1, 64, 256, dtype=torch.float32, grad=True).abs(),
                     t(1, 64, 16), t(1, 64, 16),
@@ -1867,7 +1887,7 @@ def _kernel_cases(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["k5", "k2", "k6"])
+@pytest.mark.parametrize("case", ["k5", "k2", "k2_experts", "k6"])
 def test_meta_branch_records_the_cost_of_the_cuda_launch(card, case):
     from repro_torch.roofline import analysis as RA
     fn, args = _kernel_cases(card)[case]
@@ -2070,3 +2090,138 @@ def test_quant_matmul_wgmma_body_matches_plain(card, packed, case):
         QM.quant_matmul(x[1:], w, s)
         assert LAUNCHES["quant_matmul_wgmma"] == 0
         assert LAUNCHES["quant_matmul_mma"] == 1
+
+
+# ---------------------------------------------------------------------------
+# K2's expert body: an MoE layer's expert products in one launch
+# ---------------------------------------------------------------------------
+
+# name: (E, C, K, N, bits, x dtype): deepseek-v2's gate/up (5120, 1536) and
+# down (1536, 5120) stacks at the decode's C = 6 and the cache fill's 192
+# (three 64-row tiles a block); phi3.5-moe's (4096, 6400) at batch 128's
+# C = 20; ragged C, K and N (byte loads of x and of the payload, an odd N
+# packed); float32 x on the CUDA cores over two row tiles under a split-K
+# cluster; a lone expert, whose 24 or 96 strips take a cluster (the tiles
+# of C = 192 one after the other in it)
+EXPERT_CASES = {
+    f"deepseek_{name}_c{C}_int{bits}": (160, C, K, N, bits, "bfloat16")
+    for name, K, N in (("gate", 5120, 1536), ("down", 1536, 5120))
+    for C in (6, 192) for bits in (8, 4)}
+EXPERT_CASES.update({
+    "phimoe_c20_int8": (16, 20, 4096, 6400, 8, "bfloat16"),
+    "phimoe_c20_int4": (16, 20, 4096, 6400, 4, "bfloat16"),
+    "ragged_bf16_int8": (7, 70, 1000, 777, 8, "bfloat16"),
+    "ragged_bf16_int4": (7, 70, 1000, 777, 4, "bfloat16"),
+    "ragged_f32_int8": (5, 13, 512, 300, 8, "float32"),
+    "ragged_f32_int4": (5, 13, 512, 301, 4, "float32"),
+    "split_f32_int8": (2, 100, 2048, 256, 8, "float32"),
+    "one_expert_c6": (1, 6, 5120, 1536, 8, "bfloat16"),
+    "one_expert_c192": (1, 192, 5120, 1536, 8, "bfloat16"),
+})
+
+
+def _expert_inputs(card, E, C, K, N, bits, dtype, seed):
+    """x (E, C, K), the stack's payload (int8, or uint8 two 4-bit values a
+    byte) and one scale vector for every expert."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((E, C, K), generator=g, device=card).to(DTYPES[dtype])
+    top = 127 if bits == 8 else 7
+    q = torch.randint(-top, top + 1, (E, K, N), generator=g, device=card,
+                      dtype=torch.int8)
+    s = (torch.rand((N,), generator=g, device=card) + 0.1) * 0.01
+    return x, (q if bits == 8 else QM.pack_int4(q)), s
+
+
+def _experts_within_tolerance(got, x, w, s):
+    """Each expert's product within `quant_matmul_tolerance` of the plain
+    version (one expert at a time: the bound's float32 stack would be 5 GB
+    at deepseek-v2's shape)."""
+    ref = QM.quant_matmul_experts_ref(x, w, s)
+    for e in range(x.shape[0]):
+        tol = QM.quant_matmul_tolerance(x[e], w[e], s, ref[e])
+        assert bool(((got[e].float() - ref[e].float()).abs() <= tol).all()), e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXPERT_CASES))
+def test_quant_matmul_experts_matches_plain(card, case):
+    """K2's expert body against its plain version, expert by expert within
+    `quant_matmul_tolerance`; one launch, counted in
+    ``quant_matmul_experts`` (and ``quant_matmul_mma`` for bf16 x,
+    ``quant_matmul_int4`` for a packed payload), none in ``quant_matmul``;
+    equal to the bit on a rerun."""
+    E, C, K, N, bits, dtype = EXPERT_CASES[case]
+    x, w, s = _expert_inputs(card, E, C, K, N, bits, dtype, E + C + K + N)
+    reset_launches()
+    got = QM.quant_matmul_experts(x, w, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_matmul_experts"] == 1
+    assert LAUNCHES["quant_matmul"] == 0
+    assert LAUNCHES["quant_matmul_mma"] == int(dtype == "bfloat16")
+    assert LAUNCHES["quant_matmul_int4"] == int(bits == 4)
+    assert got.dtype == x.dtype and got.shape == (E, C, N)
+    _experts_within_tolerance(got, x, w, s)
+    again = QM.quant_matmul_experts(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_experts_never_falls_back_on_cuda(card, monkeypatch):
+    """On CUDA tensors the wrapper launches the kernel and never runs its
+    plain version; the inputs it cannot take raise."""
+    def forbidden(*a, **k):
+        raise AssertionError("plain version used on CUDA")
+
+    monkeypatch.setattr(QMO, "quant_matmul_experts_ref", forbidden)
+    x, w, s = _expert_inputs(card, 2, 3, 64, 32, 8, "bfloat16", 1)
+    assert QM.quant_matmul_experts(x, w, s).is_cuda
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        QM.quant_matmul_experts(x.transpose(1, 2).contiguous()
+                                .transpose(1, 2), w, s)
+    with pytest.raises(ValueError):
+        QM.quant_matmul_experts(x, w[:1], s)
+    with pytest.raises(TypeError):
+        QM.quant_matmul_experts(x.half(), w, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quantized_moe_layer_takes_one_expert_launch_a_product(card,
+                                                               monkeypatch,
+                                                               dtype):
+    """phi3.5-moe's MoE layer (reduced) with w8 stacks on the card: one
+    launch of K2's expert body a product, three a layer, no dequantized
+    stack; float32 equal to the same layer through the plain version
+    within the layer's float32 reordering (1e-5), bf16 finite."""
+    import dataclasses
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import moe as MO
+    cfg = ARCHS["phi3.5-moe-42b-a6.6b"].reduced(dtype=dtype)
+    p = MO.moe_init(torch.Generator(device=card).manual_seed(2), cfg,
+                    cfg.dtype, device=card)
+    # the layer's stacks at w8 as `serve.quantized` stores them: one scale
+    # a column over every expert and row
+    for k, w in list(p["experts"].items()):
+        scale = w.float().abs().amax(dim=(0, 1)).clamp_min(1e-12) / 127
+        p["experts"][k] = {"q": torch.round(w.float() / scale).to(
+            torch.int8), "scale": scale}
+    real = L.real
+    monkeypatch.setattr(L, "real", lambda leaf, dt: (
+        pytest.fail("a stack was dequantized") if L.is_qleaf(leaf)
+        else real(leaf, dt)))
+    x = torch.randn((2, 24, cfg.d_model),
+                    generator=torch.Generator(device=card).manual_seed(3),
+                    device=card).to(L.torch_dtype(dtype))
+    reset_launches()
+    got, _ = MO.moe_apply(p, x, dataclasses.replace(cfg))
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_matmul_experts"] == 3
+    assert LAUNCHES["quant_matmul_mma"] == 3 * int(dtype == "bfloat16")
+    assert bool(torch.isfinite(got).all())
+    if dtype == "float32":
+        monkeypatch.setattr(MO, "quant_matmul_experts",
+                            QM.quant_matmul_experts_ref)
+        want, _ = MO.moe_apply(p, x, cfg)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -37,7 +37,10 @@ from repro.serve import quantized as RQ  # noqa: E402
 from repro.train import optimizer as RO  # noqa: E402
 from repro.train import train_state as RTS  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.kernels import quant_matmul as QM  # noqa: E402
+from repro_torch.kernels.quant_matmul import ops as QMO  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.nn import layers as TL  # noqa: E402
 from repro_torch.nn import moe as TM  # noqa: E402
 from repro_torch.nn import transformer as TT  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
@@ -344,3 +347,159 @@ def test_launch_serve_on_the_cpu():
     out = launch_serve.main(["--arch", NAME, "--device", "cpu",
                              "--requests", "3", "--max-new-tokens", "4"])
     assert out["device"] == "cpu" and out["tokens"] == 12
+
+
+# ---------------------------------------------------------------------------
+# quantized expert stacks: K2's expert body below `wgmma_min_m` rows, the
+# dequantized copy and torch.bmm from there on
+# ---------------------------------------------------------------------------
+
+
+def _payload(g, shape, bits):
+    """A stack's integer values on the ``bits`` grid, stored as
+    `serve.quantized` stores them (int8, or uint8 two values a byte)."""
+    top = 127 if bits == 8 else 7
+    q = torch.randint(-top, top + 1, shape, generator=g, dtype=torch.int8)
+    return q if bits == 8 else QM.pack_int4(q)
+
+
+def _quantized(w, bits):
+    """A float stack (E, K, N) as `serve.quantized` stores it: one scale a
+    column over every expert and row, the payload on the ``bits`` grid."""
+    top = 127 if bits == 8 else 7
+    scale = w.float().abs().amax(dim=(0, 1)).clamp_min(1e-12) / top
+    q = torch.round(w.float() / scale).clamp(-top, top).to(torch.int8)
+    return {"q": q if bits == 8 else QM.pack_int4(q), "scale": scale}
+
+
+# (E, C, K, N): C of 1, 6 and 13 rows, a ragged (odd) N, a lone expert
+EXPERT_SHAPES = [(4, 1, 64, 96), (4, 6, 64, 96), (3, 13, 80, 51),
+                 (1, 6, 64, 33)]
+
+
+@pytest.mark.parametrize("shape", EXPERT_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_experts_plain_version_is_the_per_expert_one(shape, dtype, bits):
+    """`quant_matmul_experts` on the CPU (its plain version) is
+    `quant_matmul_ref` applied to each expert, bit for bit."""
+    E, C, K, N = shape
+    g = torch.Generator().manual_seed(E * C + K + N)
+    x = torch.randn((E, C, K), generator=g).to(getattr(torch, dtype))
+    w = _payload(g, (E, K, N), bits)
+    s = (torch.rand((N,), generator=g) + 0.1) * 0.01
+    got = QM.quant_matmul_experts(x, w, s)
+    want = torch.stack([QM.quant_matmul_ref(x[e], w[e], s)
+                        for e in range(E)])
+    assert got.dtype == x.dtype and got.shape == (E, C, N)
+    assert torch.equal(got, want)
+
+
+def _moe_layer(dtype="float32", capacity_factor=1.25):
+    """phi3.5-moe reduced: the config and its first MoE layer's
+    parameters in ``dtype``."""
+    _, cfg = _configs(dict(capacity_factor=capacity_factor), dtype=dtype)
+    p = TM.moe_init(torch.Generator().manual_seed(3), cfg, cfg.dtype,
+                    device="cpu")
+    return cfg, p
+
+
+def _spy(monkeypatch):
+    """Count the calls of K2's expert body from the layer."""
+    calls = []
+    real = TM.quant_matmul_experts
+
+    def counted(x, q, s):
+        calls.append(tuple(x.shape))
+        return real(x, q, s)
+
+    monkeypatch.setattr(TM, "quant_matmul_experts", counted)
+    return calls
+
+
+def _dequantized(monkeypatch):
+    """Count the quantized leaves `layers.real` dequantizes in the
+    layer."""
+    seen = []
+    real = TL.real
+
+    def counted(leaf, dtype):
+        if TL.is_qleaf(leaf):
+            seen.append(tuple(leaf["q"].shape))
+        return real(leaf, dtype)
+
+    monkeypatch.setattr(TL, "real", counted)
+    return seen
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_stacks_below_the_threshold_take_the_expert_body(
+        monkeypatch, bits):
+    """At C below `wgmma_min_m` every one of the three products is one
+    call of K2's expert body, and no stack is dequantized."""
+    cfg, p = _moe_layer()
+    p["experts"] = {k: _quantized(v, bits) for k, v in p["experts"].items()}
+    calls, seen = _spy(monkeypatch), _dequantized(monkeypatch)
+    x = torch.randn((2, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    out, _ = TM.moe_apply(p, x, cfg)
+    C = math.ceil(48 * cfg.moe.top_k / cfg.moe.num_experts *
+                  cfg.moe.capacity_factor)
+    E = cfg.moe.num_experts
+    assert calls == [(E, C, cfg.d_model)] * 2 + [(E, C, cfg.moe.d_expert)]
+    assert seen == [] and bool(torch.isfinite(out).all())
+
+
+# name: (stack dtype, bits, capacity factor, whether the expert body runs):
+# C = ceil(48 x 2 / 4 x cf), at or past the payload's threshold (256 int8,
+# 512 int4), int4 between the two, bf16 stacks at decode's C
+PATHS = {"int8_at_256": ("float32", 8, 256 / 24, False),
+         "int4_at_512": ("float32", 4, 512 / 24, False),
+         "int4_at_256": ("float32", 4, 256 / 24, True),
+         "bf16_stacks": ("bfloat16", None, 1.25, False)}
+
+
+@pytest.mark.parametrize("case", sorted(PATHS))
+def test_the_threshold_and_bf16_stacks_keep_the_bmm_path(monkeypatch, case):
+    """From `wgmma_min_m` rows of its payload on, a quantized stack is
+    dequantized and multiplied by ``torch.bmm``; a bf16 stack always is
+    multiplied as it lies."""
+    dtype, bits, cf, kernel = PATHS[case]
+    cfg, p = _moe_layer(dtype, cf)
+    if bits:
+        p["experts"] = {k: _quantized(v, bits)
+                        for k, v in p["experts"].items()}
+    calls, seen = _spy(monkeypatch), _dequantized(monkeypatch)
+    x = torch.randn((2, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5)).to(
+        TL.torch_dtype(dtype))
+    TM.moe_apply(p, x, cfg)
+    C = math.ceil(48 * 2 / 4 * cf)
+    if bits:
+        assert C >= 256 and (C >= QMO.wgmma_min_m(bits == 4)) != kernel
+    assert len(calls) == (3 if kernel else 0)
+    assert len(seen) == (0 if kernel or not bits else 3)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_expert_body_and_dequantized_bmm_agree_at_float32(monkeypatch,
+                                                          bits):
+    """float32: each expert product of K2's expert body (its plain version
+    here) within `quant_matmul_tolerance` of ``torch.bmm`` on the
+    dequantized stack, and the layer through either path within the
+    layer's tolerance."""
+    cfg, p = _moe_layer()
+    p["experts"] = {k: _quantized(v, bits) for k, v in p["experts"].items()}
+    g = torch.Generator().manual_seed(6)
+    leaf = p["experts"]["wi_gate"]
+    buf = torch.randn((4, 6, cfg.d_model), generator=g)
+    got = TM._expert_product(buf, leaf, torch.float32)
+    ref = torch.bmm(buf, TL.real(leaf, torch.float32))
+    tol = QM.quant_matmul_tolerance(buf, leaf["q"], leaf["scale"], ref)
+    assert bool(((got - ref).abs() <= tol).all())
+    x = torch.randn((2, 24, cfg.d_model), generator=g)
+    fast, _ = TM.moe_apply(p, x, cfg)
+    monkeypatch.setattr(TM, "wgmma_min_m", lambda packed: 0)
+    slow, _ = TM.moe_apply(p, x, cfg)
+    np.testing.assert_allclose(fast.numpy(), slow.numpy(), rtol=LAYER_TOL,
+                               atol=LAYER_TOL)

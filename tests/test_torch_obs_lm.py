@@ -4,10 +4,12 @@
 * Under a CPU `torch.profiler`, a deepseek-v2-shaped decode (MLA, MoE, w8
   expert stacks) and a phi3.5-moe-shaped training step (GQA, MoE, remat)
   emit every span of the model layer and the optimizer, nested as
-  designed (``lm.dequant`` inside ``lm.moe.experts`` inside ``lm.block``),
-  as plain ranges, never user annotations (which Kineto would copy onto
-  the device's timeline). Remat's recompute opens each block's spans a
-  second time, inside ``lm.moe.backward``.
+  designed (``lm.dequant`` inside ``lm.moe.experts`` inside ``lm.block``
+  where the capacity reaches K2's `wgmma_min_m` and the stacks are
+  dequantized; below it they are read as stored and no ``lm.dequant``
+  opens), as plain ranges, never user annotations (which Kineto would
+  copy onto the device's timeline). Remat's recompute opens each block's
+  spans a second time, inside ``lm.moe.backward``.
 * `SpanClock` folds nested spans into per-name time and self time.
 * ``moe.pairs_kept`` is `route_tokens`' ``keep.sum()`` summed over its
   calls, held on the device and read with one ``.item()``; a tensor
@@ -17,6 +19,7 @@
 """
 import collections
 import contextlib
+import dataclasses
 
 import pytest
 import torch
@@ -57,11 +60,20 @@ def _fresh():
         MT.REGISTRY.reset()
 
 
-def _deepseek():
+# the capacity factor at which `_decode`'s 16 tokens give each of the 4
+# experts C = 256 rows, K2's `wgmma_min_m` for int8: the stacks are
+# dequantized (the default 1.25 gives C = 10, K2's expert body)
+PAST_THRESHOLD = 32.0
+
+
+def _deepseek(capacity_factor=None):
     """deepseek-v2 reduced (a dense MLA layer, then 2 MoE layers of 4
     experts, top 2, shared experts), d_model 128 so the expert stacks
-    quantize, at w8."""
+    quantize, at w8; ``capacity_factor`` replaces the config's."""
     cfg = ARCHS["deepseek-v2-236b"].reduced(d_model=128)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
     params = T.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     return cfg, QS.quantize_params(params, 8)
 
@@ -94,7 +106,7 @@ def _inside(a, b) -> bool:
 
 
 def test_decode_emits_every_model_span_nested():
-    cfg, q = _deepseek()
+    cfg, q = _deepseek(PAST_THRESHOLD)
     with _fresh():
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             _decode(cfg, q)
@@ -124,8 +136,27 @@ def test_decode_emits_every_model_span_nested():
     assert times["lm.block"]["self_s"] == pytest.approx(
         times["lm.block"]["s"] - kids, rel=1e-9, abs=1e-9)
     assert counters["moe.pairs"] == 2 * 16 * 2
-    assert counters["moe.slots"] == 2 * 4 * 10
+    assert counters["moe.slots"] == 2 * 4 * 256
     assert 0 < counters["moe.pairs_kept"] <= counters["moe.pairs"]
+
+
+def test_decode_below_the_threshold_opens_no_dequant_span(monkeypatch):
+    """At the decode's C = 10 the w8 stacks go through K2's expert body,
+    three calls a MoE layer: every model span but ``lm.dequant``."""
+    cfg, q = _deepseek()
+    calls = []
+    real = M.quant_matmul_experts
+    monkeypatch.setattr(M, "quant_matmul_experts",
+                        lambda x, w, s: calls.append(x.shape) or real(x, w,
+                                                                      s))
+    with _fresh():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _decode(cfg, q)
+        times = TR.SPANS.totals()
+    names = collections.Counter(e.name() for e in _program_events(prof))
+    assert set(names) == set(times) == MODEL_SPANS - {"lm.dequant"}
+    assert names["lm.moe.experts"] == 2 and len(calls) == 2 * 3
+    assert {tuple(c[:2]) for c in calls} == {(4, 10)}
 
 
 def test_training_step_spans_and_remat_recompute():

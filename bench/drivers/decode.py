@@ -15,7 +15,10 @@ The check runs the reference over the first ``check_rows`` rows of
 ``check_waves`` finished waves drawn from the seed: prompt, fresh token
 and served tokens, with the program's routing groups (its fill calls, then
 one group a step of all ``batch`` rows, whose first rows rank first), and
-reads how far each served token's logit lies below the reference's best.
+reads how far each served token's logit lies below the reference's best:
+the widest gap (``logit_gap``) and the share of served tokens that are not
+the reference's best (``off_best_pct``). A cell's limits file says which
+it compares.
 """
 from __future__ import annotations
 
@@ -55,10 +58,10 @@ def _groups(spec, mix, m: int, L: int, dev):
     for c0 in range(0, P, chunk):
         t = torch.arange(c0, min(P, c0 + chunk), device=dev)[None, :]
         out.append(R.Group((b * L + t).reshape(-1),
-                           R.capacity(min(rows, mix["batch"]) * t.numel(),
-                                      spec)))
+                           R.capacity(spec, min(rows, mix["batch"])
+                                      * t.numel())))
     for p in range(P, L):
-        out.append(R.Group(b[:, 0] * L + p, R.capacity(mix["batch"], spec)))
+        out.append(R.Group(b[:, 0] * L + p, R.capacity(spec, mix["batch"])))
     return out
 
 
@@ -151,6 +154,8 @@ def run(ctx: Context) -> Outcome:
         obs["trace"] = out[0]
         obs["traced_steps"] = n_tr
         obs["k2_bound_s"] = n_tr * YK.k2_step_bound_s(s, B)
+        obs["k2_experts_bound_s"] = n_tr * YK.k2_experts_step_bound_s(
+            s, B, bits)
     peak = D.peak_bytes(dev)
     del qparams, state
     D.free(dev)
@@ -173,12 +178,13 @@ def _check(ctx: Context, prompts, waves):
                                min(mix["check_waves"], len(waves))))
     R.no_tf32()
     w = WT.make(s, ctx.seed, dev)
-    ref = R.Model(s, R.weight_fetch(w, R.scales_of(w, bits), bits, dev))
-    low = R.Model(s, R.weight_fetch(w, R.scales_of(w, 4), 4, dev)) \
+    ref = R.reference(s, R.weight_fetch(w, R.scales_of(w, bits), bits, dev))
+    low = R.reference(s, R.weight_fetch(w, R.scales_of(w, 4), 4, dev)) \
         if ctx.control else None
     L = P + G
     groups = _groups(s, mix, m, L, dev)
     gap, gap_low = 0.0, 0.0
+    n = off = off_low = 0
     with torch.no_grad():
         for i in picked:
             first, served = waves[i]
@@ -190,6 +196,8 @@ def _check(ctx: Context, prompts, waves):
             lg = ref.logits(h[:, P:])
             gaps = R.gap_of(lg, chosen)
             gap = max(gap, float(gaps.max()))
+            n += gaps.numel()
+            off += int((gaps > 0).sum())
             at = int(gaps.argmax())
             row, col = divmod(at, G)
             near = min(float(mg[:, P:].min()) for mg in ref.margins)
@@ -203,10 +211,12 @@ def _check(ctx: Context, prompts, waves):
                 pick = low.logits(hl[:, P:]).argmax(-1)
                 gl = R.gap_of(lg, pick)
                 gap_low = max(gap_low, float(gl.max()))
+                off_low += int((gl > 0).sum())
                 log(ctx, f"control wave {i}: widest gap {float(gl.max()):.4g}"
                     f", {int((gl > 0).sum())} tokens off")
     del w
     D.free(dev)
     log(ctx, f"checked waves {picked}, rows 0-{m - 1}")
-    control = {"logit_gap": gap_low} if ctx.control else {}
-    return {"logit_gap": gap}, control
+    control = {"logit_gap": gap_low, "off_best_pct": 100.0 * off_low / n} \
+        if ctx.control else {}
+    return {"logit_gap": gap, "off_best_pct": 100.0 * off / n}, control

@@ -137,8 +137,8 @@ def _check(ctx: Context, done):
     R.no_tf32()
     w = WT.make(s, ctx.seed, dev)
     fetch = R.weight_fetch(w, {}, 8, dev)
-    ref = R.Model(s, fetch)
-    low = R.Model(s, fetch, R.Precision("fp8")) if ctx.control else None
+    ref = R.reference(s, fetch)
+    low = R.reference(s, fetch, R.Precision("fp8")) if ctx.control else None
     rel = rel_low = 0.0
 
     def distance(got, wants):

@@ -99,7 +99,7 @@ def run(ctx: Context) -> Outcome:
     w0 = WT.make(s, ctx.seed, dev)
     now = {names[p]: t for p, t in T._leaves(state.params)}
     change = {k: float(torch.linalg.vector_norm(
-        now[k].float() - w0[k].float())) for k in w0}
+        now[k].float() - w0[k].float())) for k in w0 if k in now}
     del w0, now, w
     D.free(dev)
     D.sync(dev)
@@ -173,10 +173,12 @@ def reference(ctx: Context, prec=None):
             t = t[i]
         return t
 
-    model = R.Model(s, fetch, prec, grad=True)
+    model = R.reference(s, fetch, prec, grad=True)
     feed = batches(ctx)
     keys = list(p)
-    idx = sample_index(ctx, {k: t.numel() for k, t in p.items()})
+    # elements sampled in the leaves the program has, as its run drew them
+    mine = set(program.leaf_names(s).values())
+    idx = sample_index(ctx, {k: t.numel() for k, t in p.items() if k in mine})
     losses, first, picks = [], {}, {}
     for i in range(1, mix["checked_steps"] + 1):
         tokens = next(feed)
@@ -197,7 +199,8 @@ def reference(ctx: Context, prec=None):
                 gk = gk * scale
                 if i == 1:
                     first[k] = float(torch.linalg.vector_norm(gk))
-                    picks[k] = gk.reshape(-1)[idx[k]].cpu()
+                    if k in idx:
+                        picks[k] = gk.reshape(-1)[idx[k]].cpu()
                 m[k].mul_(a["b1"]).add_((1 - a["b1"]) * gk)
                 v[k].mul_(a["b2"]).add_((1 - a["b2"]) * gk * gk)
                 delta = (m[k] / b1t) / (torch.sqrt(v[k] / b2t) + a["eps"])
@@ -233,6 +236,8 @@ def compare(losses, grads, change, picks, ref) -> Dict[str, float]:
     leaf's. Only the numbers with a limit are compared (PERF.md gives the
     readings of the others)."""
     r_losses, r_grads, r_change, r_picks = ref
+    # the leaves the program has (a family's reference may read more)
+    r_grads = {k: v for k, v in r_grads.items() if k in grads}
     med = statistics.median(r_grads.values())
     keep = [k for k in r_grads if r_grads[k] >= NEGLIGIBLE * med]
     return {"loss": max(abs(a - b) / abs(b) for a, b in zip(losses, r_losses)),

@@ -2,19 +2,22 @@
 port's `ArchConfig` for a `ModelSpec`, and the benchmark's seeded weights
 put into the port's parameter tree.
 
-This is the one module of the harness that imports the port. The tree it
-builds is checked, leaf for leaf, against the shapes and dtypes that the
-port's own `transformer.init` gives on the meta device, so a change of the
-port's layout fails here instead of running on misplaced weights."""
+This and a family's ``bench/harness/family_<model_type>.py``, which may
+replace `arch` and `tree`, are the harness's modules that import the
+port's model. Every tree is checked, leaf for leaf, against the shapes and
+dtypes that the port's own `transformer.init` gives on the meta device,
+so a change of the port's layout fails here instead of running on
+misplaced weights."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
-from bench.reference.spec import ModelSpec
+from bench.reference.spec import ModelSpec, overridable
 
 
+@overridable("harness")
 def arch(spec: ModelSpec):
     """The port's ArchConfig for ``spec``."""
     from repro_torch.configs.base import (ArchConfig, LayerSpec, MLAConfig,
@@ -80,17 +83,17 @@ def _block(w: Dict[str, torch.Tensor], g: str, spec: ModelSpec) -> dict:
 
 def params(w: Dict[str, torch.Tensor], spec: ModelSpec, cfg) -> dict:
     """The port's parameter tree holding the tensors of ``w`` (no copy)."""
-    tree = _tree(w, spec)
-    check_layout(tree, cfg)
-    return tree
+    t = tree(spec, w)
+    check_layout(t, cfg)
+    return t
 
 
-def check_layout(tree, cfg) -> None:
-    """Raise unless ``tree`` has the structure, shapes and dtypes of the
-    port's own parameters for ``cfg``."""
+def check_layout(params_tree, cfg) -> None:
+    """Raise unless ``params_tree`` has the structure, shapes and dtypes of
+    the port's own parameters for ``cfg``."""
     from repro_torch.nn import transformer as T
     want = dict(T._leaves(T.init(torch.Generator(), cfg, device="meta")))
-    got = dict(T._leaves(tree))
+    got = dict(T._leaves(params_tree))
     if set(want) != set(got):
         raise ValueError(f"parameter tree differs from the port's: "
                          f"missing {sorted(set(want) - set(got))}, extra "
@@ -108,12 +111,13 @@ def leaf_names(spec: ModelSpec) -> Dict[tuple, str]:
     from repro_torch.nn import transformer as T
     names = [leaf.name for leaf in WT.leaves(spec)]
     marker = {n: torch.empty(0) for n in names}
-    tree = _tree(marker, spec)
     ids = {id(t): n for n, t in marker.items()}
-    return {path: ids[id(t)] for path, t in T._leaves(tree)}
+    return {path: ids[id(t)] for path, t in T._leaves(tree(spec, marker))}
 
 
-def _tree(w, spec: ModelSpec) -> dict:
+@overridable("harness")
+def tree(spec: ModelSpec, w) -> dict:
+    """The port's parameter tree of the leaves ``w`` (by name)."""
     return {"embed": {"table": w["embed"]},
             "segments": tuple((_block(w, g, spec),)
                               for g, R in (("dense", spec.n_dense),

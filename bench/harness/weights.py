@@ -11,7 +11,10 @@ make them again after the program's state is freed.
 
 Leaves are named as the reference reads them and stacked over the layers
 of a group as the port stacks a segment's repeats: ``dense.*`` holds the
-leading dense layers, ``moe.*`` the MoE layers.
+leading dense layers, ``moe.*`` the MoE layers. A family may draw other
+leaves (`leaves`); one it adds names a ``stream`` of its own, whose two
+buffers are drawn from their own seeds, so the benchmark's leaves keep
+their bits.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
-from bench.reference.spec import ModelSpec
+from bench.reference.spec import ModelSpec, overridable
 
 # elements drawn in float32 at a time (1 GiB)
 CHUNK = 1 << 28
@@ -37,6 +40,7 @@ class Leaf(NamedTuple):
     shape: Tuple[int, ...]
     std: float
     f32: bool           # in the float32 buffer, else the model's dtype
+    stream: str = ""    # a family's own buffers ("": the benchmark's)
 
 
 def derive(seed: int, tag: str) -> int:
@@ -74,6 +78,7 @@ def _attn_leaves(s: ModelSpec, g: str, R: int) -> List[Leaf]:
     ]
 
 
+@overridable("harness")
 def leaves(s: ModelSpec) -> List[Leaf]:
     """Every leaf of the model, in drawing order."""
     d = s.d_model
@@ -130,22 +135,28 @@ def make(s: ModelSpec, seed: int, device) -> Dict[str, torch.Tensor]:
     specs = leaves(s)
     dt = _DTYPES[s.dtype]
     bufs = {}
-    for f32, tag in ((False, "weights"), (True, "weights.f32")):
-        n = sum(numel(leaf) for leaf in specs if leaf.f32 == f32)
-        buf = torch.empty(n, dtype=torch.float32 if f32 else dt,
-                          device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(derive(seed, tag))
-        _fill(buf, gen)
-        bufs[f32] = buf
-    out, offset = {}, {False: 0, True: 0}
+    for stream in dict.fromkeys([""] + [leaf.stream for leaf in specs]):
+        for f32 in (False, True):
+            n = sum(numel(leaf) for leaf in specs
+                    if (leaf.stream, leaf.f32) == (stream, f32))
+            if stream and not n:
+                continue
+            tag = ("weights" + (f".{stream}" if stream else "")
+                   + (".f32" if f32 else ""))
+            buf = torch.empty(n, dtype=torch.float32 if f32 else dt,
+                              device=device)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(derive(seed, tag))
+            _fill(buf, gen)
+            bufs[stream, f32] = buf
+    out, offset = {}, dict.fromkeys(bufs, 0)
     for leaf in specs:
-        n = numel(leaf)
-        o = offset[leaf.f32]
-        t = bufs[leaf.f32][o:o + n].view(leaf.shape)
+        key, n = (leaf.stream, leaf.f32), numel(leaf)
+        o = offset[key]
+        t = bufs[key][o:o + n].view(leaf.shape)
         t.mul_(leaf.std)
         out[leaf.name] = t
-        offset[leaf.f32] = o + n
+        offset[key] = o + n
     return out
 
 

@@ -13,6 +13,12 @@ together, so the caller names its calls' groups.
 
 Matrix products go through `Precision`, which is float32 with TF32 off for
 the reference and float8 (e4m3, one scale a tensor) for the control.
+
+A family's reference (`spec`) subclasses `Model`, overriding what its
+published description does otherwise: ``route`` (scores, selection and
+weights), ``rope`` and ``scale`` (the rotary embedding and the softmax
+scale), ``held`` (the experts a layer holds, a chip's share of them). The
+drivers build every reference and control through `reference`.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .spec import ModelSpec
+from .spec import ModelSpec, overridable, part
 
 FP8_MAX = 448.0
 
@@ -133,7 +139,8 @@ class Group:
         self.index, self.capacity = index, capacity
 
 
-def capacity(tokens: int, spec: ModelSpec) -> int:
+@overridable("reference")
+def capacity(spec: ModelSpec, tokens: int) -> int:
     """The port's capacity for a call of ``tokens`` tokens."""
     m = spec.moe
     return max(1, math.ceil(tokens * m.top_k / m.num_experts
@@ -143,21 +150,28 @@ def capacity(tokens: int, spec: ModelSpec) -> int:
 def route(logits: torch.Tensor, top_k: int, C: int,
           swap: Optional[torch.Tensor] = None):
     """logits (S, E) float32 of one group -> (weights (S, k), ids (S, k),
-    kept (S, k) bool, probs (S, E)). ``swap`` (S,) bool: rows that take
-    their (k+1)-th expert in place of their k-th (a near-tie decided the
-    other way)."""
-    probs = torch.softmax(logits, -1)
+    kept (S, k) bool, probs (S, E)): softmax scores, `pick`."""
+    return pick(torch.softmax(logits, -1), top_k, C, swap)
+
+
+def pick(probs: torch.Tensor, top_k: int, C: int,
+         swap: Optional[torch.Tensor] = None):
+    """Router scores (S, E) of one group -> (weights (S, k), ids (S, k),
+    kept (S, k) bool, probs): a stable top-k, its weights renormalized, an
+    expert keeping its first ``C`` pairs in (token, choice) order.
+    ``swap`` (S,) bool: rows that take their (k+1)-th expert in place of
+    their k-th (a near-tie decided the other way)."""
     sw, si = torch.sort(probs, dim=-1, descending=True, stable=True)
-    pick = torch.arange(top_k, device=probs.device).expand(
+    cols = torch.arange(top_k, device=probs.device).expand(
         probs.shape[0], top_k).clone()
     if swap is not None:
-        pick[swap, -1] = top_k
-    topw, topi = sw.gather(-1, pick), si.gather(-1, pick)
+        cols[swap, -1] = top_k
+    topw, topi = sw.gather(-1, cols), si.gather(-1, cols)
     topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
     flat = topi.reshape(-1)
     order = torch.sort(flat, stable=True).indices
     se = flat[order]
-    E = logits.shape[-1]
+    E = probs.shape[-1]
     starts = torch.searchsorted(se, torch.arange(E, device=se.device))
     rank = torch.empty_like(flat)
     rank[order] = torch.arange(flat.numel(), device=se.device) - starts[se]
@@ -180,6 +194,24 @@ class Model:
         # layer -> (n L,) bool: tokens routed with that near-tie flipped
         self.swap: Dict[int, torch.Tensor] = {}
 
+    # -- what a family may override -------------------------------------
+    def route(self, logits, r: int, C: int, swap=None):
+        """An MoE layer's routing (`route`); ``r``: the layer within its
+        group."""
+        return route(logits, self.s.moe.top_k, C, swap)
+
+    def rope(self, x, pos):
+        return rope(x, pos, self.s.rope_theta)
+
+    def scale(self, qk_dim: int) -> float:
+        """Attention's softmax scale for q/k heads of ``qk_dim``."""
+        return qk_dim ** -0.5
+
+    def held(self) -> range:
+        """The experts each MoE layer holds, whose stacks ``fetch``
+        indexes from 0; pairs routed to the others add nothing."""
+        return range(self.s.moe.num_experts)
+
     # -- attention --------------------------------------------------------
     def _mla(self, a, g, r, pos):
         s, P, W = self.s, self.prec, lambda n: self.fetch(f"{g}.{n}", r)
@@ -198,10 +230,10 @@ class Model:
         out = []
         for b in range(n):
             qb = torch.cat([q[b, :, :, :nope],
-                            rope(q[b, :, :, nope:], pos, s.rope_theta)], -1)
-            krb = rope(kr[b], pos, s.rope_theta).expand(L, H, rp)
+                            self.rope(q[b, :, :, nope:], pos)], -1)
+            krb = self.rope(kr[b], pos).expand(L, H, rp)
             kb = torch.cat([k_nope[b], krb], -1)
-            out.append(causal_attention(qb, kb, v[b], (nope + rp) ** -0.5,
+            out.append(causal_attention(qb, kb, v[b], self.scale(nope + rp),
                                         grad=self.grad, prec=P))
         o = torch.stack(out).reshape(n, L, H * m.v_head_dim)
         return P.mm(o, W("wo").reshape(H * m.v_head_dim, d))
@@ -213,9 +245,8 @@ class Model:
         q = P.mm(a, W("wq").reshape(d, -1)).view(n, L, H, hd)
         k = P.mm(a, W("wk").reshape(d, -1)).view(n, L, KV, hd)
         v = P.mm(a, W("wv").reshape(d, -1)).view(n, L, KV, hd)
-        out = [causal_attention(rope(q[b], pos, s.rope_theta),
-                                rope(k[b], pos, s.rope_theta), v[b],
-                                hd ** -0.5, grad=self.grad, prec=P)
+        out = [causal_attention(self.rope(q[b], pos), self.rope(k[b], pos),
+                                v[b], self.scale(hd), grad=self.grad, prec=P)
                for b in range(n)]
         o = torch.stack(out).reshape(n, L, H * hd)
         return P.mm(o, W("wo").reshape(H * hd, d))
@@ -240,8 +271,8 @@ class Model:
         for grp in groups:
             x = flat[grp.index]
             flip = self.swap.get(i)
-            topw, topi, kept, probs = route(
-                x @ router, m.top_k, grp.capacity,
+            topw, topi, kept, probs = self.route(
+                x @ router, r, grp.capacity,
                 None if flip is None else flip[grp.index])
             if margin is not None:
                 top = torch.topk(probs, m.top_k + 1, -1).values
@@ -256,12 +287,16 @@ class Model:
             self.margins.append(margin.view(n, L))
         tok, eid, wt = torch.cat(toks), torch.cat(ids), torch.cat(wts)
         out = torch.zeros_like(flat)
+        held = self.held()
         for e in torch.unique(eid).tolist():
+            if e not in held:
+                continue
             sel = eid == e
             te = tok[sel]
-            y = swiglu(P, flat[te], self.fetch("moe.e_gate", r, e),
-                       self.fetch("moe.e_up", r, e),
-                       self.fetch("moe.e_out", r, e))
+            j = e - held.start
+            y = swiglu(P, flat[te], self.fetch("moe.e_gate", r, j),
+                       self.fetch("moe.e_up", r, j),
+                       self.fetch("moe.e_out", r, j))
             out = out.index_add(0, te, y * wt[sel][:, None])
         out = out.view(n, L, d)
         if m.d_shared:
@@ -294,7 +329,7 @@ class Model:
         n, L = tokens.shape
         if groups is None and s.moe is not None:
             groups = [Group(torch.arange(n * L, device=tokens.device),
-                            capacity(n * L, s))]
+                            capacity(s, n * L))]
         pos = torch.arange(L, device=tokens.device)
         if h is None:
             h = self.fetch("embed")[tokens]
@@ -313,6 +348,14 @@ class Model:
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         return self.prec.mm(h, self.fetch("lm_head"))
+
+
+def reference(spec: ModelSpec, fetch: Fetch,
+              prec: Optional[Precision] = None, *, grad: bool = False):
+    """The reference of ``spec``'s family (its ``Model``, else `Model`),
+    or its control with ``prec`` or a ``fetch`` of fewer bits."""
+    cls = part(spec, "reference", "Model", Model)
+    return cls(spec, fetch, prec, grad=grad)
 
 
 def next_token_loss(model: Model, h: torch.Tensor, tokens: torch.Tensor,

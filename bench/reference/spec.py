@@ -3,19 +3,42 @@ plain description that the reference, the weight generator and the work
 counts share.
 
 The file holds the model's published ``config.json`` keys at the values the
-cell runs. Its ``model_type`` names a parser, ``family_<model_type>.py``
-beside this file, which turns those keys into a `ModelSpec`; a later
-configuration of another family adds its own parser file.
+cell runs. Its ``model_type`` names the model's family, and a family plugs
+into the benchmark through files of its own, each part optional but the
+first, each falling back to the benchmark's own code:
+
+- ``bench/reference/family_<model_type>.py``: ``spec(cfg, name)``, the
+  parser, which may return a subclass of `ModelSpec` with the family's own
+  fields; ``Model``, a subclass of `model.Model` (its router, rotary
+  embedding and softmax scale, the experts a layer holds); and any
+  function of `model` marked `overridable`, such as ``capacity``.
+- ``bench/harness/family_<model_type>.py``: the leaves drawn
+  (``weights.leaves``), the port's ``ArchConfig`` (``program.arch``) and
+  its parameter tree (``program.tree``); it may import the port.
+- ``bench/yardstick/family_<model_type>.py``: any count of ``work`` or
+  ``kernels``, such as ``body_params`` or ``k2_products``.
+
+A part is found by its name: a function of the benchmark marked
+`overridable` is replaced by the family's function of the same name, which
+takes the same arguments and reaches the benchmark's own as
+``<function>.default``. A family registered in `FAMILIES` (the tests') is
+used instead of files.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
+import importlib.util
 import json
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
+BENCH = __package__.rsplit(".", 1)[0]
+# model_type -> an object holding every part of a family, used in place of
+# its files
+FAMILIES: Dict[str, Any] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +67,8 @@ class ModelSpec:
     ``rms_eps``), attention (GQA with rotary q and k, or MLA), residual,
     RMSNorm, SwiGLU FFN or MoE, residual; then a final RMSNorm and an
     untied LM head. Rotary embeddings rotate the two halves of a head's
-    rotary dims at ``rope_theta``."""
+    rotary dims at ``rope_theta``. ``model_type`` names the family whose
+    parts apply (none: the benchmark's own code throughout)."""
     name: str
     vocab_size: int
     d_model: int
@@ -59,6 +83,7 @@ class ModelSpec:
     mla: Optional[MLA]
     moe: Optional[MoE]
     dtype: str = "bfloat16"
+    model_type: str = ""
 
     @property
     def num_layers(self) -> int:
@@ -79,13 +104,54 @@ def load_config(name: str, config_dir: Path = CONFIG_DIR) -> dict:
     return json.loads(path.read_text())
 
 
+def family(model_type: str, layer: str):
+    """What holds ``model_type``'s parts for ``layer`` (``reference``,
+    ``harness`` or ``yardstick``): its entry in `FAMILIES`, else its file
+    ``bench/<layer>/family_<model_type>.py``, else None."""
+    if model_type in FAMILIES:
+        return FAMILIES[model_type]
+    return _module(model_type, layer) if model_type else None
+
+
+@functools.lru_cache(maxsize=None)
+def _module(model_type: str, layer: str):
+    if not model_type.isidentifier():
+        raise ValueError(f"model_type {model_type!r}")
+    module = f"{BENCH}.{layer}.family_{model_type}"
+    if importlib.util.find_spec(module) is None:
+        return None
+    return importlib.import_module(module)
+
+
+def part(spec: ModelSpec, layer: str, name: str, default):
+    """The family's part ``name`` for ``spec``, or ``default``."""
+    fam = family(spec.model_type, layer)
+    return default if fam is None else getattr(fam, name, default)
+
+
+def overridable(layer: str):
+    """Mark a function of ``layer`` whose first argument is a `ModelSpec`
+    as a part a family may replace (the function of the same name in the
+    family's file for ``layer``)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(spec, *args, **kwargs):
+            return part(spec, layer, fn.__name__, fn)(spec, *args, **kwargs)
+        call.default = fn
+        return call
+    return wrap
+
+
 def parse(cfg: dict, name: str) -> ModelSpec:
-    """The `ModelSpec` of a configuration file's contents."""
+    """The `ModelSpec` of a configuration file's contents, by its family's
+    parser."""
     model_type = cfg.get("model_type")
     if not isinstance(model_type, str) or not model_type.isidentifier():
         raise ValueError(f"{name}: model_type {model_type!r}")
-    family = importlib.import_module(f"{__package__}.family_{model_type}")
-    return family.spec(cfg, name)
+    fam = family(model_type, "reference")
+    if fam is None:
+        raise ValueError(f"{name}: no family {model_type!r}")
+    return dataclasses.replace(fam.spec(cfg, name), model_type=model_type)
 
 
 def load_spec(name: str, config_dir: Path = CONFIG_DIR) -> ModelSpec:

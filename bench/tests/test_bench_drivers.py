@@ -69,3 +69,17 @@ def test_same_seed_same_inputs():
     f1, f2 = train.batches(ctx), train.batches(ctx)
     for _ in range(3):
         assert torch.equal(next(f1), next(f2))
+
+
+@pytest.mark.parametrize("fault", [None, "altered"])
+def test_gqa_decode_under_its_cells_limits(fault):
+    """The decode driver on the tiny grouped-query MoE model, judged by
+    phi3.5-moe-l8.decode-w8's limits: a sound run is correct and its
+    control reads far above it; an altered token is not correct."""
+    lim = C.limits("phi3.5-moe-l8.decode-w8")
+    out = run("decode", spec=tiny.GQA_MOE, faults=[fault] if fault else [],
+              control=fault is None)
+    assert C.judge(out.checks, lim) is (fault is None), out.checks
+    if fault is None:
+        assert all(out.control[k] > 10 * max(out.checks[k], 1e-6)
+                   for k in lim), (out.checks, out.control)

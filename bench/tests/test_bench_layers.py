@@ -104,15 +104,17 @@ def test_busy_time_in_no_span():
 
 
 def test_the_ports_spans_under_the_harness_profiler():
-    """A tiny deepseek-v2-shaped w8 decode of the port under
+    """A tiny deepseek-v2-shaped w8 decode of the port (the decode driver's
+    tiny spec, whose w_uk and w_uv quantize) under
     `bench.harness.trace.traced` on the CPU: its spans reach the host list
     and not the device list, and the readers read them."""
-    from repro_torch.configs import ARCHS
+    from bench.harness import program
+    from bench.tests import tiny
     from repro_torch.nn import transformer as T
     from repro_torch.obs import metrics as MT
     from repro_torch.obs import trace as TR
     from repro_torch.serve import quantized as QS
-    cfg = ARCHS["deepseek-v2-236b"].reduced(d_model=128)
+    cfg = program.arch(tiny.SPECS["decode"])
     q = QS.quantize_params(T.init(torch.Generator().manual_seed(0), cfg,
                                   device="cpu"), 8)
     state = T.init_decode_state(cfg, 2, 16, cfg.dtype, device="cpu")

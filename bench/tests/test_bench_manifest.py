@@ -148,18 +148,36 @@ def test_deepseek_file_holds_every_published_key():
                     assert got[k][kk] == vv, (k, kk)
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-l4", "phi3.5-moe-l2"])
+@pytest.mark.parametrize("name", ["deepseek-v2-l4", "phi3.5-moe-l2",
+                                  "phi3.5-moe-l8"])
 def test_configs_parse_and_keep_the_published_widths(name):
     spec = parse(load_config(name), name)
     cfg = load_config(name)
     assert cfg["hidden_size"] == spec.d_model
+    assert spec.model_type == cfg["model_type"]
     if name == "deepseek-v2-l4":
         assert spec.num_layers == 4 and spec.n_dense == 1
         assert spec.moe.num_experts == 160 and spec.moe.top_k == 6
         assert spec.moe.d_shared == 3072 and spec.head_dim == 192
     else:
-        assert spec.num_layers == 2 and spec.moe.num_experts == 16
+        assert spec.num_layers == int(name[-1])
+        assert spec.moe.num_experts == 16
         assert spec.moe.d_expert == 6400 and spec.num_kv_heads == 8
+
+
+def test_phi_files_differ_in_depth_and_notes_alone():
+    """phi3.5-moe-l8 is phi3.5-moe-l2 eight layers deep: the same run
+    values of every published key, the same keys changed."""
+    notes = {"reduced", "departures", "deployment", "assumed_why"}
+    a, b = load_config("phi3.5-moe-l2"), load_config("phi3.5-moe-l8")
+    assert set(a) == set(b)
+    assert {k for k in a if a[k] != b[k]} - notes == {"num_hidden_layers"}
+    assert set(a["reduced"]) == set(b["reduced"])
+    assert b["reduced"]["num_hidden_layers"]["published"] == 32
+    conf = {c["name"]: c for c in MAN["configs"]}
+    assert conf["phi3.5-moe-l8"]["reduced"] == conf["phi3.5-moe-l2"][
+        "reduced"]
+    assert conf["phi3.5-moe-l8"]["source"] == conf["phi3.5-moe-l2"]["source"]
 
 
 def test_limits_files_cover_the_cells():

@@ -103,3 +103,16 @@ def test_result_line_keys_and_order():
 def test_nearest_rank():
     assert C.nearest_rank(list(range(1, 101)), 0.95) == 95
     assert C.nearest_rank([3.0], 0.95) == 3.0
+
+
+def test_expert_body_roofline_reads_its_own_kernel_only():
+    dev = [("void (anonymous namespace)::qmm_experts_kernel<__nv_bfloat16, "
+            "1, 4>(...)", 0, 4 * MS),
+           ("void (anonymous namespace)::qmm_kernel<__nv_bfloat16, 8, 1, "
+            "false>(...)", 4 * MS, 5 * MS)]
+    o = dict(obs(), trace=Summary(dev, [], 0.01), k2_experts_bound_s=3e-3)
+    read = lambda n: C.reader(n).read(o)
+    assert read("k2_experts_roofline.decode") == pytest.approx(75.0)
+    assert read("k2_roofline.decode") == pytest.approx(100.0)
+    del o["k2_experts_bound_s"]
+    assert read("k2_experts_roofline.decode") is None

@@ -3,11 +3,13 @@ bytes a decode step must read. These are the model's work, not what the
 port happens to compute: routed experts count at top_k of them per token
 (no capacity padding), attention counts the causal pairs, MLA's decode
 counts its absorbed form over the compressed cache, and a prefill counts
-the LM head at the one position whose logits it serves."""
+the LM head at the one position whose logits it serves. A family may
+count otherwise (``bench/yardstick/family_<model_type>.py``,
+`spec.overridable`)."""
 from __future__ import annotations
 
 from bench.reference.quant import quantized
-from bench.reference.spec import ModelSpec
+from bench.reference.spec import ModelSpec, overridable
 
 
 def _attn_params(s: ModelSpec) -> int:
@@ -30,6 +32,7 @@ def _ffn_params(s: ModelSpec, kind: str) -> int:
     return d * m.num_experts + m.top_k * 3 * d * m.d_expert + 3 * d * m.d_shared
 
 
+@overridable("yardstick")
 def body_params(s: ModelSpec) -> int:
     """Weights one token multiplies through the layers (no embedding, no
     LM head)."""
@@ -41,6 +44,7 @@ def _pair_flops(s: ModelSpec) -> int:
     return 2 * s.num_heads * (s.head_dim + s.v_head_dim)
 
 
+@overridable("yardstick")
 def forward_flops(s: ModelSpec, L: int, lm_positions: int) -> float:
     """One causal sequence of L tokens, the LM head at ``lm_positions``."""
     pairs = L * (L + 1) // 2
@@ -49,15 +53,18 @@ def forward_flops(s: ModelSpec, L: int, lm_positions: int) -> float:
             + float(_pair_flops(s)) * pairs * s.num_layers)
 
 
+@overridable("yardstick")
 def train_flops(s: ModelSpec, B: int, L: int) -> float:
     """A training step: three times the forward (the backward twice)."""
     return 3.0 * B * forward_flops(s, L, L)
 
 
+@overridable("yardstick")
 def prefill_flops(s: ModelSpec, L: int) -> float:
     return forward_flops(s, L, 1)
 
 
+@overridable("yardstick")
 def decode_flops(s: ModelSpec, B: int, ctx: int) -> float:
     """One decode step of B sequences, each token attending ``ctx``
     positions (its own included)."""
@@ -83,6 +90,7 @@ def leaf_bytes(shape, dtype_bytes: int, bits: int) -> int:
     return n * dtype_bytes
 
 
+@overridable("yardstick")
 def cache_bytes_per_pos(s: ModelSpec) -> int:
     """Cache bytes one position holds over all layers (bf16)."""
     if s.mla:
@@ -92,6 +100,7 @@ def cache_bytes_per_pos(s: ModelSpec) -> int:
     return 2 * per * s.num_layers
 
 
+@overridable("yardstick")
 def decode_bytes(s: ModelSpec, B: int, ctx: int, bits: int) -> float:
     """Bytes a decode step must read: every served weight once (the
     embedding only at the B rows gathered), the cache up to ``ctx``
